@@ -1,0 +1,259 @@
+"""Full-black-box membership-inference attack on a GPU (port of
+``ganleaks_tpu.attack.fbb``; reference ``attack_models/fbb.py``).
+
+For each query image (member 'pos' / non-member 'neg') the score is the
+negated distance to its nearest neighbour in the generated set under
+``l2`` or ``l2 + 0.2*LPIPS`` (``utils.py:153-177``). Each image is
+featurised once (``ops/distance``, ``ops/lpips``) and the search is a
+streamed 1-NN (``ops/knn``); ``engine='pallas'`` folds every block through
+the fused CUDA distance+argmin kernel.
+
+Artifacts (byte-compatible with the reference):
+  ``pos_loss.npy``/``neg_loss.npy``  (N, 1) float64 nearest distances;
+  ``pos_idx.npy``/``neg_idx.npy``    sequential 0..N-1 — the reference
+      saves these counters, not the NN indices (``fbb.py:162,171``; the
+      neg file even reuses ``len(pos_loss)``), with the TRUE indices saved
+      as ``pos_nn_idx.npy``/``neg_nn_idx.npy``;
+  closest-pair PNGs for the first 20 queries (``fbb.py:91-106``);
+  ``params.txt``/``params.pkl``, ``metrics.jsonl``.
+
+Only the single-device flat path is ported so far; other layouts raise
+``NotImplementedError`` naming the ROADMAP item.
+"""
+
+from __future__ import annotations
+
+import os
+from dataclasses import replace
+
+import numpy as np
+import torch
+
+from ganleaks_tpu_torch.config import AttackConfig
+from ganleaks_tpu_torch.device import resolve_device
+from ganleaks_tpu_torch.io.artifacts import (check_folder, dump_params,
+                                             save_files)
+from ganleaks_tpu_torch.io.images import to_uint8
+from ganleaks_tpu_torch.ops.distance import make_embed_fn
+from ganleaks_tpu_torch.ops.knn import (PhaseTimer, knn_argmin_streamed,
+                                        truncate_to_batches)
+from ganleaks_tpu_torch.utils.logging import MetricsLogger, Throughput
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def _torch_dtype(name: str) -> torch.dtype:
+    try:
+        return _DTYPES[name]
+    except KeyError:
+        raise ValueError(f"dtype {name!r} is not supported; expected one of "
+                         f"{sorted(_DTYPES)}") from None
+
+
+def resolve_save_dir(cfg: AttackConfig) -> str:
+    """``check_args`` save-dir layout (``fbb.py:42-67``)."""
+    if cfg.params is not None and cfg.hyperparameter_search:
+        subdir = cfg.syn_data_path.rstrip("/")
+        exp_name = cfg.exp_name + "__" + subdir.split("/")[-2]
+        save_dir = os.path.join(os.getcwd(), cfg.save_root, exp_name,
+                                cfg.params)
+    else:
+        save_dir = os.path.join(os.getcwd(), cfg.save_root, cfg.exp_name)
+    return check_folder(save_dir)
+
+
+def build_embed_fn(cfg: AttackConfig, device: torch.device | str = "cpu"):
+    """Flat featuriser for the configured distance, its LPIPS weights on
+    ``device`` (``cfg.lpips_weights`` npz, else the seeded surrogate
+    backbone with the real lin heads)."""
+    dtype = _torch_dtype(cfg.dtype)
+    if cfg.distance == "l2":
+        return make_embed_fn("l2", dtype=dtype)
+    if cfg.distance != "l2-lpips":
+        raise ValueError(f"unknown distance {cfg.distance!r}; "
+                         "expected 'l2' or 'l2-lpips'")
+    from ganleaks_tpu_torch.ops.lpips import (default_lpips_params,
+                                              load_lpips_params,
+                                              lpips_embed_fn)
+    if cfg.lpips_weights:
+        model = load_lpips_params(cfg.lpips_weights)
+    else:
+        model = default_lpips_params(cfg.lpips_net)
+    model = model.to(device).eval()
+    cdt = _torch_dtype(cfg.lpips_compute_dtype) \
+        if cfg.lpips_compute_dtype else None
+    return make_embed_fn(
+        "l2-lpips",
+        lpips_embed_fn(model, weight=0.2, dtype=dtype, compute_dtype=cdt),
+        dtype=dtype)
+
+
+def resolve_auto_engine(cfg: AttackConfig,
+                        device: torch.device | str = "cpu") -> AttackConfig:
+    """``engine='auto'``: on CUDA the fused kernel engine ('pallas', the
+    only engine with a hand-written kernel so far — the JAX package picks
+    taps-int8 on a TPU, which is not ported yet); elsewhere the
+    reference-parity float32 gemm fold. Other engines pass through."""
+    if cfg.engine != "auto":
+        return cfg
+    engine = "pallas" if torch.device(device).type == "cuda" else "gemm"
+    return replace(cfg, engine=engine)
+
+
+def _check_ported(cfg: AttackConfig) -> None:
+    """Refuse the layouts this port does not have yet (ROADMAP queue A)."""
+    if cfg.shard_layout not in ("sharded", "ring"):
+        raise ValueError(f"shard_layout must be 'sharded' or 'ring', "
+                         f"got {cfg.shard_layout!r}")
+    if cfg.n_chips > 1 or cfg.multihost:
+        raise NotImplementedError(
+            "multi-GPU attack layouts are not ported yet (ROADMAP M12)")
+    if cfg.two_pass:
+        raise NotImplementedError(
+            "two_pass needs the top-k kernel, not ported yet (ROADMAP M4.5 "
+            "and K3)")
+    if cfg.engine in ("taps", "taps-int8"):
+        raise NotImplementedError(
+            f"engine {cfg.engine!r} (tap-structured parts) is not ported "
+            f"yet (ROADMAP M4.3 and K2)")
+
+
+def attack_arrays(cfg: AttackConfig, syn, pos, neg,
+                  device: torch.device | str | None = None,
+                  logger: MetricsLogger | None = None) -> dict:
+    """Run the attack on in-memory NHWC image arrays (uint8 bytes or
+    [-1, 1] floats). Returns losses and true NN indices for both query
+    sets, the query-pair rate and the device seconds spent featurising and
+    folding.
+
+    Both query sets go through ONE synthetic sweep (concatenated on the
+    query axis, split after): featurising the generated set dominates and
+    would otherwise run twice (``fbb.py:156-171``)."""
+    device = resolve_device(device)
+    logger = logger or MetricsLogger(echo=False)
+    if cfg.engine == "auto":
+        cfg = resolve_auto_engine(cfg, device)
+        logger.log({"engine_resolved": cfg.engine, "dtype": cfg.dtype})
+    _check_ported(cfg)
+    embed = build_embed_fn(cfg, device)
+
+    if cfg.drop_remainder:  # strict parity with fbb.py:77
+        syn = syn[:truncate_to_batches(len(syn), cfg.BATCH_SIZE)]
+
+    meter = Throughput()
+    timer = PhaseTimer(device)
+    queries = np.concatenate([np.asarray(pos), np.asarray(neg)], axis=0)
+    d, i = knn_argmin_streamed(
+        embed, queries, syn, engine=cfg.engine, q_block=cfg.query_block,
+        s_block=cfg.syn_block,
+        query_cache_bytes=int(cfg.query_cache_gb * (1 << 30)),
+        device=device, timer=timer)
+    loss = d.cpu().numpy().astype(np.float64)  # waits for the device
+    nn = i.cpu().numpy()
+    meter.add(len(queries) * len(syn))
+    secs = timer.seconds()
+    n_pos = len(pos)
+    out = {"pos_loss": loss[:n_pos], "pos_nn_idx": nn[:n_pos],
+           "neg_loss": loss[n_pos:], "neg_nn_idx": nn[n_pos:],
+           "query_pairs_per_sec": meter.rate(),
+           "featurize_s": secs.get("featurize", 0.0),
+           "fold_s": secs.get("fold", 0.0)}
+    logger.log({"query_pairs_per_sec": out["query_pairs_per_sec"],
+                "featurize_s": out["featurize_s"], "fold_s": out["fold_s"],
+                "n_syn": len(syn), "n_pos": n_pos, "n_neg": len(neg),
+                "engine": cfg.engine, "device": str(device)})
+    return out
+
+
+def plot_closest_images(nn_idx: np.ndarray, queries: np.ndarray,
+                        syn: np.ndarray, save_dir: str, class_type: str,
+                        num: int = 20) -> None:
+    """Query|NN side-by-side PNGs (``fbb.py:91-106``). uint8 input goes
+    through the same float64 scale + floor chain as float input, so the
+    PNGs are byte-identical either way."""
+    import PIL.Image
+
+    num = min(num, len(queries))
+    for i in range(num):
+        pair = np.concatenate([queries[i], syn[int(nn_idx[i])]], axis=1)
+        if pair.dtype == np.uint8:
+            pair = (2.0 * (pair.astype(np.float64) / 255.0)
+                    - 1.0).astype(np.float32)
+        PIL.Image.fromarray(to_uint8(pair, drange=(-1, 1))).save(
+            os.path.join(save_dir, f"{i}{class_type}.png"))
+
+
+def _load_images(cfg: AttackConfig, path: str, limit: int | None = None
+                 ) -> np.ndarray:
+    from ganleaks_tpu_torch.io.npz import (load_npz_images,
+                                           resolve_input_format)
+
+    dt = np.uint8 if cfg.uint8_storage else np.float32
+    if resolve_input_format(path, cfg.input_format) == "npz":
+        return load_npz_images(path, cfg.resolution, limit=limit, dtype=dt)
+    from ganleaks_tpu_torch.io.images import load_image_dir
+    return load_image_dir(path, cfg.resolution, limit=limit, dtype=dt)
+
+
+def run_attack(cfg: AttackConfig,
+               device: torch.device | str | None = None) -> list[dict]:
+    """Full driver, including the hyperparameter-search directory sweep
+    (``fbb.py:111-179``): one attack per synthetic subdir, query sets
+    loaded once."""
+    device = resolve_device(device)
+    _check_ported(cfg)
+    if cfg.hyperparameter_search:
+        root = cfg.syn_data_path
+        # hidden dirs are caches, never sweep experiments
+        subdirs = sorted(
+            os.path.join(root, o) for o in os.listdir(root)
+            if os.path.isdir(os.path.join(root, o))
+            and not o.startswith("."))
+    else:
+        subdirs = [cfg.syn_data_path]
+
+    results = []
+    pos = neg = None
+    for subdir in subdirs:
+        sub_cfg = replace(
+            cfg, syn_data_path=subdir,
+            params=(subdir.rstrip("/").split("/")[-1]
+                    if cfg.hyperparameter_search else cfg.params))
+        # resolve 'auto' before the params dump, so the artifact records
+        # the configuration that produced the results
+        was_auto = sub_cfg.engine == "auto"
+        sub_cfg = resolve_auto_engine(sub_cfg, device)
+        save_dir = resolve_save_dir(sub_cfg)
+        dump_params(save_dir, sub_cfg)
+        logger = MetricsLogger(os.path.join(save_dir, "metrics.jsonl"))
+        if was_auto:
+            logger.log({"engine_resolved": sub_cfg.engine,
+                        "dtype": sub_cfg.dtype})
+
+        syn = _load_images(sub_cfg, subdir)
+        if pos is None:  # query sets are subdir-invariant: load once
+            pos = _load_images(sub_cfg, sub_cfg.pos_data_dir,
+                               limit=sub_cfg.data_num)
+            neg = _load_images(sub_cfg, sub_cfg.neg_data_dir,
+                               limit=sub_cfg.data_num)
+
+        out = attack_arrays(sub_cfg, syn, pos, neg, device=device,
+                            logger=logger)
+
+        seq_pos = np.arange(len(out["pos_loss"])).reshape(-1, 1)
+        save_files(save_dir,
+                   ["pos_loss", "pos_idx", "pos_nn_idx"],
+                   [out["pos_loss"].reshape(-1, 1), seq_pos,
+                    out["pos_nn_idx"].reshape(-1, 1)])
+        # the reference reuses len(pos_loss) for the neg counter (fbb.py:171)
+        save_files(save_dir,
+                   ["neg_loss", "neg_idx", "neg_nn_idx"],
+                   [out["neg_loss"].reshape(-1, 1), seq_pos,
+                    out["neg_nn_idx"].reshape(-1, 1)])
+        if sub_cfg.save_plots:
+            plot_closest_images(out["pos_nn_idx"], pos, syn, save_dir, "pos")
+            plot_closest_images(out["neg_nn_idx"], neg, syn, save_dir, "neg")
+        out["save_dir"] = save_dir
+        results.append(out)
+        logger.close()
+    return results

@@ -1,0 +1,143 @@
+"""Typed configuration (copy of the attack/eval part of
+``ganleaks_tpu.config``): one dataclass per entry point, a YAML loader
+(PyYAML imported only when a file or a raw string needs parsing) and
+``key=value`` overrides whose unknown keys raise.
+
+The fields are the JAX package's, so existing YAML configs load unchanged.
+Fields that select a layout this port does not have yet (``n_chips > 1``,
+``multihost``, ``two_pass``, the ``taps``/``taps-int8`` engines) are
+accepted here and refused by ``attack.fbb.attack_arrays`` with a pointer to
+the ROADMAP item.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass
+from typing import Any, Sequence, Type, TypeVar
+
+T = TypeVar("T")
+
+
+def _coerce(value: Any, typ: Any) -> Any:
+    """Best-effort coercion of YAML values onto dataclass field types."""
+    if value is None:
+        return None
+    origin = getattr(typ, "__origin__", None)
+    if origin in (list, tuple, Sequence):
+        inner = typ.__args__[0] if getattr(typ, "__args__", None) else None
+        if isinstance(value, str):
+            # raw CLI strings: parse as YAML so "[4, 2]" lands as a list
+            # (iterating the string would yield its characters)
+            import yaml
+            value = yaml.safe_load(value)
+        if not isinstance(value, (list, tuple)):
+            value = [value]
+        seq = [(_coerce(v, inner) if inner else v) for v in value]
+        return tuple(seq) if origin is tuple else seq
+    if typ is bool:
+        if isinstance(value, str):
+            return value.strip().lower() in ("1", "true", "yes", "on")
+        return bool(value)
+    if typ in (int, float, str):
+        return typ(value)
+    return value
+
+
+def _resolve_type(cls: type, name: str) -> Any:
+    import typing
+
+    return typing.get_type_hints(cls).get(name, Any)
+
+
+def apply_overrides(cfg: T, overrides: dict[str, Any]) -> T:
+    """Return a copy of ``cfg`` with ``overrides`` applied; unknown keys
+    raise so typos fail loudly."""
+    fields = {f.name for f in dataclasses.fields(cfg)}
+    clean: dict[str, Any] = {}
+    for key, val in overrides.items():
+        if key not in fields:
+            raise KeyError(
+                f"unknown config key {key!r} for {type(cfg).__name__}; "
+                f"valid keys: {sorted(fields)}")
+        clean[key] = _coerce(val, _resolve_type(type(cfg), key))
+    return dataclasses.replace(cfg, **clean)
+
+
+def load_config(cls: Type[T], yaml_path: str | None = None,
+                overrides: dict[str, Any] | None = None) -> T:
+    """Build a config: dataclass defaults <- YAML file <- explicit
+    overrides."""
+    cfg = cls()
+    if yaml_path is not None:
+        import yaml
+        with open(yaml_path) as f:
+            data = yaml.safe_load(f) or {}
+        cfg = apply_overrides(cfg, data)
+    if overrides:
+        cfg = apply_overrides(cfg, overrides)
+    return cfg
+
+
+@dataclass
+class AttackConfig:
+    """fbb attack configuration (reference ``attack_models/fbb.py:18-38``);
+    field for field the JAX package's ``AttackConfig``."""
+
+    exp_name: str = "debug"
+    syn_data_path: str | None = None
+    pos_data_dir: str = "data/miniCelebA/train"
+    neg_data_dir: str = "data/miniCelebA/test"
+    data_num: int = 20000          # number of query images considered
+    input_format: str = "auto"     # 'png' | 'npz' | 'auto' per image-set path
+    resolution: int = 64
+    K: int = 1                     # reference config K=1 (always 1-NN)
+    BATCH_SIZE: int = 64           # reference kNN batch (drop_remainder only)
+    distance: str = "l2-lpips"     # 'l2' | 'l2-lpips'
+    lpips_net: str = "vgg"         # only 'vgg' is ported
+    lpips_weights: str | None = None  # LPIPS npz (JAX save_lpips_params schema)
+    hyperparameter_search: bool = False
+    params: str | None = None
+    save_root: str = "fbb_attack"
+    engine: str = "gemm"           # 'auto' | 'gemm' (torch.matmul fold) |
+                                   # 'pallas' (the fused CUDA
+                                   # distance+argmin kernel; the name is
+                                   # kept so existing configs run) |
+                                   # 'exact' (elementwise reference math)
+    dtype: str = "float32"         # embedding dtype: 'float32' | 'bfloat16'
+    lpips_compute_dtype: str | None = None  # tower dtype ('bfloat16')
+    two_pass: bool = False         # not ported yet (ROADMAP)
+    two_pass_k: int = 4
+    query_block: int = 2048        # queries featurised per block
+    syn_block: int = 8192          # synthetic rows featurised per block
+    query_cache_gb: float = 8.0    # device bytes for the query-embedding
+                                   # cache; sets the number of synthetic
+                                   # sweeps
+    uint8_storage: bool = True     # keep image sets as uint8 bytes
+    host_stream: bool | str = "auto"  # the port always ships image blocks
+                                   # from host memory; kept for config
+                                   # compatibility
+    decode_cache: bool | str = "auto"  # JAX-only PNG decode cache; kept for
+                                   # config compatibility
+    drop_remainder: bool = False   # replicate fbb.py:77 remainder drop
+    n_chips: int = 1               # >1 not ported yet (ROADMAP)
+    shard_layout: str = "sharded"  # 'sharded' | 'ring' (multi-GPU, later)
+    multihost: bool = False        # not ported yet (ROADMAP)
+    save_plots: bool = True        # the 20 closest-pair PNGs (needs Pillow)
+    wandb: str | None = None
+    seed: int = 0
+
+
+@dataclass
+class EvalConfig:
+    """ROC evaluation (reference ``attack_models/eval_roc.py:43-55``)."""
+
+    result_load_dir: str | None = None
+    attack_type: str = "fbb"                 # 'fbb' | 'pbb' | 'wb'
+    reference_load_dir: str | None = None    # optional calibration scores
+    save_dir: bool = True
+    precision_threshold: float = -0.14       # hardcoded in eval_roc.py:21-23
+    wandb: str | None = None
+    # non-finite losses are refused unless the caller opts in; the result
+    # then carries degenerate=True
+    allow_nonfinite: bool = False

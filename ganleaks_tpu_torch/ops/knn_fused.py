@@ -1,0 +1,153 @@
+"""Fused distance + first-index argmin: the hand-written CUDA kernel
+``csrc/knn_argmin.cu`` and its plain PyTorch version.
+
+Replaces ``ganleaks_tpu/ops/knn_pallas.py::knn_argmin_pallas`` (Pallas
+kernel ``_knn_kernel``): per query row, the nearest synthetic row under
+``d = ||q||^2 + ||s||^2 - 2 q.s`` with the cross term accumulated in
+float32 and ``torch.min``'s first-index tie-break; the distance matrix never
+reaches memory.
+
+Bound on an H100: ``2*N_q*N_s*K`` operations against ``(N_q+N_s)*K`` input
+elements — at the attack's 2048 x 2048 block with K = 512,000 that is ~2000
+operations per float32 byte, far above the card's balance point, so the
+kernel is bound by arithmetic. It runs true float32 products on the CUDA
+cores (67 TFLOP/s peak; TF32 would cut the products to ~3 digits), so its
+floor at that block is ~64 ms. The design splits the synthetic axis over
+enough blocks to fill all SMs and merges the per-span partials in a second
+pass (see the source's header).
+
+:func:`knn_argmin_fused` launches the kernel for CUDA tensors and counts its
+launches in ``knn_argmin_fused.launches``; it takes the plain version only
+for tensors on the CPU. It never falls back: a failed build or launch
+raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def sq_norms(x: torch.Tensor) -> torch.Tensor:
+    """Float32 squared row norms."""
+    return torch.sum(torch.square(x.float()), dim=1)
+
+
+def knn_argmin_plain(q: torch.Tensor, s: torch.Tensor,
+                     rq: torch.Tensor | None = None,
+                     rs: torch.Tensor | None = None
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version: the full distance matrix, then ``torch.min``
+    along the synthetic axis (first index among equal minima). Returns
+    (d float32 (N_q,), idx int32 (N_q,))."""
+    rq = sq_norms(q) if rq is None else rq
+    rs = sq_norms(s) if rs is None else rs
+    d = rq[:, None] + rs[None, :] - 2.0 * (q.float() @ s.float().T)
+    d_min, idx = torch.min(d, dim=1)
+    return d_min, idx.to(torch.int32)
+
+
+def _check_norms(r: torch.Tensor, n: int, like: torch.Tensor, name: str
+                 ) -> torch.Tensor:
+    if r.shape != (n,) or r.dtype != torch.float32:
+        raise ValueError(f"{name} must be float32 of shape ({n},), got "
+                         f"{r.dtype} {tuple(r.shape)}")
+    if r.device != like.device:
+        raise ValueError(f"{name} is on {r.device}, the embeddings on "
+                         f"{like.device}")
+    if not r.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+    return r
+
+
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _tiles_per_split(n_q: int, n_s: int, tile: int, n_sm: int) -> int:
+    """Synthetic tiles per block: as few as keep >= 2 blocks per SM, so
+    the grid fills the card while each block keeps a long K loop."""
+    n_qt = -(-n_q // tile)
+    n_st = -(-n_s // tile)
+    return max(1, (n_qt * n_st) // (2 * n_sm))
+
+
+def _library():
+    from ganleaks_tpu_torch.ops.cuda_build import load_library
+
+    lib = load_library("knn_argmin")
+    if not getattr(lib, "_ganleaks_typed", False):
+        lib.knn_argmin_tile_rows.argtypes = []
+        lib.knn_argmin_tile_rows.restype = ctypes.c_int
+        lib.knn_argmin_launch.argtypes = (
+            [ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
+            + [ctypes.c_void_p] * 5)
+        lib.knn_argmin_launch.restype = ctypes.c_int
+        lib._ganleaks_typed = True
+    return lib
+
+
+def knn_argmin_fused(q: torch.Tensor, s: torch.Tensor, *,
+                     rq: torch.Tensor | None = None,
+                     rs: torch.Tensor | None = None
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+    """1-NN of every row of ``q`` (N_q, K) among the rows of ``s`` (N_s, K):
+    (d float32 (N_q,), idx int32 (N_q,)), ``d`` the minimal
+    ``rq + rs - 2 q.s`` and ``idx`` its first index.
+
+    ``q`` and ``s``: contiguous, same device, float32 or bfloat16 (products
+    accumulate in float32 either way). ``rq``/``rs``: optional float32
+    squared row norms (computed from the embeddings when absent; the
+    streamed search passes norms taken before a cache-dtype cast)."""
+    if q.dim() != 2 or s.dim() != 2 or q.shape[1] != s.shape[1]:
+        raise ValueError(f"expected q (N_q, K) and s (N_s, K), got "
+                         f"{tuple(q.shape)} and {tuple(s.shape)}")
+    if q.dtype != s.dtype or q.dtype not in _DTYPE_CODES:
+        raise ValueError(f"q and s must share a dtype in float32/bfloat16, "
+                         f"got {q.dtype} and {s.dtype}")
+    if q.device != s.device:
+        raise ValueError(f"q is on {q.device}, s on {s.device}")
+    n_q, k_dim = q.shape
+    n_s = s.shape[0]
+    if n_s == 0:
+        raise ValueError("empty synthetic set")
+    if q.device.type == "cpu":
+        return knn_argmin_plain(q, s, rq, rs)
+    if q.device.type != "cuda":
+        raise ValueError(f"unsupported device {q.device}")
+    if not (q.is_contiguous() and s.is_contiguous()):
+        raise ValueError("q and s must be contiguous")
+    rq = sq_norms(q) if rq is None else _check_norms(rq, n_q, q, "rq")
+    rs = sq_norms(s) if rs is None else _check_norms(rs, n_s, q, "rs")
+    d = torch.empty(n_q, dtype=torch.float32, device=q.device)
+    idx = torch.empty(n_q, dtype=torch.int32, device=q.device)
+    if n_q == 0:
+        return d, idx
+
+    lib = _library()
+    tile = lib.knn_argmin_tile_rows()
+    tps = _tiles_per_split(n_q, n_s, tile, _sm_count(q.device))
+    n_splits = -(-(-(-n_s // tile)) // tps)
+    part_d = torch.empty((n_splits, n_q), dtype=torch.float32,
+                         device=q.device)
+    part_i = torch.empty((n_splits, n_q), dtype=torch.int32,
+                         device=q.device)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.knn_argmin_launch(
+            _DTYPE_CODES[q.dtype], q.data_ptr(), s.data_ptr(),
+            rq.data_ptr(), rs.data_ptr(), n_q, n_s, k_dim, tps,
+            part_d.data_ptr(), part_i.data_ptr(), d.data_ptr(),
+            idx.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"knn_argmin kernel launch failed with CUDA "
+                           f"error {err} (n_q={n_q}, n_s={n_s}, K={k_dim}, "
+                           f"{q.dtype})")
+    knn_argmin_fused.launches += 1
+    return d, idx
+
+
+knn_argmin_fused.launches = 0

@@ -86,3 +86,8 @@ def _mapcount_log(request):
         gc.collect()
         print(f"\n[conftest] map pressure {n} > {_MAP_PRESSURE_LIMIT}: "
               f"cleared jax caches -> {_map_count()} maps")
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA device (skips without one)")
