@@ -4,24 +4,39 @@ it. Run from the repository root:
 
     python3 chip_smoke.py
 
-Phases, each printing one JSON line:
+Phases, each printing JSON lines:
 
 1. device: the card's name and power limit (``nvidia-smi``), torch and CUDA
-   versions, and the build of every kernel library from ``csrc/``;
-2. kernel: the fused distance+argmin kernel against its plain PyTorch
+   versions, and the build of every kernel library from ``csrc/`` (one
+   ``nvcc`` per source, started together);
+2. kernel: the fused distance+argmin kernel (K1) against its plain PyTorch
    version on the card, in float32 and bfloat16 — a ragged synthetic count,
    one smaller than a tile, several tiles per block, K not a multiple of 4,
    the attack's K = 512,000, and planted duplicate rows (exact ties);
-3. attack: the full-width fbb l2-lpips attack (VGG16 at 64x64x3,
+3. topk: the fused distance+top-k kernel (K3) against its plain version,
+   float32 and bfloat16: ragged N_s, N_s < k, a long N_s across many
+   spans, K = 512,000 (zero-mean rows), planted ties across tiles and
+   spans;
+4. epilogue: the tap epilogue kernel (K2) against its plain version on the
+   five 64-px VGG16 taps of 2,048 images as the tower produces them
+   (channels-last views), float32 -> float32, bf16 -> bf16 and
+   bf16 -> int8 (bounds from ``lpips_part_bounds``): parts bit for bit,
+   row norms within rtol 1e-6;
+5. attack: the full-width fbb l2-lpips attack (VGG16 at 64x64x3,
    K = 512,000, seeded surrogate backbone with the real lin heads) through
-   ``run_attack(engine='pallas')`` and ``evaluate`` on 1,024 members, 1,024
-   non-members and 8,192 synthetic images written as npz, with members'
-   noisy copies planted in the synthetic set; then the same arrays through
-   ``engine='gemm'`` (the ``torch.matmul`` fold) as the cross-check;
-4. timing: the kernel, held once more against its plain version, then
-   timed with the plain version and one library composition
-   (``torch.addmm`` + ``torch.min``, timed only) at the attack's block shape
-   (2,048 x 2,048, K = 512,000, float32), beside the card's bound.
+   ``run_attack`` and ``evaluate`` on 1,024 members, 1,024 non-members and
+   8,192 synthetic images written as npz, with members' noisy copies
+   planted in the synthetic set: engines 'pallas' and 'gemm' (the
+   float32 cross-check), 'pallas' with ``two_pass``, 'taps', 'taps-int8'
+   (float32 tower), 'taps-int8' with ``two_pass`` and 'auto' (which must
+   resolve to taps-int8 on a bf16 tower); every loss against the float64
+   distance of its pair, every engine's indices against the float32
+   'pallas' run's;
+6. timing: K1 at the attack's block (2,048 x 2,048, K = 512,000) in
+   float32 and bfloat16, K3 there in bfloat16 and float32, K2 per tap and summed over the five
+   taps of a 2,048-image block — each beside its plain version, its bound
+   and, where one PyTorch call composition computes the same function,
+   that composition (timed only).
 
 Then, on lines of their own, the ``nvidia-smi`` name/power line and the
 ``{"kernels": [...]}`` summary, and last ``{"ok": true, "device": ...}``.
@@ -43,9 +58,10 @@ import numpy as np
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 
-# NVIDIA H100 SXM data sheet (dense, 700 W): float32 on the CUDA cores and
-# device-memory bandwidth
+# NVIDIA H100 SXM data sheet (dense, 700 W): float32 on the CUDA cores,
+# bf16 on the tensor cores, and device-memory bandwidth
 PEAK_FP32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12
 PEAK_HBM_BYTES = 3.35e12
 # |d_kernel - d_plain| <= TOL * (rq + rs): the two sum K products in
 # different orders and rq + rs - 2 q.s cancels
@@ -56,6 +72,7 @@ DEVICE = "cuda"
 N_POS = 1024
 N_SYN = 8192
 RES = 64
+TOPK_K = 4  # AttackConfig.two_pass_k
 
 
 def emit(obj: dict) -> None:
@@ -76,7 +93,7 @@ def nvidia_smi_line() -> str:
 
 
 # ---------------------------------------------------------------------------
-# phase 2: kernel against its plain version
+# phase 2: K1 against its plain version
 # ---------------------------------------------------------------------------
 
 def kernel_inputs(torch, n_q, n_s, k_dim, dtype, ties, gen):
@@ -164,7 +181,155 @@ def phase_kernel(torch) -> float:
 
 
 # ---------------------------------------------------------------------------
-# phase 3: the attack at full width
+# phase 3: K3 against its plain version
+# ---------------------------------------------------------------------------
+
+def reset_launches() -> None:
+    from ganleaks_tpu_torch.ops.knn_fused import (knn_argmin_fused,
+                                                  knn_topk_fused)
+    from ganleaks_tpu_torch.ops.lpips.epilogue import tap_epilogue
+    for fn in (knn_argmin_fused, knn_topk_fused, tap_epilogue):
+        fn.launches = 0
+
+
+def read_launches() -> dict:
+    from ganleaks_tpu_torch.ops.knn_fused import (knn_argmin_fused,
+                                                  knn_topk_fused)
+    from ganleaks_tpu_torch.ops.lpips.epilogue import tap_epilogue
+    return {"knn_argmin": knn_argmin_fused.launches,
+            "knn_topk": knn_topk_fused.launches,
+            "tap_epilogue": tap_epilogue.launches}
+
+
+def hold_topk(torch, name, q, s, rq, rs, k, ties):
+    """K3 against its plain version on the same inputs: the (+inf, -1)
+    fill where N_s < k, every finite d within TOL * (rq + rs), indices
+    equal wherever the plain version's distance at that rank lies further
+    than that from both neighbouring ranks (rank k+1 included), and the
+    planted ties lower index first."""
+    from ganleaks_tpu_torch.ops.knn_fused import (knn_topk_fused,
+                                                  knn_topk_plain)
+    d_k, i_k = knn_topk_fused(q, s, k, rq=rq, rs=rs)
+    d_p1, i_p1 = knn_topk_plain(q, s, k + 1, rq, rs)
+    if DEVICE == "cuda":
+        torch.cuda.synchronize()  # a fault in the kernel surfaces here
+    d_p, i_p = d_p1[:, :k], i_p1[:, :k]
+    fin = torch.isfinite(d_p)
+    check(bool((torch.isfinite(d_k) == fin).all()),
+          f"{name}: finite entries differ from the plain version's")
+    check(bool((i_k[~fin] == -1).all()), f"{name}: fill is not -1")
+    tol = TOL * (rq[:, None] + rs[i_p.long().clamp(min=0)])
+    err = torch.where(fin, (d_k - d_p).abs(), torch.zeros_like(d_k))
+    check(bool((err <= tol).all()),
+          f"{name}: d off by {float((err / tol).max()):.3g} x tolerance")
+    inf = torch.full_like(d_p1[:, :1], torch.inf)
+    ext = torch.cat([-inf, d_p1], dim=1)
+    clear = ((ext[:, 1:k + 1] - ext[:, :k] > tol)
+             & (ext[:, 2:k + 2] - ext[:, 1:k + 1] > tol) & fin)
+    bad = clear & (i_k != i_p)
+    check(not bool(bad.any()),
+          f"{name}: {int(bad.sum())} indices differ at clear ranks")
+    for row, a, b in ties:
+        want = [a, b] if a != b else [a]
+        got = i_k[row, :len(want)].tolist()
+        check(got == want and i_p[row, :len(want)].tolist() == want,
+              f"{name}: planted tie at query {row} -> {got}, want {want}")
+    return {"case": name, "n_q": q.shape[0], "n_s": s.shape[0],
+            "k_dim": q.shape[1], "k": k,
+            "dtype": str(q.dtype).replace("torch.", ""),
+            "max_abs_err": float(err.max()),
+            "max_err_over_tol": float((err / tol).max()),
+            "unclear_entries": int((fin & ~clear).sum()),
+            "ties": len(ties)}
+
+
+def phase_topk(torch) -> float:
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 3)
+    cases = [
+        # ragged n_s (7 tiles + 104 rows), ties across tiles and spans
+        ("ragged", 200, 1000, 1000, 4, [(3, 10, 900), (150, 129, 130)]),
+        ("ragged_k8", 200, 1000, 1000, 8, [(7, 2, 999)]),
+        # fewer synthetic rows than k, K not a multiple of 4
+        ("fewer_than_k", 130, 3, 4099, 4, []),
+        # many tiles per block, the merge across spans
+        ("long_s", 100, 70000, 64, TOPK_K, [(50, 3, 69999)]),
+        # the attack's embedding width (zero-mean rows)
+        ("k512000", 256, 300, 512000, TOPK_K,
+         [(0, 1, 299), (255, 128, 256)]),
+    ]
+    worst = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        for name, n_q, n_s, k_dim, k, ties in cases:
+            q, s, rq, rs = kernel_inputs(torch, n_q, n_s, k_dim, dtype,
+                                         ties, gen)
+            res = hold_topk(torch, name, q, s, rq, rs, k, ties)
+            worst = max(worst, res["max_abs_err"])
+            emit({"phase": "topk", **res})
+    return worst
+
+
+# ---------------------------------------------------------------------------
+# phase 4: K2 against its plain version on the tower's taps
+# ---------------------------------------------------------------------------
+
+def epilogue_modes(torch) -> dict:
+    """name -> (tower dtype, embed dtype, output dtype, int8)."""
+    return {"f32": (None, torch.float32, torch.float32, False),
+            "bf16": (torch.bfloat16, torch.bfloat16, torch.bfloat16, False),
+            "bf16_int8": (torch.bfloat16, torch.bfloat16, torch.int8, True)}
+
+
+def tower_taps(torch, model, x, tower_dtype):
+    """The five taps as the port's tower returns them, with each tap's
+    scale (the main path's featuriser does exactly this)."""
+    from ganleaks_tpu_torch.ops.lpips.lpips import _tap_scale
+    feats = model.features(x, tower_dtype)
+    return [(fl, _tap_scale(w, 0.2, fl.shape[1] * fl.shape[2]))
+            for fl, w in zip(feats, model.lins)]
+
+
+def phase_epilogue(torch) -> float:
+    from ganleaks_tpu_torch.ops.lpips import (default_lpips_params,
+                                              lpips_part_bounds)
+    from ganleaks_tpu_torch.ops.lpips.epilogue import (tap_epilogue,
+                                                       tap_epilogue_plain)
+    model = default_lpips_params().to(DEVICE).eval()
+    bounds = lpips_part_bounds(model, (RES, RES, 3))
+    x = torch.from_numpy(make_images(np.random.default_rng(SEED + 2),
+                                     2 * N_POS, RES)).to(DEVICE)
+    worst = 0.0
+    with torch.inference_mode():
+        for mode, (tdt, edt, odt, quant) in epilogue_modes(torch).items():
+            for i, (fl, sc) in enumerate(tower_taps(torch, model, x, tdt)):
+                kw = dict(embed_dtype=edt, out_dtype=odt,
+                          quant_bound=bounds[i] if quant else None)
+                part, rn = tap_epilogue(fl, sc, **kw)
+                want, rn_want = tap_epilogue_plain(fl, sc, **kw)
+                if DEVICE == "cuda":
+                    torch.cuda.synchronize()
+                diff = (part.float() - want.float()).abs()
+                n_diff = int((part != want).sum())
+                rn_rel = float(((rn - rn_want).abs() / rn_want).max())
+                worst = max(worst, float(diff.max()))
+                emit({"phase": "epilogue", "mode": mode, "tap": i,
+                      "shape": list(fl.shape), "strides": list(fl.stride()),
+                      "out_dtype": str(part.dtype).replace("torch.", ""),
+                      "parts_differing": n_diff,
+                      "max_abs_diff": float(diff.max()),
+                      "rn_max_rel_err": rn_rel})
+                # the limit is bit-for-bit equality: one differing part
+                # element fails the phase
+                check(n_diff == 0, f"epilogue {mode} tap {i}: {n_diff} "
+                                   f"parts differ, max |diff| "
+                                   f"{float(diff.max()):.3g}")
+                check(rn_rel <= 1e-6, f"epilogue {mode} tap {i}: rn off "
+                                      f"by {rn_rel:.3g}")
+                del part, rn, want, rn_want
+    return worst
+
+
+# ---------------------------------------------------------------------------
+# phase 5: the attack at full width
 # ---------------------------------------------------------------------------
 
 def make_images(rng, n: int, res: int = 64) -> np.ndarray:
@@ -178,9 +343,9 @@ def make_images(rng, n: int, res: int = 64) -> np.ndarray:
 
 def pair_distances(torch, embed, queries, syn, idx, device,
                    chunk: int = 256):
-    """float64 ||phi(q_i) - phi(syn[idx_i])||^2 and rq + rs per row, from
+    """float64 ||phi(q_i) - phi(syn[idx_i])||^2, rq and rs per row, from
     float32 embeddings, in chunks of ``chunk`` rows."""
-    d, norms = [], []
+    d, rq, rs = [], [], []
     with torch.inference_mode():
         for lo in range(0, len(queries), chunk):
             eq = embed(torch.from_numpy(queries[lo:lo + chunk])
@@ -188,15 +353,46 @@ def pair_distances(torch, embed, queries, syn, idx, device,
             es = embed(torch.from_numpy(syn[idx[lo:lo + chunk]])
                        .to(device)).double()
             d.append(((eq - es) ** 2).sum(1).cpu().numpy())
-            norms.append(((eq ** 2).sum(1) + (es ** 2).sum(1)).cpu().numpy())
-    return np.concatenate(d), np.concatenate(norms)
+            rq.append((eq ** 2).sum(1).cpu().numpy())
+            rs.append((es ** 2).sum(1).cpu().numpy())
+    return np.concatenate(d), np.concatenate(rq), np.concatenate(rs)
+
+
+# (label, engine, two_pass, extra config), the float32 flat engines first
+ATTACK_RUNS = [
+    ("pallas", "pallas", False, {}),
+    ("gemm", "gemm", False, {}),
+    ("pallas_two_pass", "pallas", True, {}),
+    ("taps", "taps", False, {}),
+    ("taps_int8", "taps-int8", False, {}),
+    ("taps_int8_two_pass", "taps-int8", True, {}),
+    ("auto", "auto", False, {}),
+]
+
+
+def int8_error_bound(torch, cfg, rq, rs):
+    """The two-pass certificate's bound on |d_int8 - d| per pair: the bf16
+    eta (``_default_cert_eta``) plus the int8 quantisation error
+    (``_quant_abs_err``) of the engine's static part bounds."""
+    from ganleaks_tpu_torch.attack.fbb import build_embed_fn
+    from ganleaks_tpu_torch.ops.knn import _default_cert_eta, _quant_abs_err
+    from ganleaks_tpu_torch.ops.lpips.backbones import tap_shapes
+    embed = build_embed_fn(cfg, "cpu", structured=True)
+    bounds = embed.part_bound_fn((RES, RES, 3))
+    widths = [3 * RES * RES] + [h * w * c for h, w, c
+                                in tap_shapes("vgg", (RES, RES, 3))]
+    abs_err = _quant_abs_err(tuple(bounds), [(w,) for w in widths])
+    s = np.sqrt(rq) + np.sqrt(rs)
+    a = _default_cert_eta(True) * s + 2.0 * abs_err
+    return a * (2.0 * s + a), abs_err
 
 
 def phase_attack(torch, tmp: str) -> dict:
+    from dataclasses import replace
+
     from ganleaks_tpu_torch.attack.eval_roc import evaluate
     from ganleaks_tpu_torch.attack.fbb import build_embed_fn, run_attack
     from ganleaks_tpu_torch.config import AttackConfig, EvalConfig
-    from ganleaks_tpu_torch.ops.knn_fused import knn_argmin_fused
 
     n_pos = n_neg = N_POS
     n_syn = N_SYN
@@ -219,79 +415,125 @@ def phase_attack(torch, tmp: str) -> dict:
     base = dict(syn_data_path=paths["syn"], pos_data_dir=paths["pos"],
                 neg_data_dir=paths["neg"], resolution=RES,
                 distance="l2-lpips", dtype="float32", query_block=2048,
-                syn_block=2048, save_plots=False,
+                syn_block=2048, two_pass_k=TOPK_K, save_plots=False,
                 save_root=os.path.join(tmp, "runs"))
+    queries = np.concatenate([pos, neg])
+    embed = build_embed_fn(
+        AttackConfig(distance="l2-lpips", dtype="float32"), DEVICE)
     runs = {}
-    for engine in ("pallas", "gemm"):
-        cfg = AttackConfig(exp_name=f"smoke_{engine}", engine=engine, **base)
+    for label, engine, two_pass, extra in ATTACK_RUNS:
+        cfg = AttackConfig(exp_name=f"smoke_{label}", engine=engine,
+                           two_pass=two_pass, **base, **extra)
         if DEVICE == "cuda":
             torch.cuda.reset_peak_memory_stats()
-        knn_argmin_fused.launches = 0
+        reset_launches()
         t0 = time.perf_counter()
         out = run_attack(cfg, DEVICE)[0]
         e2e = time.perf_counter() - t0
-        launches = knn_argmin_fused.launches
+        launches = read_launches()
         ev = evaluate(EvalConfig(result_load_dir=out["save_dir"]))
-        runs[engine] = {"out": out, "auc": ev["auc"], "launches": launches,
-                        "e2e_s": e2e,
-                        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9
-                        if DEVICE == "cuda" else None}
-        emit({"phase": "attack", "engine": engine, "n_pos": n_pos,
-              "n_neg": n_neg, "n_syn": n_syn, "k": k_dim,
+        with open(os.path.join(out["save_dir"], "metrics.jsonl")) as f:
+            records = [json.loads(line) for line in f]
+        resolved = [r for r in records if "engine_resolved" in r]
+        idx = np.concatenate([out["pos_nn_idx"], out["neg_nn_idx"]])
+        loss = np.concatenate([out["pos_loss"], out["neg_loss"]])
+        d64, rq, rs = pair_distances(torch, embed, queries, syn, idx,
+                                     DEVICE)
+        runs[label] = r = {
+            "out": out, "auc": ev["auc"], "launches": launches,
+            "idx": idx, "loss": loss, "d64": d64, "norms": rq + rs,
+            "err": float((np.abs(loss - d64) / (rq + rs)).max()),
+            "engine_resolved": resolved[0]["engine_resolved"]
+            if resolved else None, "cfg": cfg}
+        if engine in ("taps-int8", "auto") and not two_pass:
+            run_cfg = cfg if engine != "auto" else replace(
+                cfg, engine="taps-int8", dtype="bfloat16",
+                lpips_compute_dtype="bfloat16")
+            r["eps"], abs_err = int8_error_bound(torch, run_cfg, rq, rs)
+            r["abs_err"] = abs_err
+        emit({"phase": "attack", "run": label, "engine": engine,
+              "two_pass": two_pass, "engine_resolved": r["engine_resolved"],
+              "n_pos": n_pos, "n_neg": n_neg, "n_syn": n_syn, "k": k_dim,
               "auroc": ev["auc"], "ap": ev["ap"],
               "kernel_launches": launches,
+              "two_pass_fallbacks": out.get("two_pass_fallbacks"),
+              "loss_err_over_norms": r["err"],
               "featurize_s": out["featurize_s"], "fold_s": out["fold_s"],
               "end_to_end_s": e2e,
               "query_pairs_per_sec": out["query_pairs_per_sec"],
-              "peak_mem_gb": runs[engine]["peak_mem_gb"],
+              "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9
+              if DEVICE == "cuda" else None,
               "data_gen_s": data_s})
 
-    p, g = runs["pallas"], runs["gemm"]
-    check(p["launches"] > 0, "the pallas engine never launched the kernel")
-    check(g["launches"] == 0, "the gemm engine launched the kernel")
+    p = runs["pallas"]
     for key in ("pos_loss", "neg_loss"):
         check(p["out"][key].shape == (n_pos,)
               and bool(np.isfinite(p["out"][key]).all()),
               f"{key}: not {n_pos} finite values")
     check(p["auc"] > 0.9, f"AUROC {p['auc']:.4f} <= 0.9 with planted "
                           f"member copies")
-    check(abs(p["auc"] - g["auc"]) <= 1e-6,
-          f"AUROC pallas {p['auc']} vs gemm {g['auc']}")
-
-    # every loss against the float64 distance of the pair its engine chose
-    # (same float32 embeddings). The kernel's must lie within TOL * (rq +
-    # rs). The gemm fold's error is cuBLAS's float32 sum over K and is only
-    # reported: it is the cross-check, not the kernel under test.
-    queries = np.concatenate([pos, neg])
-    embed = build_embed_fn(
-        AttackConfig(distance="l2-lpips", dtype="float32"), DEVICE)
-    ref = {}
-    for engine, r in runs.items():
-        idx = np.concatenate([r["out"]["pos_nn_idx"],
-                              r["out"]["neg_nn_idx"]])
-        loss = np.concatenate([r["out"]["pos_loss"], r["out"]["neg_loss"]])
-        d64, norms = pair_distances(torch, embed, queries, syn, idx, DEVICE)
-        ref[engine] = (idx, d64, norms, float((np.abs(loss - d64)
-                                                / norms).max()))
-    (i_p, d_p, n_p, e_p), (i_g, d_g, _, e_g) = ref["pallas"], ref["gemm"]
-    check(e_p <= TOL, f"pallas: losses off their float64 distances by "
-                      f"{e_p:.3g} x (rq + rs)")
-    # an engine whose distances are off by at most e * (rq + rs) can only
-    # pick a row whose float64 distance lies within 2 e * (rq + rs) of the
-    # best, so two engines may disagree only between such near-ties
-    mm = i_p != i_g
-    near = 2.0 * max(TOL, e_p, e_g)
-    check(bool((np.abs(d_p - d_g)[mm] <= near * n_p[mm]).all()),
-          f"{int(mm.sum())} index mismatches, not all within "
-          f"{near:.3g} x (rq + rs) of each other")
-    emit({"phase": "attack_check", "index_mismatches": int(mm.sum()),
-          "loss_err_over_norms": {"pallas": e_p, "gemm": e_g},
-          "auroc_pallas": p["auc"], "auroc_gemm": g["auc"]})
-    return {"launches": p["launches"]}
+    check(p["err"] <= TOL, f"pallas: losses off their float64 distances by "
+                           f"{p['err']:.3g} x (rq + rs)")
+    # launches: which kernels each path ran (K1 knn_argmin, K3 knn_topk,
+    # K2 tap_epilogue); the two-pass re-rank and fallback run K1
+    want_launches = {
+        "pallas": ("knn_argmin",), "gemm": (),
+        "pallas_two_pass": ("knn_topk", "knn_argmin"),
+        "taps": ("tap_epilogue", "knn_argmin"),
+        "taps_int8": ("tap_epilogue",),
+        "taps_int8_two_pass": ("tap_epilogue", "knn_argmin"),
+        "auto": ("tap_epilogue",)}
+    for label, r in runs.items():
+        for name, n in r["launches"].items():
+            if name in want_launches[label]:
+                check(n > 0, f"{label}: {name} never launched")
+            else:
+                check(n == 0, f"{label}: {name} launched {n} times")
+    check(runs["auto"]["engine_resolved"] == "taps-int8",
+          f"engine='auto' resolved to {runs['auto']['engine_resolved']}")
+    summary = {}
+    for label, r in runs.items():
+        if label == "pallas":
+            continue
+        int8 = "eps" in r
+        # an engine whose distance to a row is off by at most e can only
+        # pick a row whose float64 distance lies within 2 e of the best,
+        # so two engines may disagree only between such near-ties
+        mm = r["idx"] != p["idx"]
+        if int8:  # each pick's distance is off by at most its eps
+            near = 2.0 * r["eps"] + 2.0 * max(TOL, p["err"]) * p["norms"]
+        else:
+            near = 2.0 * max(TOL, p["err"], r["err"]) * np.maximum(
+                p["norms"], r["norms"])
+        gap = np.abs(r["d64"] - p["d64"])
+        check(bool((gap[mm] <= near[mm]).all()),
+              f"{label}: {int(mm.sum())} index mismatches with the float32 "
+              f"pallas run, not all near-ties")
+        if int8:  # the certificate's own error model
+            check(bool((np.abs(r["loss"] - r["d64"]) <= r["eps"]).all()),
+                  f"{label}: int8 losses outside the certificate bound")
+            check(r["auc"] > 0.9, f"{label}: AUROC {r['auc']:.4f}")
+        elif label != "gemm":  # exact float32 results
+            check(r["err"] <= TOL, f"{label}: losses off float64 by "
+                                   f"{r['err']:.3g} x (rq + rs)")
+        if label == "gemm" or not int8:
+            check(abs(r["auc"] - p["auc"]) <= 1e-6,
+                  f"AUROC {label} {r['auc']} vs pallas {p['auc']}")
+        summary[label] = {
+            "index_mismatches": int(mm.sum()), "auroc": r["auc"],
+            "loss_err_over_norms": r["err"],
+            "two_pass_fallbacks": r["out"].get("two_pass_fallbacks")}
+        if int8:
+            summary[label]["abs_err"] = r["abs_err"]
+            summary[label]["max_err_over_bound"] = float(
+                (np.abs(r["loss"] - r["d64"]) / r["eps"]).max())
+    emit({"phase": "attack_check", "auroc_pallas": p["auc"],
+          "loss_err_over_norms_pallas": p["err"], "runs": summary})
+    return {label: r["launches"] for label, r in runs.items()}
 
 
 # ---------------------------------------------------------------------------
-# phase 4: timing at the attack's block shape
+# phase 6: timing at the attack's block shapes
 # ---------------------------------------------------------------------------
 
 def time_ms(torch, fn, reps: int = 3) -> float:
@@ -307,7 +549,18 @@ def time_ms(torch, fn, reps: int = 3) -> float:
     return start.elapsed_time(end) / reps
 
 
-def phase_timing(torch) -> dict:
+def dtype_name(dtype) -> str:
+    return str(dtype).replace("torch.", "")
+
+
+def bound(flops: float, peak_flops: float, nbytes: float) -> dict:
+    t_ops = flops / peak_flops * 1e3
+    t_bytes = nbytes / PEAK_HBM_BYTES * 1e3
+    return {"bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+
+
+def timing_k1(torch, dtype) -> dict:
     from ganleaks_tpu_torch.ops.knn_fused import (knn_argmin_fused,
                                                   knn_argmin_plain)
     n_q = n_s = 2048
@@ -315,34 +568,124 @@ def phase_timing(torch) -> dict:
     gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
     # no planted near-copy here: its q.s sums 512,000 products >= 0, and at
     # this shape cuBLAS keeps one running float32 sum per output, which
-    # drifts past TOL (phase 3 measures that against float64); phase 2
+    # drifts past TOL (phase 5 measures that against float64); phase 2
     # holds the ties at K = 512,000, a shape where the plain version stays
     # within TOL
-    q, s, rq, rs = kernel_inputs(torch, n_q, n_s, k_dim, torch.float32, [],
-                                 gen)
-    held = hold_against_plain(torch, "main_block", q, s, rq, rs, [])
+    q, s, rq, rs = kernel_inputs(torch, n_q, n_s, k_dim, dtype, [], gen)
+    held = hold_against_plain(torch, f"main_block_{dtype_name(dtype)}", q,
+                              s, rq, rs, [])
     emit({"phase": "kernel", **held})
 
-    def library():
-        return torch.min(torch.addmm(rs[None, :], q, s.T, alpha=-2.0)
-                         + rq[:, None], dim=1)
+    def library():  # one composition of PyTorch calls, timed only
+        return torch.min(torch.addmm(rs[None, :].to(q.dtype), q, s.T,
+                                     alpha=-2.0).float() + rq[:, None],
+                         dim=1)
 
-    max_err = held["max_abs_err"]
     ms = time_ms(torch, lambda: knn_argmin_fused(q, s, rq=rq, rs=rs))
     plain_ms = time_ms(torch, lambda: knn_argmin_plain(q, s, rq, rs))
     library_ms = time_ms(torch, library)
     ms2 = time_ms(torch, lambda: knn_argmin_fused(q, s, rq=rq, rs=rs))
     flops = 2.0 * n_q * n_s * k_dim
-    nbytes = (n_q + n_s) * k_dim * 4 + (n_q + n_s) * 4 + n_q * 8
-    t_ops = flops / PEAK_FP32_FLOPS * 1e3
-    t_bytes = nbytes / PEAK_HBM_BYTES * 1e3
-    res = {"n_q": n_q, "n_s": n_s, "k": k_dim, "dtype": "float32",
-           "ms": min(ms, ms2), "ms_runs": [ms, ms2], "plain_ms": plain_ms,
-           "library_ms": library_ms, "max_abs_err": max_err,
-           "bound_ms": max(t_ops, t_bytes),
-           "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+    nbytes = (n_q + n_s) * k_dim * q.element_size() + (n_q + n_s) * 4 \
+        + n_q * 8
+    peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_FP32_FLOPS
+    res = {"kernel": "knn_argmin", "n_q": n_q, "n_s": n_s, "k": k_dim,
+           "dtype": dtype_name(dtype), "ms": min(ms, ms2),
+           "ms_runs": [ms, ms2], "plain_ms": plain_ms,
+           "library_ms": library_ms, "max_abs_err": held["max_abs_err"],
+           **bound(flops, peak, nbytes),
            "tflops": flops / (min(ms, ms2) * 1e-3) / 1e12}
     emit({"phase": "timing", **res})
+    del q, s
+    return res
+
+
+def timing_k3(torch, dtype) -> dict:
+    from ganleaks_tpu_torch.ops.knn_fused import (knn_topk_fused,
+                                                  knn_topk_plain)
+    n_q = n_s = 2048
+    k_dim = 512000
+    k = TOPK_K
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
+    q, s, rq, rs = kernel_inputs(torch, n_q, n_s, k_dim, dtype, [], gen)
+    held = hold_topk(torch, f"main_block_{dtype_name(dtype)}", q, s, rq, rs,
+                     k, [])
+    emit({"phase": "topk", **held})
+
+    def library():  # one composition of PyTorch calls, timed only
+        dist = (torch.addmm(rs[None, :].to(q.dtype), q, s.T, alpha=-2.0)
+                .float() + rq[:, None])
+        return torch.topk(dist, k, dim=1, largest=False)
+
+    ms = time_ms(torch, lambda: knn_topk_fused(q, s, k, rq=rq, rs=rs))
+    plain_ms = time_ms(torch, lambda: knn_topk_plain(q, s, k, rq, rs))
+    library_ms = time_ms(torch, library)
+    ms2 = time_ms(torch, lambda: knn_topk_fused(q, s, k, rq=rq, rs=rs))
+    flops = 2.0 * n_q * n_s * k_dim
+    elt = q.element_size()
+    nbytes = (n_q + n_s) * k_dim * elt + (n_q + n_s) * 4 + n_q * k * 8
+    # bf16 products are exact in float32, so the bf16 tensor cores could
+    # do the same math: the bf16 bound is at their peak
+    peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_FP32_FLOPS
+    res = {"kernel": "knn_topk", "n_q": n_q, "n_s": n_s, "k_dim": k_dim,
+           "k": k, "dtype": dtype_name(dtype), "ms": min(ms, ms2),
+           "ms_runs": [ms, ms2], "plain_ms": plain_ms,
+           "library_ms": library_ms, "max_abs_err": held["max_abs_err"],
+           **bound(flops, peak, nbytes),
+           "tflops": flops / (min(ms, ms2) * 1e-3) / 1e12}
+    emit({"phase": "timing", **res})
+    del q, s
+    return res
+
+
+def timing_k2(torch, mode: str) -> dict:
+    """K2 per tap and summed over the five taps of one 2,048-image block,
+    in one of ``epilogue_modes``; no single PyTorch call computes it."""
+    from ganleaks_tpu_torch.ops.lpips import (default_lpips_params,
+                                              lpips_part_bounds)
+    from ganleaks_tpu_torch.ops.lpips.epilogue import (tap_epilogue,
+                                                       tap_epilogue_plain)
+    tdt, edt, odt, quant = epilogue_modes(torch)[mode]
+    model = default_lpips_params().to("cuda").eval()
+    bounds = lpips_part_bounds(model, (RES, RES, 3))
+    x = torch.from_numpy(make_images(np.random.default_rng(SEED + 5),
+                                     2 * N_POS, RES)).to("cuda")
+    taps_ms, plain_ms, bound_ms, ops, nbytes, err = [], [], [], 0.0, 0.0, 0.0
+    with torch.inference_mode():
+        taps = tower_taps(torch, model, x, tdt)
+        for i, (fl, sc) in enumerate(taps):
+            kw = dict(embed_dtype=edt, out_dtype=odt,
+                      quant_bound=bounds[i] if quant else None)
+            part, _ = tap_epilogue(fl, sc, **kw)
+            want, _ = tap_epilogue_plain(fl, sc, **kw)
+            err = max(err, float((part.float() - want.float()).abs().max()))
+            del part, want
+            t = time_ms(torch, lambda: tap_epilogue(fl, sc, **kw), reps=10)
+            tp = time_ms(torch, lambda: tap_epilogue_plain(fl, sc, **kw))
+            t2 = time_ms(torch, lambda: tap_epilogue(fl, sc, **kw), reps=10)
+            n, h, w, c = fl.shape
+            elems = n * h * w * c
+            out_elt = 1 if quant else torch.empty((), dtype=odt).element_size()
+            b = elems * (fl.element_size() + out_elt) + n * 4 + c * 4
+            # per element: square, add, divide, scale, b*b, add (+ the
+            # quantising multiply): float32 work on the CUDA cores
+            f = elems * (7 if quant else 6)
+            taps_ms.append(min(t, t2))
+            plain_ms.append(tp)
+            bound_ms.append(bound(f, PEAK_FP32_FLOPS, b)["bound_ms"])
+            ops += f
+            nbytes += b
+            emit({"phase": "timing", "kernel": "tap_epilogue", "mode": mode,
+                  "tap": i, "shape": [n, h, w, c], "ms": min(t, t2),
+                  "ms_runs": [t, t2], "plain_ms": tp,
+                  "bound_ms": bound_ms[-1], "gb": b / 1e9,
+                  "gb_per_s": b / (min(t, t2) * 1e-3) / 1e9})
+    res = {"kernel": "tap_epilogue", "mode": mode, "n_images": 2 * N_POS,
+           "ms": sum(taps_ms), "plain_ms": sum(plain_ms),
+           "library_ms": None, "max_abs_err": err,
+           **bound(ops, PEAK_FP32_FLOPS, nbytes), "gb": nbytes / 1e9,
+           "per_tap_ms": taps_ms}
+    emit({"phase": "timing", "summed_over_taps": True, **res})
     return res
 
 
@@ -367,33 +710,52 @@ def main() -> int:
 
     smi = nvidia_smi_line()
     build_s = cuda_build.build_all()
-    log = cuda_build.build_log("knn_argmin")
     emit({"phase": "device", "name": torch.cuda.get_device_name(0),
           "nvidia_smi": smi, "count": torch.cuda.device_count(),
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "build_s": build_s,
-          "ptxas": [ln.strip() for ln in log.splitlines()
-                    if "registers" in ln or "spill" in ln]})
+          "ptxas": {name: [ln.strip() for ln in
+                           cuda_build.build_log(name).splitlines()
+                           if "registers" in ln or "spill" in ln]
+                    for name in cuda_build.SOURCES}})
 
-    kernel_err = phase_kernel(torch)
+    k1_err = phase_kernel(torch)
+    k3_err = phase_topk(torch)
+    k2_err = phase_epilogue(torch)
     with tempfile.TemporaryDirectory() as tmp:
-        attack = phase_attack(torch, tmp)
-    timing = phase_timing(torch)
+        launches = phase_attack(torch, tmp)
+    t_k1 = timing_k1(torch, torch.float32)
+    timing_k1(torch, torch.bfloat16)  # reported: the bf16 'taps' recipe
+    t_k3 = {name: timing_k3(torch, dt) for name, dt in
+            (("bfloat16", torch.bfloat16), ("float32", torch.float32))}
+    t_k2 = {mode: timing_k2(torch, mode) for mode in ("bf16_int8", "f32")}
 
+    # launches: each kernel's count in the run of the path it serves — K1
+    # in the float32 engine='pallas' run, K3 in the two-pass run on that
+    # engine (pass 1 on bf16 embeddings), K2 in the engine='auto' run
+    # (taps-int8 on a bf16 tower: the main path on the card); the timed
+    # rows are those paths' shapes and types
+    rows = [
+        ("knn_argmin", "ganleaks_tpu_torch/csrc/knn_argmin.cu",
+         "ganleaks_tpu/ops/knn_pallas.py:269",
+         launches["pallas"]["knn_argmin"], max(k1_err, t_k1["max_abs_err"]),
+         t_k1),
+        ("knn_topk", "ganleaks_tpu_torch/csrc/knn_topk.cu",
+         "ganleaks_tpu/ops/knn_pallas.py:340",
+         launches["pallas_two_pass"]["knn_topk"],
+         max(k3_err, t_k3["bfloat16"]["max_abs_err"]), t_k3["bfloat16"]),
+        ("tap_epilogue", "ganleaks_tpu_torch/csrc/tap_epilogue.cu",
+         "ganleaks_tpu/ops/lpips/epilogue_pallas.py:114",
+         launches["auto"]["tap_epilogue"],
+         max(k2_err, t_k2["bf16_int8"]["max_abs_err"]), t_k2["bf16_int8"]),
+    ]
     print(smi, flush=True)
     emit({"kernels": [{
-        "name": "knn_argmin",
-        "route": "cuda",
-        "source": "ganleaks_tpu_torch/csrc/knn_argmin.cu",
-        "replaces": "ganleaks_tpu/ops/knn_pallas.py:269",
-        "launches": attack["launches"],
-        "max_abs_err": max(kernel_err, timing["max_abs_err"]),
-        "ms": timing["ms"],
-        "plain_ms": timing["plain_ms"],
-        "bound_ms": timing["bound_ms"],
-        "bound_by": timing["bound_by"],
-        "library_ms": timing["library_ms"],
-    }]})
+        "name": name, "route": "cuda", "source": source,
+        "replaces": replaces, "launches": n, "max_abs_err": err,
+        "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+        "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+    } for name, source, replaces, n, err, t in rows]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -5,8 +5,13 @@ For each query image (member 'pos' / non-member 'neg') the score is the
 negated distance to its nearest neighbour in the generated set under
 ``l2`` or ``l2 + 0.2*LPIPS`` (``utils.py:153-177``). Each image is
 featurised once (``ops/distance``, ``ops/lpips``) and the search is a
-streamed 1-NN (``ops/knn``); ``engine='pallas'`` folds every block through
-the fused CUDA distance+argmin kernel.
+streamed 1-NN (``ops/knn``). Engines: 'gemm'/'exact' (torch folds),
+'pallas' (the fused CUDA distance+argmin kernel on flat embeddings),
+'taps' and 'taps-int8' (tap-structured parts written by the tap epilogue
+kernel, folded by the fused kernel or by int8 products), and 'auto' (on
+CUDA the JAX package's accelerator recipe: taps-int8 with a bf16 tower).
+``two_pass=True`` re-ranks each engine's top-k candidates in float32 under
+a runtime exactness certificate (``ops/knn.knn_argmin_two_pass``).
 
 Artifacts (byte-compatible with the reference):
   ``pos_loss.npy``/``neg_loss.npy``  (N, 1) float64 nearest distances;
@@ -17,7 +22,7 @@ Artifacts (byte-compatible with the reference):
   closest-pair PNGs for the first 20 queries (``fbb.py:91-106``);
   ``params.txt``/``params.pkl``, ``metrics.jsonl``.
 
-Only the single-device flat path is ported so far; other layouts raise
+Only the single-device layout is ported so far; multi-GPU layouts raise
 ``NotImplementedError`` naming the ROADMAP item.
 """
 
@@ -34,8 +39,13 @@ from ganleaks_tpu_torch.device import resolve_device
 from ganleaks_tpu_torch.io.artifacts import (check_folder, dump_params,
                                              save_files)
 from ganleaks_tpu_torch.io.images import to_uint8
-from ganleaks_tpu_torch.ops.distance import make_embed_fn
-from ganleaks_tpu_torch.ops.knn import (PhaseTimer, knn_argmin_streamed,
+from ganleaks_tpu_torch.ops.distance import (make_embed_fn,
+                                             make_embed_parts_fn)
+from ganleaks_tpu_torch.ops.knn import (PARTS_ENGINES, PhaseTimer,
+                                        _part_bounds_for,
+                                        knn_argmin_streamed,
+                                        knn_argmin_streamed_parts,
+                                        knn_argmin_two_pass,
                                         truncate_to_batches)
 from ganleaks_tpu_torch.utils.logging import MetricsLogger, Throughput
 
@@ -62,19 +72,23 @@ def resolve_save_dir(cfg: AttackConfig) -> str:
     return check_folder(save_dir)
 
 
-def build_embed_fn(cfg: AttackConfig, device: torch.device | str = "cpu"):
-    """Flat featuriser for the configured distance, its LPIPS weights on
+def build_embed_fn(cfg: AttackConfig, device: torch.device | str = "cpu",
+                   structured: bool = False):
+    """Featuriser for the configured distance — flat, or a list of parts
+    with ``structured`` (the taps engines) — its LPIPS weights on
     ``device`` (``cfg.lpips_weights`` npz, else the seeded surrogate
     backbone with the real lin heads)."""
     dtype = _torch_dtype(cfg.dtype)
+    maker = make_embed_parts_fn if structured else make_embed_fn
     if cfg.distance == "l2":
-        return make_embed_fn("l2", dtype=dtype)
+        return maker("l2", dtype=dtype)
     if cfg.distance != "l2-lpips":
         raise ValueError(f"unknown distance {cfg.distance!r}; "
                          "expected 'l2' or 'l2-lpips'")
     from ganleaks_tpu_torch.ops.lpips import (default_lpips_params,
                                               load_lpips_params,
-                                              lpips_embed_fn)
+                                              lpips_embed_fn,
+                                              lpips_embed_parts_fn)
     if cfg.lpips_weights:
         model = load_lpips_params(cfg.lpips_weights)
     else:
@@ -82,22 +96,37 @@ def build_embed_fn(cfg: AttackConfig, device: torch.device | str = "cpu"):
     model = model.to(device).eval()
     cdt = _torch_dtype(cfg.lpips_compute_dtype) \
         if cfg.lpips_compute_dtype else None
-    return make_embed_fn(
+    lp_maker = lpips_embed_parts_fn if structured else lpips_embed_fn
+    return maker(
         "l2-lpips",
-        lpips_embed_fn(model, weight=0.2, dtype=dtype, compute_dtype=cdt),
+        lp_maker(model, weight=0.2, dtype=dtype, compute_dtype=cdt),
         dtype=dtype)
 
 
 def resolve_auto_engine(cfg: AttackConfig,
                         device: torch.device | str = "cpu") -> AttackConfig:
-    """``engine='auto'``: on CUDA the fused kernel engine ('pallas', the
-    only engine with a hand-written kernel so far — the JAX package picks
-    taps-int8 on a TPU, which is not ported yet); elsewhere the
-    reference-parity float32 gemm fold. Other engines pass through."""
+    """``engine='auto'``: on CUDA the JAX package's accelerator recipe —
+    taps-int8 parts with a bf16 tower (``dtype='bfloat16'``,
+    ``lpips_compute_dtype`` defaulting to 'bfloat16'; add
+    ``two_pass=True`` for certified-exact indices) — degraded to the bf16
+    'taps' recipe where the int8 products could wrap their int32
+    accumulator at this input shape (``ops/knn._part_bounds_for`` on one
+    image; an explicit 'taps-int8' still raises there). Elsewhere the
+    reference-parity float32 gemm fold. Other engines pass through. The
+    check needs only shapes and the lin heads, so it runs on the CPU."""
     if cfg.engine != "auto":
         return cfg
-    engine = "pallas" if torch.device(device).type == "cuda" else "gemm"
-    return replace(cfg, engine=engine)
+    if torch.device(device).type != "cuda":
+        return replace(cfg, engine="gemm")
+    cfg = replace(cfg, engine="taps-int8", dtype="bfloat16",
+                  lpips_compute_dtype=cfg.lpips_compute_dtype or "bfloat16")
+    probe = np.zeros((1, cfg.resolution, cfg.resolution, 3),
+                     np.uint8 if cfg.uint8_storage else np.float32)
+    try:
+        _part_bounds_for(build_embed_fn(cfg, "cpu", structured=True), probe)
+    except ValueError:
+        cfg = replace(cfg, engine="taps")
+    return cfg
 
 
 def _check_ported(cfg: AttackConfig) -> None:
@@ -108,14 +137,6 @@ def _check_ported(cfg: AttackConfig) -> None:
     if cfg.n_chips > 1 or cfg.multihost:
         raise NotImplementedError(
             "multi-GPU attack layouts are not ported yet (ROADMAP M12)")
-    if cfg.two_pass:
-        raise NotImplementedError(
-            "two_pass needs the top-k kernel, not ported yet (ROADMAP M4.5 "
-            "and K3)")
-    if cfg.engine in ("taps", "taps-int8"):
-        raise NotImplementedError(
-            f"engine {cfg.engine!r} (tap-structured parts) is not ported "
-            f"yet (ROADMAP M4.3 and K2)")
 
 
 def attack_arrays(cfg: AttackConfig, syn, pos, neg,
@@ -124,7 +145,8 @@ def attack_arrays(cfg: AttackConfig, syn, pos, neg,
     """Run the attack on in-memory NHWC image arrays (uint8 bytes or
     [-1, 1] floats). Returns losses and true NN indices for both query
     sets, the query-pair rate and the device seconds spent featurising and
-    folding.
+    folding (and, with ``two_pass``, the number of certificate
+    fallbacks).
 
     Both query sets go through ONE synthetic sweep (concatenated on the
     query axis, split after): featurising the generated set dominates and
@@ -135,7 +157,7 @@ def attack_arrays(cfg: AttackConfig, syn, pos, neg,
         cfg = resolve_auto_engine(cfg, device)
         logger.log({"engine_resolved": cfg.engine, "dtype": cfg.dtype})
     _check_ported(cfg)
-    embed = build_embed_fn(cfg, device)
+    structured = cfg.engine in PARTS_ENGINES
 
     if cfg.drop_remainder:  # strict parity with fbb.py:77
         syn = syn[:truncate_to_batches(len(syn), cfg.BATCH_SIZE)]
@@ -143,11 +165,28 @@ def attack_arrays(cfg: AttackConfig, syn, pos, neg,
     meter = Throughput()
     timer = PhaseTimer(device)
     queries = np.concatenate([np.asarray(pos), np.asarray(neg)], axis=0)
-    d, i = knn_argmin_streamed(
-        embed, queries, syn, engine=cfg.engine, q_block=cfg.query_block,
-        s_block=cfg.syn_block,
-        query_cache_bytes=int(cfg.query_cache_gb * (1 << 30)),
-        device=device, timer=timer)
+    common = dict(q_block=cfg.query_block, s_block=cfg.syn_block,
+                  query_cache_bytes=int(cfg.query_cache_gb * (1 << 30)),
+                  device=device, timer=timer)
+    n_fallback = None
+    if cfg.two_pass:
+        # pass 1 on the bf16 tower and bf16 (or int8) embeddings, the
+        # re-rank and the certificate fallback on the float32 ones
+        embed_lo = build_embed_fn(
+            replace(cfg, dtype="bfloat16", lpips_compute_dtype="bfloat16"),
+            device, structured=structured)
+        embed_hi = build_embed_fn(
+            replace(cfg, dtype="float32", lpips_compute_dtype=None), device)
+        d, i, _cert, n_fallback = knn_argmin_two_pass(
+            embed_lo, embed_hi, queries, syn, k=cfg.two_pass_k,
+            engine=cfg.engine, return_cert=True, **common)
+    elif structured:
+        d, i = knn_argmin_streamed_parts(
+            build_embed_fn(cfg, device, structured=True), queries, syn,
+            quantize=cfg.engine == "taps-int8", **common)
+    else:
+        d, i = knn_argmin_streamed(build_embed_fn(cfg, device), queries,
+                                   syn, engine=cfg.engine, **common)
     loss = d.cpu().numpy().astype(np.float64)  # waits for the device
     nn = i.cpu().numpy()
     meter.add(len(queries) * len(syn))
@@ -158,10 +197,13 @@ def attack_arrays(cfg: AttackConfig, syn, pos, neg,
            "query_pairs_per_sec": meter.rate(),
            "featurize_s": secs.get("featurize", 0.0),
            "fold_s": secs.get("fold", 0.0)}
-    logger.log({"query_pairs_per_sec": out["query_pairs_per_sec"],
-                "featurize_s": out["featurize_s"], "fold_s": out["fold_s"],
-                "n_syn": len(syn), "n_pos": n_pos, "n_neg": len(neg),
-                "engine": cfg.engine, "device": str(device)})
+    record = {"query_pairs_per_sec": out["query_pairs_per_sec"],
+              "featurize_s": out["featurize_s"], "fold_s": out["fold_s"],
+              "n_syn": len(syn), "n_pos": n_pos, "n_neg": len(neg),
+              "engine": cfg.engine, "device": str(device)}
+    if n_fallback is not None:
+        out["two_pass_fallbacks"] = record["two_pass_fallbacks"] = n_fallback
+    logger.log(record)
     return out
 
 

@@ -5,9 +5,8 @@
 
 The fields are the JAX package's, so existing YAML configs load unchanged.
 Fields that select a layout this port does not have yet (``n_chips > 1``,
-``multihost``, ``two_pass``, the ``taps``/``taps-int8`` engines) are
-accepted here and refused by ``attack.fbb.attack_arrays`` with a pointer to
-the ROADMAP item.
+``multihost``) are accepted here and refused by
+``attack.fbb.attack_arrays`` with a pointer to the ROADMAP item.
 """
 
 from __future__ import annotations
@@ -103,11 +102,14 @@ class AttackConfig:
                                    # 'pallas' (the fused CUDA
                                    # distance+argmin kernel; the name is
                                    # kept so existing configs run) |
-                                   # 'exact' (elementwise reference math)
+                                   # 'exact' (elementwise reference math) |
+                                   # 'taps' / 'taps-int8' (tap-structured
+                                   # parts, the tap epilogue kernel; int8
+                                   # products for taps-int8)
     dtype: str = "float32"         # embedding dtype: 'float32' | 'bfloat16'
     lpips_compute_dtype: str | None = None  # tower dtype ('bfloat16')
-    two_pass: bool = False         # not ported yet (ROADMAP)
-    two_pass_k: int = 4
+    two_pass: bool = False         # certified two-pass exact-index mode
+    two_pass_k: int = 4            # pass-1 candidates per query
     query_block: int = 2048        # queries featurised per block
     syn_block: int = 8192          # synthetic rows featurised per block
     query_cache_gb: float = 8.0    # device bytes for the query-embedding

@@ -19,7 +19,8 @@
 // Design.
 //  * Pass 1 (knn_partial_kernel): a 256-thread block owns a 128-query tile
 //    and a contiguous span of 128-row synthetic tiles. Per synthetic tile it
-//    walks K in 16-deep stages through double-buffered shared memory, each
+//    (knn_tile.cuh, shared with the top-k kernel) walks K in 16-deep
+//    stages through double-buffered shared memory, each
 //    thread accumulating an 8x8 register block of q.s with fmaf. bfloat16
 //    inputs are widened to float32 on load. Every 8 stages (128 K values)
 //    the stage sums are added into the main accumulator. One running float32
@@ -44,47 +45,13 @@
 #include <stdint.h>
 #include <climits>
 
+#include "knn_tile.cuh"
+
 namespace {
 
-constexpr int kTileQ = 128;      // queries per block
-constexpr int kTileS = 128;      // synthetic rows per tile
-constexpr int kStageK = 16;      // K depth per shared-memory stage
-constexpr int kThreads = 256;    // 16 x 16 threads, 8 x 8 outputs each
-constexpr int kPad = 4;          // keeps rows 16-byte aligned, eases banks
-constexpr int kChunkStages = 8;  // stages per partial sum (128 K values)
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-// bfloat16 travels as its raw 16 bits; widening is exact.
-__device__ __forceinline__ float to_f32(uint16_t b) {
-  return __uint_as_float(static_cast<uint32_t>(b) << 16);
-}
-
-__device__ __forceinline__ float4 load_vec4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
-__device__ __forceinline__ float4 load_vec4(const uint16_t* p) {
-  const uint2 u = *reinterpret_cast<const uint2*>(p);
-  return make_float4(__uint_as_float(u.x << 16),
-                     __uint_as_float(u.x & 0xffff0000u),
-                     __uint_as_float(u.y << 16),
-                     __uint_as_float(u.y & 0xffff0000u));
-}
-
-// Four consecutive K values of one row, zero outside [0, n_rows) x [0, k_dim).
-// VEC: rows are aligned for one vector load (k_dim % 4 == 0, aligned base).
-template <typename T, bool VEC>
-__device__ __forceinline__ float4 load4(const T* __restrict__ base, int row,
-                                        int n_rows, int k, int k_dim) {
-  float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-  if (row >= n_rows) return v;
-  const T* p = base + static_cast<size_t>(row) * static_cast<size_t>(k_dim) + k;
-  if (VEC && k + 3 < k_dim) return load_vec4(p);
-  if (k < k_dim) v.x = to_f32(p[0]);
-  if (k + 1 < k_dim) v.y = to_f32(p[1]);
-  if (k + 2 < k_dim) v.z = to_f32(p[2]);
-  if (k + 3 < k_dim) v.w = to_f32(p[3]);
-  return v;
-}
+using knn_tile::kThreads;
+using knn_tile::kTileQ;
+using knn_tile::kTileS;
 
 template <typename T, bool VEC>
 __global__ void __launch_bounds__(kThreads)
@@ -92,24 +59,18 @@ knn_partial_kernel(const T* __restrict__ q, const T* __restrict__ s,
                    const float* __restrict__ rq, const float* __restrict__ rs,
                    int n_q, int n_s, int k_dim, int tiles_per_split,
                    float* __restrict__ part_d, int* __restrict__ part_i) {
-  __shared__ __align__(16) float sq[2][kStageK][kTileQ + kPad];
-  __shared__ __align__(16) float ss[2][kStageK][kTileS + kPad];
+  __shared__ __align__(16) knn_tile::Stages sm;
   __shared__ float run_d[kTileQ];
   __shared__ int run_i[kTileQ];
 
   const int tid = threadIdx.x;
-  const int tx = tid & 15;  // column group: columns tx*4+j and 64+tx*4+j
-  const int ty = tid >> 4;  // row group: rows ty*4+i and 64+ty*4+i
+  const int tx = tid & 15;
+  const int ty = tid >> 4;
   const int m0 = blockIdx.y * kTileQ;
   const int split = blockIdx.x;
   const int n_tiles = (n_s + kTileS - 1) / kTileS;
   const int t_begin = split * tiles_per_split;
   const int t_end = min(n_tiles, t_begin + tiles_per_split);
-  const int n_stages = (k_dim + kStageK - 1) / kStageK;
-
-  // loader: 4 threads per row, 4 consecutive K values each, rows +0 / +64
-  const int l_row = tid >> 2;
-  const int l_k = (tid & 3) * 4;
 
   if (tid < kTileQ) {
     run_d[tid] = CUDART_INF_F;
@@ -119,92 +80,19 @@ knn_partial_kernel(const T* __restrict__ q, const T* __restrict__ s,
   for (int t = t_begin; t < t_end; ++t) {
     const int n0 = t * kTileS;
     float acc[8][8];
-    float part[8][8];
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        acc[i][j] = 0.f;
-        part[i][j] = 0.f;
-      }
-
-    float4 a_reg[2], b_reg[2];
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      a_reg[r] = load4<T, VEC>(q, m0 + l_row + 64 * r, n_q, l_k, k_dim);
-      b_reg[r] = load4<T, VEC>(s, n0 + l_row + 64 * r, n_s, l_k, k_dim);
-    }
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int c = l_row + 64 * r;
-      sq[0][l_k + 0][c] = a_reg[r].x; sq[0][l_k + 1][c] = a_reg[r].y;
-      sq[0][l_k + 2][c] = a_reg[r].z; sq[0][l_k + 3][c] = a_reg[r].w;
-      ss[0][l_k + 0][c] = b_reg[r].x; ss[0][l_k + 1][c] = b_reg[r].y;
-      ss[0][l_k + 2][c] = b_reg[r].z; ss[0][l_k + 3][c] = b_reg[r].w;
-    }
-    __syncthreads();
-
-    int buf = 0;
-    for (int st = 0; st < n_stages; ++st) {
-      const bool has_next = st + 1 < n_stages;
-      if (has_next) {  // next stage's global loads overlap this stage's math
-        const int k = (st + 1) * kStageK + l_k;
-#pragma unroll
-        for (int r = 0; r < 2; ++r) {
-          a_reg[r] = load4<T, VEC>(q, m0 + l_row + 64 * r, n_q, k, k_dim);
-          b_reg[r] = load4<T, VEC>(s, n0 + l_row + 64 * r, n_s, k, k_dim);
-        }
-      }
-#pragma unroll
-      for (int kk = 0; kk < kStageK; ++kk) {
-        const float4 a0 = *reinterpret_cast<const float4*>(&sq[buf][kk][ty * 4]);
-        const float4 a1 = *reinterpret_cast<const float4*>(&sq[buf][kk][64 + ty * 4]);
-        const float4 b0 = *reinterpret_cast<const float4*>(&ss[buf][kk][tx * 4]);
-        const float4 b1 = *reinterpret_cast<const float4*>(&ss[buf][kk][64 + tx * 4]);
-        const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-        const float b[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-        for (int i = 0; i < 8; ++i)
-#pragma unroll
-          for (int j = 0; j < 8; ++j) part[i][j] = fmaf(a[i], b[j], part[i][j]);
-      }
-      if (has_next) {
-        const int nb = buf ^ 1;
-#pragma unroll
-        for (int r = 0; r < 2; ++r) {
-          const int c = l_row + 64 * r;
-          sq[nb][l_k + 0][c] = a_reg[r].x; sq[nb][l_k + 1][c] = a_reg[r].y;
-          sq[nb][l_k + 2][c] = a_reg[r].z; sq[nb][l_k + 3][c] = a_reg[r].w;
-          ss[nb][l_k + 0][c] = b_reg[r].x; ss[nb][l_k + 1][c] = b_reg[r].y;
-          ss[nb][l_k + 2][c] = b_reg[r].z; ss[nb][l_k + 3][c] = b_reg[r].w;
-        }
-      }
-      // one barrier per stage: the stores above went to the other buffer,
-      // and nobody writes this buffer again before everyone passed here
-      __syncthreads();
-      buf ^= 1;
-      if ((st + 1) % kChunkStages == 0 || !has_next) {
-#pragma unroll
-        for (int i = 0; i < 8; ++i)
-#pragma unroll
-          for (int j = 0; j < 8; ++j) {
-            acc[i][j] += part[i][j];
-            part[i][j] = 0.f;
-          }
-      }
-    }
+    knn_tile::tile_dot<T, VEC>(q, s, m0, n0, n_q, n_s, k_dim, sm, acc);
 
     // epilogue: distances, first minimal column per row, running fold
     int col[8];
     float rs_c[8];
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
-      col[j] = n0 + (j < 4 ? tx * 4 + j : 64 + tx * 4 + (j - 4));
+      col[j] = n0 + knn_tile::out_col(tx, j);
       rs_c[j] = col[j] < n_s ? rs[col[j]] : 0.f;
     }
 #pragma unroll
     for (int i = 0; i < 8; ++i) {
-      const int lrow = i < 4 ? ty * 4 + i : 64 + ty * 4 + (i - 4);
+      const int lrow = knn_tile::out_row(ty, i);
       const int m = m0 + lrow;
       const float rqm = m < n_q ? rq[m] : 0.f;
       float best_d = CUDART_INF_F;
@@ -275,10 +163,7 @@ cudaError_t launch(const void* q, const void* s, const float* rq,
   const int q_tiles = (n_q + kTileQ - 1) / kTileQ;
   if (q_tiles > 65535) return cudaErrorInvalidValue;  // grid.y limit
   const dim3 grid(n_splits, q_tiles);
-  const uintptr_t align = 4 * sizeof(T);
-  const bool vec = k_dim % 4 == 0 &&
-                   reinterpret_cast<uintptr_t>(q) % align == 0 &&
-                   reinterpret_cast<uintptr_t>(s) % align == 0;
+  const bool vec = knn_tile::vector_rows<T>(q, s, k_dim);
   const T* qt = static_cast<const T*>(q);
   const T* st = static_cast<const T*>(s);
   if (vec) {

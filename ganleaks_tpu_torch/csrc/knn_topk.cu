@@ -1,0 +1,274 @@
+// Fused distance + running per-query top-k over embedding rows, for Hopper
+// (sm_90a).
+//
+// Replaces the Pallas TPU kernel ganleaks_tpu/ops/knn_pallas.py::knn_topk_pallas
+// (kernel _knn_topk_kernel). For every query row q_m it returns the k
+// smallest
+//
+//     d(m, n) = rq[m] + rs[n] - 2 * <q_m, s_n>
+//
+// in ascending order, the earliest synthetic index first among equal
+// distances (torch.min's tie-break extended to k entries), with their
+// indices. When N_s < k the trailing entries are d = +inf, index -1. The
+// cross term accumulates in float32 over K and the (N_q x N_s) distance
+// matrix never reaches memory. Pass 1 of the two-pass exact-index mode.
+//
+// Bound. The same work as the argmin kernel (knn_argmin.cu): 2*N_q*N_s*K
+// operations against (N_q + N_s)*K input elements, far above the card's
+// operations-per-byte balance, so it is bound by arithmetic. Products run
+// on the float32 CUDA cores (67 TFLOP/s peak); for bfloat16 inputs the
+// bf16 tensor cores (989 TFLOP/s) could do the same math exactly, which
+// this first version leaves to later work.
+//
+// Design.
+//  * Pass 1 (knn_topk_partial_kernel) is the argmin kernel's tiling: a
+//    256-thread block owns a 128-query tile and a span of 128-row synthetic
+//    tiles, and computes each tile's cross terms with knn_tile::tile_dot.
+//  * Each query row keeps a running list of k (d, index) entries in shared
+//    memory, ascending, initialised to (+inf, -1). After a tile, the 16
+//    lanes that share a row extract the tile's first minimal column (a
+//    lexicographic (d, index) shuffle over their 8 columns each) k times;
+//    an extracted entry is inserted by one lane after every running entry
+//    of equal distance whenever it beats the list's last entry, and the
+//    owning lane masks the column. Running entries come from earlier tiles
+//    (lower indices), so "ascending d, earliest index first" holds — the
+//    running entries are merged before the tile's, as in the TPU kernel.
+//  * Pass 2 (knn_topk_merge_kernel) merges each query's per-span lists in
+//    span order by the same insertion, earlier spans first among equals.
+// No tensor cores, TMA or wgmma yet: a simple kernel that is right first.
+
+#include <cuda_runtime.h>
+#include <math_constants.h>
+#include <stdint.h>
+#include <climits>
+
+#include "knn_tile.cuh"
+
+namespace {
+
+using knn_tile::kThreads;
+using knn_tile::kTileQ;
+using knn_tile::kTileS;
+
+// running lists: kTileQ * k * 8 bytes of dynamic shared memory
+constexpr int kMaxK = 128;
+
+// Insert (d, i) into the ascending list (ld, li) of length k, after every
+// entry whose distance is <= d; the last entry drops out. The caller checks
+// d < ld[k - 1].
+__device__ __forceinline__ void insert_entry(float* ld, int* li, int k,
+                                             float d, int i) {
+  int p = k - 1;
+  while (p > 0 && ld[p - 1] > d) {
+    ld[p] = ld[p - 1];
+    li[p] = li[p - 1];
+    --p;
+  }
+  ld[p] = d;
+  li[p] = i;
+}
+
+template <typename T, bool VEC>
+__global__ void __launch_bounds__(kThreads)
+knn_topk_partial_kernel(const T* __restrict__ q, const T* __restrict__ s,
+                        const float* __restrict__ rq,
+                        const float* __restrict__ rs, int n_q, int n_s,
+                        int k_dim, int k, int tiles_per_split,
+                        float* __restrict__ part_d, int* __restrict__ part_i) {
+  __shared__ __align__(16) knn_tile::Stages sm;
+  extern __shared__ __align__(16) unsigned char lists[];
+  float* run_d = reinterpret_cast<float*>(lists);
+  int* run_i = reinterpret_cast<int*>(run_d + kTileQ * k);
+
+  const int tid = threadIdx.x;
+  const int tx = tid & 15;
+  const int ty = tid >> 4;
+  const int m0 = blockIdx.y * kTileQ;
+  const int split = blockIdx.x;
+  const int n_tiles = (n_s + kTileS - 1) / kTileS;
+  const int t_begin = split * tiles_per_split;
+  const int t_end = min(n_tiles, t_begin + tiles_per_split);
+
+  for (int e = tid; e < kTileQ * k; e += kThreads) {
+    run_d[e] = CUDART_INF_F;
+    run_i[e] = -1;
+  }
+  // tile_dot's first barrier orders these stores before the epilogue reads
+
+  for (int t = t_begin; t < t_end; ++t) {
+    const int n0 = t * kTileS;
+    float acc[8][8];
+    knn_tile::tile_dot<T, VEC>(q, s, m0, n0, n_q, n_s, k_dim, sm, acc);
+
+    int col[8];
+    float rs_c[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      col[j] = n0 + knn_tile::out_col(tx, j);
+      rs_c[j] = col[j] < n_s ? rs[col[j]] : 0.f;
+    }
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {  // unrolled: acc[i] stays in registers
+      const int lrow = knn_tile::out_row(ty, i);
+      const int m = m0 + lrow;
+      const float rqm = m < n_q ? rq[m] : 0.f;
+      float dv[8];
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        dv[j] = col[j] < n_s ? (rqm + rs_c[j]) - 2.f * acc[i][j]
+                             : CUDART_INF_F;
+      float* ld = run_d + lrow * k;
+      int* li = run_i + lrow * k;
+      // k rounds for every lane of the warp (uniform trip count, so the
+      // full-mask shuffles are safe); a round that cannot enter the list
+      // changes nothing, and neither can any later one
+      for (int r = 0; r < k; ++r) {
+        float best_d = CUDART_INF_F;
+        int best_i = INT_MAX;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {  // columns ascend with j
+          if (dv[j] < best_d) {
+            best_d = dv[j];
+            best_i = col[j];
+          }
+        }
+#pragma unroll
+        for (int off = 8; off > 0; off >>= 1) {
+          const float od = __shfl_xor_sync(0xffffffffu, best_d, off);
+          const int oi = __shfl_xor_sync(0xffffffffu, best_i, off);
+          if (od < best_d || (od == best_d && oi < best_i)) {
+            best_d = od;
+            best_i = oi;
+          }
+        }
+        const bool take = best_d < ld[k - 1];  // same on the row's 16 lanes
+        __syncwarp();  // every lane read ld[k - 1] before lane 0 writes
+        if (take) {
+          if (tx == 0) insert_entry(ld, li, k, best_d, best_i);
+#pragma unroll
+          for (int j = 0; j < 8; ++j)
+            if (col[j] == best_i) dv[j] = CUDART_INF_F;
+        }
+        __syncwarp();  // the insert is visible to the next round's reads
+      }
+    }
+  }
+
+  __syncthreads();
+  for (int e = tid; e < kTileQ * k; e += kThreads) {
+    const int m = m0 + e / k;
+    if (m < n_q) {
+      const size_t o = (static_cast<size_t>(split) * n_q + m) * k + e % k;
+      part_d[o] = run_d[e];
+      part_i[o] = run_i[e];
+    }
+  }
+}
+
+__global__ void knn_topk_merge_kernel(const float* __restrict__ part_d,
+                                      const int* __restrict__ part_i,
+                                      int n_splits, int n_q, int k,
+                                      float* __restrict__ d_out,
+                                      int* __restrict__ i_out) {
+  const int m = blockIdx.x * blockDim.x + threadIdx.x;
+  if (m >= n_q) return;
+  float* ld = d_out + static_cast<size_t>(m) * k;
+  int* li = i_out + static_cast<size_t>(m) * k;
+  for (int j = 0; j < k; ++j) {
+    ld[j] = CUDART_INF_F;
+    li[j] = -1;
+  }
+  for (int sp = 0; sp < n_splits; ++sp) {  // spans in index order
+    const size_t base = (static_cast<size_t>(sp) * n_q + m) * k;
+    for (int j = 0; j < k; ++j) {  // each span's list is ascending
+      const float d = part_d[base + j];
+      if (!(d < ld[k - 1])) break;
+      insert_entry(ld, li, k, d, part_i[base + j]);
+    }
+  }
+}
+
+template <typename T, bool VEC>
+cudaError_t launch_partial(dim3 grid, size_t lists_bytes, cudaStream_t stream,
+                           const T* q, const T* s, const float* rq,
+                           const float* rs, int n_q, int n_s, int k_dim, int k,
+                           int tiles_per_split, float* part_d, int* part_i) {
+  auto kernel = knn_topk_partial_kernel<T, VEC>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(lists_bytes));
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, kThreads, lists_bytes, stream>>>(
+      q, s, rq, rs, n_q, n_s, k_dim, k, tiles_per_split, part_d, part_i);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch(const void* q, const void* s, const float* rq,
+                   const float* rs, int n_q, int n_s, int k_dim, int k,
+                   int tiles_per_split, float* part_d, int* part_i,
+                   float* d_out, int* i_out, cudaStream_t stream) {
+  const int n_tiles = (n_s + kTileS - 1) / kTileS;
+  const int n_splits = (n_tiles + tiles_per_split - 1) / tiles_per_split;
+  const int q_tiles = (n_q + kTileQ - 1) / kTileQ;
+  if (q_tiles > 65535) return cudaErrorInvalidValue;  // grid.y limit
+  const dim3 grid(n_splits, q_tiles);
+  const size_t lists_bytes =
+      static_cast<size_t>(kTileQ) * k * (sizeof(float) + sizeof(int));
+  const T* qt = static_cast<const T*>(q);
+  const T* st = static_cast<const T*>(s);
+  cudaError_t err =
+      knn_tile::vector_rows<T>(q, s, k_dim)
+          ? launch_partial<T, true>(grid, lists_bytes, stream, qt, st, rq, rs,
+                                    n_q, n_s, k_dim, k, tiles_per_split,
+                                    part_d, part_i)
+          : launch_partial<T, false>(grid, lists_bytes, stream, qt, st, rq,
+                                     rs, n_q, n_s, k_dim, k, tiles_per_split,
+                                     part_d, part_i);
+  if (err != cudaSuccess) return err;
+  knn_topk_merge_kernel<<<(n_q + 255) / 256, 256, 0, stream>>>(
+      part_d, part_i, n_splits, n_q, k, d_out, i_out);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// Rows per synthetic tile: the wrapper sizes the partial buffers with it.
+int knn_topk_tile_rows() { return kTileS; }
+
+// dtype: 0 = float32, 1 = bfloat16. q (n_q, k_dim) and s (n_s, k_dim) are
+// row-major and contiguous; rq (n_q,), rs (n_s,) float32 squared row norms.
+// part_d/part_i hold n_splits * n_q * k entries, with
+// n_splits = ceil(ceil(n_s / tile_rows) / tiles_per_split); d_out/i_out hold
+// n_q * k, row-major. Launches on `stream` without synchronising; returns
+// the cudaError_t of the launches (0 on success).
+int knn_topk_launch(int dtype, const void* q, const void* s, const void* rq,
+                    const void* rs, int n_q, int n_s, int k_dim, int k,
+                    int tiles_per_split, void* part_d, void* part_i,
+                    void* d_out, void* i_out, void* stream) {
+  if (n_q <= 0 || n_s <= 0 || k_dim <= 0 || k <= 0 || k > kMaxK ||
+      tiles_per_split <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const auto* rqf = static_cast<const float*>(rq);
+  const auto* rsf = static_cast<const float*>(rs);
+  auto* pd = static_cast<float*>(part_d);
+  auto* pi = static_cast<int*>(part_i);
+  auto* dd = static_cast<float*>(d_out);
+  auto* ii = static_cast<int*>(i_out);
+  auto st = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  if (dtype == 0) {
+    err = launch<float>(q, s, rqf, rsf, n_q, n_s, k_dim, k, tiles_per_split,
+                        pd, pi, dd, ii, st);
+  } else if (dtype == 1) {
+    err = launch<uint16_t>(q, s, rqf, rsf, n_q, n_s, k_dim, k,
+                           tiles_per_split, pd, pi, dd, ii, st);
+  } else {
+    err = cudaErrorInvalidValue;
+  }
+  return static_cast<int>(err);
+}
+
+}  // extern "C"

@@ -2,10 +2,10 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled by ``nvcc``
 for Hopper (``sm_90a``) into ``_build/lib<name>-<digest>.so`` inside the
-package, where ``<digest>`` hashes the source and the flags, so an edited
-source never loads a stale library. ``nvcc``'s ``-Xptxas -v`` report
-(registers, shared memory, spills per kernel) is kept beside the library
-as ``.log``. A failed build raises; nothing falls back.
+package, where ``<digest>`` hashes the source, every ``csrc/*.cuh`` header
+and the flags, so an edited source or header never loads a stale library.
+``nvcc``'s ``-Xptxas -v`` report (registers, shared memory, spills per
+kernel) is kept beside the library as ``.log``. A failed build raises; nothing falls back.
 """
 
 from __future__ import annotations
@@ -22,7 +22,7 @@ CSRC_DIR = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 
 # every kernel source of the port; build_all() compiles them in parallel
-SOURCES = ("knn_argmin",)
+SOURCES = ("knn_argmin", "knn_topk", "tap_epilogue")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -42,8 +42,11 @@ def _nvcc() -> str:
 
 def library_path(name: str) -> str:
     """Where the library of ``csrc/<name>.cu`` is built."""
-    with open(os.path.join(CSRC_DIR, f"{name}.cu"), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    headers = sorted(f for f in os.listdir(CSRC_DIR) if f.endswith(".cuh"))
+    for fname in [f"{name}.cu"] + headers:
+        with open(os.path.join(CSRC_DIR, fname), "rb") as f:
+            digest.update(f.read())
     return os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:16]}.so")
 
 

@@ -1,17 +1,31 @@
-"""Blocked 1-NN search over embedding vectors (port of the flat search of
-``ganleaks_tpu.ops.knn``).
+"""Blocked nearest-neighbour search over embedding vectors (port of
+``ganleaks_tpu.ops.knn``): 1-NN, top-k and the certified two-pass mode,
+over flat embeddings and over tap-structured parts.
 
 * The (queries x synthetic) distance matrix is never materialised whole:
-  blocks are folded into a running (min, argmin).
+  blocks are folded into a running (min, argmin) or a running top-k.
 * The tie-break matches ``torch.min``: the FIRST index attaining the
-  minimum wins — blocks are visited in index order and updates use strict
-  ``<``.
-* Engines:
+  minimum wins — blocks are visited in index order, argmin updates use
+  strict ``<`` and top-k merges are stable with running entries first.
+* Flat engines (``knn_argmin_streamed``, ``knn_topk_streamed``):
   - 'gemm'   : d = ||q||^2 + ||s||^2 - 2 q.s with ``torch.matmul``
                (float32 products; TF32 is off, ``device.set_f32_numerics``);
-  - 'pallas' : the same math in the fused CUDA distance+argmin kernel
-               (``ops/knn_fused``; the name is the JAX package's);
+  - 'pallas' : the same math in the fused CUDA distance+argmin / top-k
+               kernels (``ops/knn_fused``; the name is the JAX package's);
   - 'exact'  : d = sum((q - s)^2) elementwise, the reference's order.
+* Parts engines (``*_streamed_parts``; 'taps' and 'taps-int8' in the
+  attack): the featuriser writes every part into one (N, K) buffer in
+  part order (``make_fast_parts_norms``, the tap epilogue kernel), so the
+  cross term sum_l q_l.s_l is the flat dot and the float32/bfloat16 fold
+  runs the fused kernels on that buffer unchanged; the int8 fold takes one
+  s8 x s8 -> s32 product per part (``torch._int_mm``), scaled by the
+  part's static dequantisation factor.
+* Every streamed search shares one loop (``_stream_search``): the query
+  embeddings are cached on the device in chunks of ``query_cache_bytes``
+  and the synthetic set is featurised once per chunk.
+
+Left out of this port so far (ROADMAP): the OOM halving resume,
+cross-call query reuse and the device-memory planner.
 """
 
 from __future__ import annotations
@@ -22,9 +36,11 @@ from typing import Callable
 import numpy as np
 import torch
 
-from ganleaks_tpu_torch.ops.knn_fused import knn_argmin_fused, sq_norms
+from ganleaks_tpu_torch.ops.knn_fused import (knn_argmin_fused,
+                                              knn_topk_fused, sq_norms)
 
 ENGINES = ("gemm", "pallas", "exact")
+PARTS_ENGINES = ("taps", "taps-int8")
 
 
 def truncate_to_batches(n_syn: int, batch_size: int) -> int:
@@ -142,6 +158,114 @@ def _as_device_block(x, start: int, block: int, device: torch.device
     return blk.to(device, non_blocking=True)
 
 
+def _block_fn(emb_norms: Callable, device: torch.device,
+              timer: PhaseTimer) -> Callable:
+    """``block_norms(x, start, block) -> (emb, f32 norms, n_valid)``: ship
+    ``x[start:start + block]`` to the device, zero-pad it to ``block`` rows
+    and featurise it with ``emb_norms(blk) -> (emb, norms)``, timed as
+    'featurize'."""
+    def block_norms(x, start: int, block: int):
+        tok = timer.start("featurize")
+        blk = _as_device_block(x, start, block, device)
+        n_valid = blk.shape[0]
+        e, r = emb_norms(pad_rows(blk, block))
+        timer.stop(tok)
+        return e, r, n_valid
+    return block_norms
+
+
+def _stream_search(block_norms: Callable, k_dim: int, cdtype: torch.dtype,
+                   queries, syn, *, q_block: int, s_block: int,
+                   query_cache_bytes: int, device: torch.device,
+                   timer: PhaseTimer, init_state: Callable, fold: Callable,
+                   take: Callable) -> tuple:
+    """The loop of every streamed search (flat or parts, argmin or
+    top-k): featurise the queries chunk by chunk into a (rows, ``k_dim``)
+    cache of ``cdtype`` with float32 norms ``rq``, sweep the synthetic set
+    once per chunk (``N_q + N_s * ceil(N_q / chunk_rows)`` forwards), and
+    fold every block into a running state. Blocks are zero-padded to their
+    block size and the padded tail masked by its valid-row count.
+
+    Hooks: ``init_state(padded_rows) -> state``;
+    ``fold(state, cache, rq, s_emb, rs, col0, n_valid) -> state`` (timed as
+    'fold'); ``take(state, n_rows) -> tuple of per-query outputs``, which
+    are concatenated over the chunks."""
+    n_q, n_s = len(queries), len(syn)
+    if n_s == 0:
+        raise ValueError("empty synthetic set")
+    q_block = max(1, min(q_block, n_q))
+    s_block = max(1, min(s_block, n_s))
+    row_bytes = k_dim * torch.empty((), dtype=cdtype).element_size()
+    # chunk_rows rounds DOWN to a q_block multiple, so full featurize
+    # blocks tile each chunk and padding only appears at n_q
+    chunk_rows = max(q_block,
+                     int(query_cache_bytes // row_bytes) // q_block * q_block)
+    outs = []
+    with torch.inference_mode():
+        for qs0 in range(0, n_q, chunk_rows):
+            end = min(n_q, qs0 + chunk_rows)
+            n_rows = end - qs0
+            padded = n_rows + (-n_rows) % q_block
+            cache = torch.empty((padded, k_dim), dtype=cdtype, device=device)
+            rq = torch.empty(padded, dtype=torch.float32, device=device)
+            for qs in range(qs0, end, q_block):
+                e, r, _ = block_norms(queries, qs, q_block)
+                cache[qs - qs0:qs - qs0 + q_block] = e
+                rq[qs - qs0:qs - qs0 + q_block] = r
+                del e
+            state = init_state(padded)
+            for ss in range(0, n_s, s_block):
+                s_emb, rs, n_valid = block_norms(syn, ss, s_block)
+                tok = timer.start("fold")
+                state = fold(state, cache, rq, s_emb, rs, ss, n_valid)
+                timer.stop(tok)
+                del s_emb, rs
+            outs.append(take(state, n_rows))
+            del cache, rq
+    return tuple(torch.cat(cols) for cols in zip(*outs))
+
+
+def _probe(embed_fn: Callable, queries, device: torch.device):
+    """``embed_fn`` on the first query image (shapes and dtypes)."""
+    with torch.inference_mode():
+        return embed_fn(_as_device_block(queries, 0, 1, device))
+
+
+def _flat_block_fn(embed_fn: Callable, device: torch.device,
+                   timer: PhaseTimer) -> Callable:
+    """Flat featurisation: the embedding as it comes (no demotion), with
+    float32 norms taken from it before the cache write."""
+    def emb_norms(blk):
+        e = embed_fn(blk)
+        return e, sq_norms(e)
+    return _block_fn(emb_norms, device, timer)
+
+
+def _argmin_state_hooks(device: torch.device):
+    """init/take hooks of a running (min, argmin) per query."""
+    def init_state(padded: int):
+        return (torch.full((padded,), torch.inf, device=device),
+                torch.zeros(padded, dtype=torch.int32, device=device))
+
+    def take(state, n_rows: int):
+        return state[0][:n_rows], state[1][:n_rows]
+
+    return init_state, take
+
+
+def _fold_fused(state, cache, rq, s_emb, rs, ss, n_valid):
+    """Argmin fold through the fused distance+argmin kernel (the kernel
+    masks by row count); strict ``<`` across blocks keeps the first
+    index. Also the float32/bfloat16 parts fold: the parts sit in one
+    (N, K) buffer in part order, so sum_l q_l.s_l is the flat dot."""
+    run_min, run_idx = state
+    d_blk, i_blk = knn_argmin_fused(cache, s_emb[:n_valid], rq=rq,
+                                    rs=rs[:n_valid])
+    better = d_blk < run_min
+    return (torch.where(better, d_blk, run_min),
+            torch.where(better, ss + i_blk, run_idx))
+
+
 def knn_argmin_streamed(embed_fn: Callable[[torch.Tensor], torch.Tensor],
                         queries, syn, *, engine: str = "gemm",
                         q_block: int = 2048, s_block: int = 2048,
@@ -154,77 +278,522 @@ def knn_argmin_streamed(embed_fn: Callable[[torch.Tensor], torch.Tensor],
     image).
 
     ``queries``/``syn``: image arrays (numpy or torch, axis 0 = samples),
-    shipped to ``device`` one block at a time. Query embeddings are cached
-    on the device in chunks of ``query_cache_bytes``; the synthetic set is
-    featurised once per chunk (``N_q + N_s * ceil(N_q / chunk_rows)``
-    forwards). Blocks are zero-padded to their block size and the padded
-    tail masked by its valid-row count. Query norms are float32, taken from
-    the embedding before the cache-dtype cast.
-
-    Left out of this port so far (ROADMAP): the OOM halving resume,
-    cross-call query reuse and the device-memory planner.
-    """
+    shipped to ``device`` one block at a time (``_stream_search``). Query
+    norms are float32, taken from the embedding before the cache write."""
     _check_engine(engine)
     device = torch.device(device)
     if engine == "pallas":
         # the kernel tiles the block itself; a larger block buys nothing
         s_block = min(s_block, 2048)
-    n_q, n_s = len(queries), len(syn)
-    if n_s == 0:
+    if len(syn) == 0:
         raise ValueError("empty synthetic set")
-    q_block = max(1, min(q_block, n_q))
-    s_block = max(1, min(s_block, n_s))
     timer = timer or PhaseTimer(device)
+    probe = _probe(embed_fn, queries, device)
 
-    def block_norms(x, start: int, block: int):
-        tok = timer.start("featurize")
-        blk = _as_device_block(x, start, block, device)
-        n_valid = blk.shape[0]
-        e = embed_fn(pad_rows(blk, block))
-        r = sq_norms(e)
-        timer.stop(tok)
-        return e, r, n_valid
+    if engine == "pallas":
+        fold = _fold_fused
+    else:
+        def fold(state, cache, rq, s_emb, rs, ss, n_valid):
+            return _fold_block(state[0], state[1], cache, rq, s_emb, ss,
+                               n_valid, engine, rs)
+    init_state, take = _argmin_state_hooks(device)
+    return _stream_search(
+        _flat_block_fn(embed_fn, device, timer), probe.shape[1], probe.dtype,
+        queries, syn, q_block=q_block, s_block=s_block,
+        query_cache_bytes=query_cache_bytes, device=device, timer=timer,
+        init_state=init_state, fold=fold, take=take)
 
-    with torch.inference_mode():
-        probe = embed_fn(_as_device_block(queries, 0, 1, device))
-        k_dim, cdtype = probe.shape[1], probe.dtype
-        row_bytes = k_dim * probe.element_size()
-        del probe
-        # chunk_rows rounds DOWN to a q_block multiple, so full featurize
-        # blocks tile each chunk and padding only appears at n_q
-        chunk_rows = max(q_block,
-                         int(query_cache_bytes // row_bytes)
-                         // q_block * q_block)
-        outs_d, outs_i = [], []
-        for qs0 in range(0, n_q, chunk_rows):
-            end = min(n_q, qs0 + chunk_rows)
-            n_rows = end - qs0
-            padded = n_rows + (-n_rows) % q_block
-            cache = torch.empty((padded, k_dim), dtype=cdtype, device=device)
-            rq = torch.empty(padded, dtype=torch.float32, device=device)
-            for qs in range(qs0, end, q_block):
-                e, r, _ = block_norms(queries, qs, q_block)
-                cache[qs - qs0:qs - qs0 + q_block] = e
-                rq[qs - qs0:qs - qs0 + q_block] = r
-                del e
-            run_min = torch.full((padded,), torch.inf, device=device)
-            run_idx = torch.zeros(padded, dtype=torch.int32, device=device)
-            for ss in range(0, n_s, s_block):
-                s_emb, rs, n_valid = block_norms(syn, ss, s_block)
-                tok = timer.start("fold")
-                if engine == "pallas":
-                    d_blk, i_blk = knn_argmin_fused(
-                        cache, s_emb[:n_valid], rq=rq, rs=rs[:n_valid])
-                    better = d_blk < run_min  # in order: first index kept
-                    run_min = torch.where(better, d_blk, run_min)
-                    run_idx = torch.where(better, ss + i_blk, run_idx)
-                else:
-                    run_min, run_idx = _fold_block(
-                        run_min, run_idx, cache, rq, s_emb, ss, n_valid,
-                        engine, rs)
-                timer.stop(tok)
-                del s_emb, rs
-            outs_d.append(run_min[:n_rows])
-            outs_i.append(run_idx[:n_rows])
-            del cache, rq
-    return torch.cat(outs_d), torch.cat(outs_i)
+
+# ---------------------------------------------------------------------------
+# top-k
+# ---------------------------------------------------------------------------
+
+def _merge_topk(run_d: torch.Tensor, run_i: torch.Tensor,
+                blk_d: torch.Tensor, blk_i: torch.Tensor, k: int
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Merge a block's candidates into the running top-k: a stable sort
+    with the running entries (earlier global indices) first, so the
+    first-index tie-break holds."""
+    cat_d = torch.cat([run_d, blk_d], dim=1)
+    cat_i = torch.cat([run_i, blk_i], dim=1)
+    d_sorted, pos = torch.sort(cat_d, dim=1, stable=True)
+    return d_sorted[:, :k], torch.gather(cat_i, 1, pos[:, :k])
+
+
+def _masked_topk_merge(run_d, run_i, d, col0: int, n_valid: int, k: int):
+    """Mask columns ``>= n_valid`` of a block's distances to +inf and merge
+    them (global index ``col0 + column``) into the running top-k. Running
+    lists start as (+inf, -1), so when fewer than k rows exist the
+    trailing entries stay (+inf, -1)."""
+    local = torch.arange(d.shape[1], device=d.device)
+    d = torch.where(local[None, :] < n_valid, d, torch.inf)
+    ids = (col0 + local).to(torch.int32).expand(d.shape[0], -1)
+    return _merge_topk(run_d, run_i, d, ids, k)
+
+
+def _fold_block_topk(run_d: torch.Tensor, run_i: torch.Tensor,
+                     emb_q: torch.Tensor, rq: torch.Tensor,
+                     emb_s_blk: torch.Tensor, col0: int, n_valid: int,
+                     k: int, engine: str, rs: torch.Tensor | None = None
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Fold one distance tile into a running per-query top-k (N_q, k),
+    distance-ascending with the first-index tie-break: the stable merge
+    keeps running entries before the block's columns, and column ids
+    ascend, so among equal distances the earliest global index stays in
+    front (``torch.min`` when the top-1 is read off)."""
+    if engine == "gemm":
+        if rs is None:
+            rs = sq_norms(emb_s_blk)
+        d = rq[:, None] + rs[None, :] - 2.0 * (emb_q.float()
+                                               @ emb_s_blk.float().T)
+    elif engine == "exact":
+        diff = emb_q[:, None, :].float() - emb_s_blk[None, :, :].float()
+        d = torch.sum(torch.square(diff), dim=-1)
+    else:
+        raise ValueError(f"unknown kNN engine {engine!r} "
+                         "(the top-k fold supports 'gemm'/'exact')")
+    return _masked_topk_merge(run_d, run_i, d, col0, n_valid, k)
+
+
+def _fold_fused_topk(run_d, run_i, cache, rq, s_emb, rs, ss, n_valid, k):
+    """Top-k fold through the fused distance+top-k kernel, whose (+inf, -1)
+    fill keeps its index -1; on the parts buffer, the float32/bfloat16
+    parts top-k fold."""
+    blk_d, blk_i = knn_topk_fused(cache, s_emb[:n_valid], k, rq=rq,
+                                  rs=rs[:n_valid])
+    blk_i = torch.where(blk_i >= 0, blk_i + ss, blk_i)
+    return _merge_topk(run_d, run_i, blk_d, blk_i, k)
+
+
+def _topk_state_hooks(fold_one: Callable, k: int, with_info: bool,
+                      device: torch.device):
+    """init/fold/take hooks for the streamed top-k searches. With
+    ``with_info`` the state also carries the per-query float32 norms
+    (``rq``) and the running largest synthetic norm (``rs_max``, over
+    whole blocks, padded rows included: an over-estimate is sound) — the
+    inputs of the two-pass certificate (:func:`two_pass_certificate`)."""
+    def init_state(padded: int):
+        base = (torch.full((padded, k), torch.inf, device=device),
+                torch.full((padded, k), -1, dtype=torch.int32,
+                           device=device))
+        if with_info:
+            base += (torch.zeros(padded, device=device),
+                     torch.zeros((), device=device))
+        return base
+
+    def fold(state, cache, rq, s_emb, rs, ss, n_valid):
+        d, i = fold_one(state[0], state[1], cache, rq, s_emb, rs, ss,
+                        n_valid)
+        if with_info:
+            return d, i, rq, torch.maximum(state[3], torch.max(rs))
+        return d, i
+
+    def take(state, n_rows: int):
+        out = (state[0][:n_rows], state[1][:n_rows])
+        if with_info:
+            out += (state[2][:n_rows], state[3][None])
+        return out
+
+    return init_state, fold, take
+
+
+def knn_topk_streamed(embed_fn: Callable[[torch.Tensor], torch.Tensor],
+                      queries, syn, *, k: int = 8, engine: str = "gemm",
+                      q_block: int = 2048, s_block: int = 2048,
+                      query_cache_bytes: int = 8 << 30,
+                      with_info: bool = False,
+                      device: torch.device | str = "cpu",
+                      timer: PhaseTimer | None = None) -> tuple:
+    """Per-query k smallest distances (float32 (N_q, k)) and their indices
+    (int32, -1 past N_s), streamed like :func:`knn_argmin_streamed`.
+    ``engine='pallas'`` folds every block through the fused top-k kernel
+    (it launches or raises). ``with_info`` appends ``(rq, rs_max)`` for the
+    two-pass certificate."""
+    _check_engine(engine)
+    device = torch.device(device)
+    if engine == "pallas":
+        s_block = min(s_block, 2048)
+    if len(syn) == 0:
+        raise ValueError("empty synthetic set")
+    timer = timer or PhaseTimer(device)
+    probe = _probe(embed_fn, queries, device)
+
+    if engine == "pallas":
+        def fold_one(run_d, run_i, cache, rq, s_emb, rs, ss, n_valid):
+            return _fold_fused_topk(run_d, run_i, cache, rq, s_emb, rs, ss,
+                                    n_valid, k)
+    else:
+        def fold_one(run_d, run_i, cache, rq, s_emb, rs, ss, n_valid):
+            return _fold_block_topk(run_d, run_i, cache, rq, s_emb, ss,
+                                    n_valid, k, engine, rs)
+    init_state, fold, take = _topk_state_hooks(fold_one, k, with_info,
+                                               device)
+    return _stream_search(
+        _flat_block_fn(embed_fn, device, timer), probe.shape[1], probe.dtype,
+        queries, syn, q_block=q_block, s_block=s_block,
+        query_cache_bytes=query_cache_bytes, device=device, timer=timer,
+        init_state=init_state, fold=fold, take=take)
+
+
+# ---------------------------------------------------------------------------
+# tap-structured parts ('taps', 'taps-int8')
+# ---------------------------------------------------------------------------
+
+def _fused_parts_norms(embed_fn: Callable, cdtype: torch.dtype,
+                       bounds: tuple | None = None) -> Callable:
+    """``blk -> (flat (N, K), f32 row norms, part widths)``: every part of
+    ``embed_fn`` flattened into one buffer in part order — cast to
+    ``cdtype``, or int8-quantised at the static per-part ``bounds`` — with
+    the row norms summed part by part from the parts as embedded (before
+    the cast or the int8 step). A featuriser that offers
+    ``make_fast_parts_norms`` (the LPIPS parts: taps through the tap
+    epilogue kernel) writes the buffer itself; otherwise the parts are
+    flattened and concatenated here."""
+    from ganleaks_tpu_torch.ops.distance import quantize_int8
+
+    maker = getattr(embed_fn, "make_fast_parts_norms", None)
+    if maker is not None:
+        return maker(cdtype, bounds)
+
+    def parts_norms(blk):
+        parts = embed_fn(blk)
+        qbs = bounds if bounds is not None else (None,) * len(parts)
+        r, cols = None, []
+        for p, qb in zip(parts, qbs):
+            pr = torch.sum(torch.square(p.float()),
+                           dim=tuple(range(1, p.dim())))
+            r = pr if r is None else r + pr
+            flat = p.reshape(p.shape[0], -1)
+            cols.append(quantize_int8(flat, qb) if qb is not None
+                        else flat.to(cdtype))
+        return (torch.cat(cols, dim=1), r,
+                tuple(c.shape[1] for c in cols))
+    return parts_norms
+
+
+def _quant_factors(bounds: tuple) -> tuple:
+    """Per-part dequantisation factors of the int8 cross term."""
+    return tuple((a / 127.0) ** 2 for a in bounds)
+
+
+def _quant_abs_err(bounds: tuple, part_shapes) -> float:
+    """Rigorous L2 bound on the per-row embedding error of round-to-nearest
+    int8 quantisation: err/element <= a_l/254, so
+    ||delta phi|| <= sqrt(sum_l K_l (a_l/254)^2). The two-pass
+    certificate's absolute-error term."""
+    total = 0.0
+    for a, shp in zip(bounds, part_shapes):
+        k = 1
+        for dim in shp:
+            k *= dim
+        total += k * (a / 254.0) ** 2
+    return float(np.sqrt(total))
+
+
+def _part_bounds_for(embed_fn: Callable, queries,
+                     device: torch.device | str = "cpu") -> tuple:
+    """Static quantisation scales of ``embed_fn``'s parts, plus the
+    int32-accumulator check: no part's s8 x s8 -> s32 dot may be able to
+    overflow (e.g. the pixel part at >= 256x256 images could reach
+    127^2 * H*W*C > 2^31 — a silent wrap, not an error). ``queries``: the
+    query images (axis 0 = samples); a featuriser without
+    ``part_int_dot_bound_fn`` is probed on the first one, on ``device``."""
+    if not hasattr(embed_fn, "part_bound_fn"):
+        raise ValueError(
+            "quantize=True needs embed_fn.part_bound_fn (per-part "
+            "elementwise magnitude bounds; see "
+            "ops/distance.make_embed_parts_fn)")
+    shape = tuple(queries.shape[1:])
+    bounds = tuple(embed_fn.part_bound_fn(shape))
+    if hasattr(embed_fn, "part_int_dot_bound_fn"):
+        dot_bounds = embed_fn.part_int_dot_bound_fn(shape)
+    else:  # generic worst case: every element saturates
+        probe = _probe(embed_fn, queries, torch.device(device))
+        dot_bounds = [float(p[0].numel()) * 127.5 ** 2 for p in probe]
+    for i, db in enumerate(dot_bounds):
+        if db >= 2.0 ** 31:
+            raise ValueError(
+                f"int8 engine disabled: part {i}'s cross dot can reach "
+                f"{db:.3g} >= 2^31 and would silently wrap the int32 "
+                f"accumulator at this input shape {shape}; use "
+                f"engine='taps' (bf16) instead")
+    return bounds
+
+
+def _int_dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Exact int32 ``a @ b.T`` of int8 rows a (M, K) and b (N, K) through
+    ``torch._int_mm``. On CUDA it needs M > 16 and K, N multiples of 8:
+    zero rows and columns pad the operands where they fall short (zeros add
+    nothing to the dots; the padded rows are cut off)."""
+    m, k = a.shape
+    n = b.shape[0]
+    if a.device.type == "cuda" and (m <= 16 or k % 8 or n % 8):
+        pm, pk, pn = max(0, 17 - m), (-k) % 8, (-n) % 8
+        a = torch.nn.functional.pad(a, (0, pk, 0, pm))
+        b = torch.nn.functional.pad(b, (0, pk, 0, pn))
+        return torch._int_mm(a, b.T)[:m, :n]
+    return torch._int_mm(a, b.T)
+
+
+def _int8_cross(q: torch.Tensor, s: torch.Tensor, widths: tuple,
+                factors: tuple) -> torch.Tensor:
+    """float32 sum_l f_l * (q_l . s_l) over the parts' column slices: one
+    s8 x s8 -> s32 product per part, dequantised by its static factor."""
+    cross, off = None, 0
+    for w, f in zip(widths, factors):
+        c = _int_dot(q[:, off:off + w], s[:, off:off + w]).float() * f
+        cross = c if cross is None else cross + c
+        off += w
+    return cross
+
+
+def _fold_block_parts_q(run_min, run_idx, q, rq, s, rs, col0: int,
+                        n_valid: int, widths: tuple, factors: tuple):
+    """int8 argmin fold: the dequantised per-part cross term, masking and
+    the first-index tie-break as :func:`_fold_block`."""
+    d = rq[:, None] + rs[None, :] - 2.0 * _int8_cross(q, s, widths, factors)
+    local = torch.arange(s.shape[0], device=d.device)
+    d = torch.where(local[None, :] < n_valid, d, torch.inf)
+    blk_min, blk_arg = torch.min(d, dim=1)
+    better = blk_min < run_min
+    return (torch.where(better, blk_min, run_min),
+            torch.where(better, col0 + blk_arg.to(torch.int32), run_idx))
+
+
+def _fold_block_topk_parts_q(run_d, run_i, q, rq, s, rs, col0: int,
+                             n_valid: int, k: int, widths: tuple,
+                             factors: tuple):
+    """Top-k analog of :func:`_fold_block_parts_q` (the stable merge of
+    :func:`_fold_block_topk`)."""
+    d = rq[:, None] + rs[None, :] - 2.0 * _int8_cross(q, s, widths, factors)
+    return _masked_topk_merge(run_d, run_i, d, col0, n_valid, k)
+
+
+def _parts_setup(embed_fn: Callable, queries, quantize: bool,
+                 device: torch.device, timer: PhaseTimer):
+    """(block_norms, K, cache dtype, widths, dequantisation factors or None)
+    of a parts featuriser; the cache dtype is the parts' own (int8 with
+    ``quantize``)."""
+    factors = bounds = None
+    if quantize:
+        bounds = _part_bounds_for(embed_fn, queries, device)
+        factors = _quant_factors(bounds)
+    probe = _probe(embed_fn, queries, device)
+    widths = tuple(int(p[0].numel()) for p in probe)
+    cdtype = torch.int8 if quantize else probe[0].dtype
+    parts_norms = _fused_parts_norms(embed_fn, cdtype, bounds)
+    block_norms = _block_fn(lambda blk: parts_norms(blk)[:2], device, timer)
+    return block_norms, sum(widths), cdtype, widths, factors
+
+
+def knn_argmin_streamed_parts(embed_fn: Callable, queries, syn, *,
+                              q_block: int = 2048, s_block: int = 2048,
+                              query_cache_bytes: int = 8 << 30,
+                              quantize: bool = False,
+                              device: torch.device | str = "cpu",
+                              timer: PhaseTimer | None = None
+                              ) -> tuple[torch.Tensor, torch.Tensor]:
+    """1-NN like :func:`knn_argmin_streamed` over a STRUCTURED embedding
+    (``embed_fn`` returns a list of parts, ``ops/distance.
+    make_embed_parts_fn``): the parts stream as one (N, K) buffer per
+    block, folded by the fused distance+argmin kernel.
+
+    ``quantize=True`` streams int8 parts (static per-part scales from
+    ``embed_fn.part_bound_fn``, float32 norms from the unquantised parts)
+    folded by one int8 product per part: approximate scores with a
+    rigorously bounded error (:func:`_quant_abs_err`); for exact results
+    run it as pass 1 of :func:`knn_argmin_two_pass` (``taps-int8``)."""
+    device = torch.device(device)
+    if not quantize:  # the fused kernel tiles the block itself
+        s_block = min(s_block, 2048)
+    if len(syn) == 0:
+        raise ValueError("empty synthetic set")
+    timer = timer or PhaseTimer(device)
+    block_norms, k_dim, cdtype, widths, factors = _parts_setup(
+        embed_fn, queries, quantize, device, timer)
+    if quantize:
+        def fold(state, cache, rq, s_emb, rs, ss, n_valid):
+            return _fold_block_parts_q(state[0], state[1], cache, rq, s_emb,
+                                       rs, ss, n_valid, widths, factors)
+    else:
+        fold = _fold_fused
+    init_state, take = _argmin_state_hooks(device)
+    return _stream_search(
+        block_norms, k_dim, cdtype, queries, syn, q_block=q_block,
+        s_block=s_block, query_cache_bytes=query_cache_bytes, device=device,
+        timer=timer, init_state=init_state, fold=fold, take=take)
+
+
+def knn_topk_streamed_parts(embed_fn: Callable, queries, syn, *, k: int = 8,
+                            q_block: int = 2048, s_block: int = 2048,
+                            query_cache_bytes: int = 8 << 30,
+                            with_info: bool = False, quantize: bool = False,
+                            device: torch.device | str = "cpu",
+                            timer: PhaseTimer | None = None) -> tuple:
+    """Top-k analog of :func:`knn_argmin_streamed_parts`: pass 1 of the
+    two-pass mode with ``engine='taps'`` (fused top-k kernel on the parts
+    buffer) or ``'taps-int8'`` (``quantize=True``). ``with_info`` appends
+    ``(rq, rs_max)`` for the certificate."""
+    device = torch.device(device)
+    if not quantize:
+        s_block = min(s_block, 2048)
+    if len(syn) == 0:
+        raise ValueError("empty synthetic set")
+    timer = timer or PhaseTimer(device)
+    block_norms, k_dim, cdtype, widths, factors = _parts_setup(
+        embed_fn, queries, quantize, device, timer)
+    if quantize:
+        def fold_one(run_d, run_i, cache, rq, s_emb, rs, ss, n_valid):
+            return _fold_block_topk_parts_q(run_d, run_i, cache, rq, s_emb,
+                                            rs, ss, n_valid, k, widths,
+                                            factors)
+    else:
+        def fold_one(run_d, run_i, cache, rq, s_emb, rs, ss, n_valid):
+            return _fold_fused_topk(run_d, run_i, cache, rq, s_emb, rs, ss,
+                                    n_valid, k)
+    init_state, fold, take = _topk_state_hooks(fold_one, k, with_info,
+                                               device)
+    return _stream_search(
+        block_norms, k_dim, cdtype, queries, syn, q_block=q_block,
+        s_block=s_block, query_cache_bytes=query_cache_bytes, device=device,
+        timer=timer, init_state=init_state, fold=fold, take=take)
+
+
+# ---------------------------------------------------------------------------
+# certified two-pass
+# ---------------------------------------------------------------------------
+
+def two_pass_certificate(d_exact: np.ndarray, topk_d: np.ndarray,
+                         rq: np.ndarray, rs_max: float,
+                         eta: float, abs_err: float = 0.0) -> np.ndarray:
+    """Per-query certificate that the two-pass result equals the full
+    exact search (True = certified).
+
+    Model: the pass-1 embedding of any row x differs from the exact one by
+    at most ``eta * ||phi(x)|| + abs_err`` in L2 (relative term: bf16 tower
+    and stream; absolute term: int8 quantisation, rigorously bounded by
+    :func:`_quant_abs_err`). With S := ||phi(q)|| + max_s ||phi(s)|| and
+    A := eta*S + 2*abs_err, every (q, s) pair has
+
+        |d_lo(q, s) - d(q, s)| <= eps_q := A * (2*S + A),
+
+    so any synthetic row OUTSIDE the candidate union (approximate distance
+    >= the query's k-th kept one, ``topk_max``) has true distance
+    >= topk_max - eps_q. The re-ranked winner is certified exact —
+    first-index tie-break included — iff its exact distance is STRICTLY
+    below that bound. ``topk_max = inf`` (fewer than k rows: every row was
+    a candidate) certifies trivially. ``eta`` is the one modelling
+    assumption: a too-large eta only costs fallback work, a too-small one
+    would certify what the model cannot guarantee."""
+    rq = np.maximum(np.asarray(rq, np.float64), 0.0)
+    topk_max = np.asarray(topk_d, np.float64)[:, -1]
+    s = np.sqrt(rq) + np.sqrt(max(float(rs_max), 0.0))
+    a = eta * s + 2.0 * abs_err
+    eps = a * (2.0 * s + a)
+    return ~np.isfinite(topk_max) | (np.asarray(d_exact, np.float64)
+                                     < topk_max - eps)
+
+
+def _default_cert_eta(demoted: bool) -> float:
+    """2e-2 when pass 1 ran in reduced precision (bf16 tower error ~2e-3
+    measured by the JAX package, 10x margin); 1e-6 when it was float32
+    throughout (accumulation-order noise)."""
+    return 2e-2 if demoted else 1e-6
+
+
+def _rerank_candidates(embed_hi: Callable, queries, syn, cand: np.ndarray,
+                       *, engine: str, q_block: int, s_block: int,
+                       query_cache_bytes: int, device: torch.device,
+                       timer: PhaseTimer
+                       ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Exact re-rank restricted to the candidate union: the float32
+    ``embed_hi`` search through the fused distance+argmin kernel ('pallas';
+    its two-level float32 sum stays within ~4e-6 of float64 at
+    K = 512,000 where cuBLAS's SGEMM drifts to ~1.3e-4, ROADMAP C), or the
+    elementwise 'exact' engine when that was asked for. Only the few
+    candidate rows ship (a host-side gather); blocks and cache shrink,
+    since everything here is float32."""
+    sub = syn[np.asarray(cand)]
+    d, i_sub = knn_argmin_streamed(
+        embed_hi, queries, sub,
+        engine="exact" if engine == "exact" else "pallas",
+        q_block=min(q_block, 1024),
+        s_block=min(s_block, 1024, max(8, len(cand))),
+        query_cache_bytes=min(query_cache_bytes, 2 << 30), device=device,
+        timer=timer)
+    cand_t = torch.as_tensor(np.asarray(cand), dtype=torch.int32,
+                             device=i_sub.device)
+    return d, cand_t[i_sub.long()]
+
+
+def knn_argmin_two_pass(embed_lo: Callable, embed_hi: Callable, queries,
+                        syn, *, k: int = 8, engine: str = "gemm",
+                        q_block: int = 2048, s_block: int = 2048,
+                        query_cache_bytes: int = 8 << 30,
+                        cert_eta: float | None = None,
+                        return_cert: bool = False,
+                        device: torch.device | str = "cpu",
+                        timer: PhaseTimer | None = None):
+    """Throughput mode with exact-index re-ranking and a runtime exactness
+    certificate.
+
+    Pass 1 finds each query's top-``k`` candidates under the cheap
+    embedding ``embed_lo`` (flat for 'gemm'/'pallas'/'exact'; parts for
+    'taps' and, int8-quantised, 'taps-int8'); pass 2 re-runs the exact
+    float32 search (``embed_hi``) over the UNION of the candidates
+    (:func:`_rerank_candidates`). :func:`two_pass_certificate` checks per
+    query from pass-1 norms that its true nearest row was in the union;
+    uncertified queries are re-searched against the FULL synthetic set in
+    float32 (printing how many). ``return_cert=True`` appends
+    (certified mask, number of fallbacks)."""
+    device = torch.device(device)
+    timer = timer or PhaseTimer(device)
+    probe = _probe(embed_lo, queries, device)
+    abs_err = 0.0
+    common = dict(k=k, q_block=q_block, s_block=s_block,
+                  query_cache_bytes=query_cache_bytes, with_info=True,
+                  device=device, timer=timer)
+    if engine in PARTS_ENGINES:
+        quant = engine == "taps-int8"
+        if quant:
+            abs_err = _quant_abs_err(_part_bounds_for(embed_lo, queries,
+                                                      device),
+                                     [tuple(p.shape[1:]) for p in probe])
+        topk_d, top_i, rq, rs_max = knn_topk_streamed_parts(
+            embed_lo, queries, syn, quantize=quant, **common)
+        probe_dt = probe[0].dtype
+    else:
+        topk_d, top_i, rq, rs_max = knn_topk_streamed(
+            embed_lo, queries, syn, engine=engine, **common)
+        probe_dt = probe.dtype
+    top = top_i.cpu().numpy()
+    cand = np.unique(top[top >= 0])  # -1 marks a slot past N_s
+    d, idx = _rerank_candidates(embed_hi, queries, syn, cand, engine=engine,
+                                q_block=q_block, s_block=s_block,
+                                query_cache_bytes=query_cache_bytes,
+                                device=device, timer=timer)
+    # reduced precision anywhere in pass 1 selects the wide eta: a bf16
+    # (or float16) embedding, or int8 parts (whose tower runs bf16)
+    demoted = (torch.empty((), dtype=probe_dt).element_size() < 4
+               or engine == "taps-int8")
+    eta = cert_eta if cert_eta is not None else _default_cert_eta(demoted)
+    cert = two_pass_certificate(d.cpu().numpy(), topk_d.cpu().numpy(),
+                                rq.cpu().numpy(),
+                                float(rs_max.max().cpu()), eta, abs_err)
+    bad = np.nonzero(~cert)[0]
+    if bad.size:
+        print(f"[knn] two-pass certificate failed for {bad.size} "
+              f"queries; exact-f32 fallback search")
+        d_fix, i_fix = knn_argmin_streamed(
+            embed_hi, queries[bad], syn,
+            engine="exact" if engine == "exact" else "pallas",
+            q_block=min(q_block, 1024), s_block=min(s_block, 1024),
+            query_cache_bytes=min(query_cache_bytes, 2 << 30),
+            device=device, timer=timer)
+        bad_t = torch.as_tensor(bad, device=d.device)
+        d, idx = d.clone(), idx.clone()
+        d[bad_t] = d_fix
+        idx[bad_t] = i_fix
+    if return_cert:
+        return d, idx, cert, int(bad.size)
+    return d, idx

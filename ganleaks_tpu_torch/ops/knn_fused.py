@@ -1,11 +1,17 @@
-"""Fused distance + first-index argmin: the hand-written CUDA kernel
-``csrc/knn_argmin.cu`` and its plain PyTorch version.
+"""Fused distance + first-index argmin and fused distance + top-k: the
+hand-written CUDA kernels ``csrc/knn_argmin.cu`` and ``csrc/knn_topk.cu``
+(sharing the cross-term tile of ``csrc/knn_tile.cuh``) and their plain
+PyTorch versions.
 
-Replaces ``ganleaks_tpu/ops/knn_pallas.py::knn_argmin_pallas`` (Pallas
-kernel ``_knn_kernel``): per query row, the nearest synthetic row under
+:func:`knn_argmin_fused` replaces
+``ganleaks_tpu/ops/knn_pallas.py::knn_argmin_pallas`` (Pallas kernel
+``_knn_kernel``): per query row, the nearest synthetic row under
 ``d = ||q||^2 + ||s||^2 - 2 q.s`` with the cross term accumulated in
 float32 and ``torch.min``'s first-index tie-break; the distance matrix never
-reaches memory.
+reaches memory. :func:`knn_topk_fused` replaces ``knn_topk_pallas``
+(``_knn_topk_kernel``): the k smallest such distances per query, ascending,
+the earliest index first among equals; when N_s < k the trailing entries
+are (+inf, -1).
 
 Bound on an H100: ``2*N_q*N_s*K`` operations against ``(N_q+N_s)*K`` input
 elements — at the attack's 2048 x 2048 block with K = 512,000 that is ~2000
@@ -14,12 +20,13 @@ kernel is bound by arithmetic. It runs true float32 products on the CUDA
 cores (67 TFLOP/s peak; TF32 would cut the products to ~3 digits), so its
 floor at that block is ~64 ms. The design splits the synthetic axis over
 enough blocks to fill all SMs and merges the per-span partials in a second
-pass (see the source's header).
+pass (see the source's header). The top-k kernel does the same work; with
+bfloat16 inputs the bf16 tensor cores could do it exactly at 989 TFLOP/s
+(~4.3 ms), which this first version leaves to later work.
 
-:func:`knn_argmin_fused` launches the kernel for CUDA tensors and counts its
-launches in ``knn_argmin_fused.launches``; it takes the plain version only
-for tensors on the CPU. It never falls back: a failed build or launch
-raises.
+Each wrapper launches its kernel for CUDA tensors and counts its launches
+in ``<wrapper>.launches``; it takes the plain version only for tensors on
+the CPU. It never falls back: a failed build or launch raises.
 """
 
 from __future__ import annotations
@@ -29,6 +36,7 @@ import ctypes
 import torch
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+TOPK_MAX_K = 128  # kMaxK of csrc/knn_topk.cu (running lists in shared memory)
 
 
 def sq_norms(x: torch.Tensor) -> torch.Tensor:
@@ -75,19 +83,41 @@ def _tiles_per_split(n_q: int, n_s: int, tile: int, n_sm: int) -> int:
     return max(1, (n_qt * n_st) // (2 * n_sm))
 
 
-def _library():
+def _library(name: str, n_ints: int):
+    """The loaded ``csrc/<name>.cu`` with its ``<name>_tile_rows`` and
+    ``<name>_launch`` typed (``n_ints`` int arguments after the dtype code
+    and four pointers, then five pointers)."""
     from ganleaks_tpu_torch.ops.cuda_build import load_library
 
-    lib = load_library("knn_argmin")
+    lib = load_library(name)
     if not getattr(lib, "_ganleaks_typed", False):
-        lib.knn_argmin_tile_rows.argtypes = []
-        lib.knn_argmin_tile_rows.restype = ctypes.c_int
-        lib.knn_argmin_launch.argtypes = (
-            [ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
-            + [ctypes.c_void_p] * 5)
-        lib.knn_argmin_launch.restype = ctypes.c_int
+        rows = getattr(lib, f"{name}_tile_rows")
+        rows.argtypes = []
+        rows.restype = ctypes.c_int
+        launch = getattr(lib, f"{name}_launch")
+        launch.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 4
+                           + [ctypes.c_int] * n_ints + [ctypes.c_void_p] * 5)
+        launch.restype = ctypes.c_int
         lib._ganleaks_typed = True
     return lib
+
+
+def _check_pair(q: torch.Tensor, s: torch.Tensor) -> None:
+    if q.dim() != 2 or s.dim() != 2 or q.shape[1] != s.shape[1]:
+        raise ValueError(f"expected q (N_q, K) and s (N_s, K), got "
+                         f"{tuple(q.shape)} and {tuple(s.shape)}")
+    if q.dtype != s.dtype or q.dtype not in _DTYPE_CODES:
+        raise ValueError(f"q and s must share a dtype in float32/bfloat16, "
+                         f"got {q.dtype} and {s.dtype}")
+    if q.device != s.device:
+        raise ValueError(f"q is on {q.device}, s on {s.device}")
+    if s.shape[0] == 0:
+        raise ValueError("empty synthetic set")
+    if q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {q.device}")
+    if q.device.type == "cuda" and not (q.is_contiguous()
+                                        and s.is_contiguous()):
+        raise ValueError("q and s must be contiguous")
 
 
 def knn_argmin_fused(q: torch.Tensor, s: torch.Tensor, *,
@@ -102,24 +132,11 @@ def knn_argmin_fused(q: torch.Tensor, s: torch.Tensor, *,
     accumulate in float32 either way). ``rq``/``rs``: optional float32
     squared row norms (computed from the embeddings when absent; the
     streamed search passes norms taken before a cache-dtype cast)."""
-    if q.dim() != 2 or s.dim() != 2 or q.shape[1] != s.shape[1]:
-        raise ValueError(f"expected q (N_q, K) and s (N_s, K), got "
-                         f"{tuple(q.shape)} and {tuple(s.shape)}")
-    if q.dtype != s.dtype or q.dtype not in _DTYPE_CODES:
-        raise ValueError(f"q and s must share a dtype in float32/bfloat16, "
-                         f"got {q.dtype} and {s.dtype}")
-    if q.device != s.device:
-        raise ValueError(f"q is on {q.device}, s on {s.device}")
-    n_q, k_dim = q.shape
-    n_s = s.shape[0]
-    if n_s == 0:
-        raise ValueError("empty synthetic set")
+    _check_pair(q, s)
     if q.device.type == "cpu":
         return knn_argmin_plain(q, s, rq, rs)
-    if q.device.type != "cuda":
-        raise ValueError(f"unsupported device {q.device}")
-    if not (q.is_contiguous() and s.is_contiguous()):
-        raise ValueError("q and s must be contiguous")
+    n_q, k_dim = q.shape
+    n_s = s.shape[0]
     rq = sq_norms(q) if rq is None else _check_norms(rq, n_q, q, "rq")
     rs = sq_norms(s) if rs is None else _check_norms(rs, n_s, q, "rs")
     d = torch.empty(n_q, dtype=torch.float32, device=q.device)
@@ -127,7 +144,7 @@ def knn_argmin_fused(q: torch.Tensor, s: torch.Tensor, *,
     if n_q == 0:
         return d, idx
 
-    lib = _library()
+    lib = _library("knn_argmin", 4)
     tile = lib.knn_argmin_tile_rows()
     tps = _tiles_per_split(n_q, n_s, tile, _sm_count(q.device))
     n_splits = -(-(-(-n_s // tile)) // tps)
@@ -151,3 +168,74 @@ def knn_argmin_fused(q: torch.Tensor, s: torch.Tensor, *,
 
 
 knn_argmin_fused.launches = 0
+
+
+def knn_topk_plain(q: torch.Tensor, s: torch.Tensor, k: int,
+                   rq: torch.Tensor | None = None,
+                   rs: torch.Tensor | None = None
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version: the full distance matrix, then a stable
+    ascending sort along the synthetic axis (the earliest index first among
+    equal distances) cut to ``k``. Returns (d float32 (N_q, k), idx int32
+    (N_q, k)); when N_s < k the trailing entries are (+inf, -1)."""
+    rq = sq_norms(q) if rq is None else rq
+    rs = sq_norms(s) if rs is None else rs
+    d = rq[:, None] + rs[None, :] - 2.0 * (q.float() @ s.float().T)
+    d_sorted, idx = torch.sort(d, dim=1, stable=True)
+    d_top = d.new_full((q.shape[0], k), torch.inf)
+    i_top = torch.full((q.shape[0], k), -1, dtype=torch.int32,
+                       device=q.device)
+    n = min(k, s.shape[0])
+    d_top[:, :n] = d_sorted[:, :n]
+    i_top[:, :n] = idx[:, :n].to(torch.int32)
+    return d_top, i_top
+
+
+def knn_topk_fused(q: torch.Tensor, s: torch.Tensor, k: int, *,
+                   rq: torch.Tensor | None = None,
+                   rs: torch.Tensor | None = None
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The ``k`` nearest rows of ``s`` (N_s, K) for every row of ``q``
+    (N_q, K): (d float32 (N_q, k), idx int32 (N_q, k)), ascending, the
+    earliest index first among equal distances; (+inf, -1) past N_s.
+    Inputs as for :func:`knn_argmin_fused`."""
+    _check_pair(q, s)
+    if k < 1:
+        raise ValueError(f"k must be >= 1, got {k}")
+    if q.device.type == "cpu":
+        return knn_topk_plain(q, s, k, rq, rs)
+    n_q, k_dim = q.shape
+    n_s = s.shape[0]
+    rq = sq_norms(q) if rq is None else _check_norms(rq, n_q, q, "rq")
+    rs = sq_norms(s) if rs is None else _check_norms(rs, n_s, q, "rs")
+    d = torch.empty((n_q, k), dtype=torch.float32, device=q.device)
+    idx = torch.empty((n_q, k), dtype=torch.int32, device=q.device)
+    if n_q == 0:
+        return d, idx
+
+    if k > TOPK_MAX_K:
+        raise ValueError(f"k={k} exceeds the kernel's limit {TOPK_MAX_K}")
+    lib = _library("knn_topk", 5)
+    tile = lib.knn_topk_tile_rows()
+    tps = _tiles_per_split(n_q, n_s, tile, _sm_count(q.device))
+    n_splits = -(-(-(-n_s // tile)) // tps)
+    part_d = torch.empty((n_splits, n_q, k), dtype=torch.float32,
+                         device=q.device)
+    part_i = torch.empty((n_splits, n_q, k), dtype=torch.int32,
+                         device=q.device)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.knn_topk_launch(
+            _DTYPE_CODES[q.dtype], q.data_ptr(), s.data_ptr(),
+            rq.data_ptr(), rs.data_ptr(), n_q, n_s, k_dim, k, tps,
+            part_d.data_ptr(), part_i.data_ptr(), d.data_ptr(),
+            idx.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"knn_topk kernel launch failed with CUDA error "
+                           f"{err} (n_q={n_q}, n_s={n_s}, K={k_dim}, k={k}, "
+                           f"{q.dtype})")
+    knn_topk_fused.launches += 1
+    return d, idx
+
+
+knn_topk_fused.launches = 0

@@ -36,6 +36,26 @@ def backbone_channels(net: str) -> tuple[int, ...]:
                      f"'vgg'; see ROADMAP)")
 
 
+def tap_shapes(net: str, sample_shape: tuple) -> list[tuple[int, int, int]]:
+    """(H_l, W_l, C_l) of every tap for one (H, W, C) input, from the conv
+    and pool shapes alone (no forward pass)."""
+    backbone_channels(net)  # raises for a tower that is not ported
+    h, w = int(sample_shape[0]), int(sample_shape[1])
+    shapes = []
+    conv_i = 0
+    for layer in VGG16_CONVS:
+        if layer == "M":  # F.max_pool2d(2, 2) floors
+            h, w = h // 2, w // 2
+            continue
+        c, k, s, p = layer
+        h = (h + 2 * p - k) // s + 1
+        w = (w + 2 * p - k) // s + 1
+        if conv_i in VGG16_TAPS:
+            shapes.append((h, w, c))
+        conv_i += 1
+    return shapes
+
+
 class VGG16(nn.Module):
     """The 13-conv VGG16 feature tower with ReLU after every conv and a
     2x2 max-pool between stages; ``forward`` returns the five post-ReLU

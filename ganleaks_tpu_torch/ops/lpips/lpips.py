@@ -11,7 +11,11 @@
 :func:`lpips_pair` is the pairwise form; :func:`lpips_embed` the factorised
 form ``weight * LPIPS(x, y) == ||phi(x) - phi(y)||^2`` with
 ``phi_l = f_l * sqrt(weight * w_l / (H_l * W_l))`` that turns the attack
-into one nearest-neighbour search.
+into one nearest-neighbour search. :func:`lpips_embed_parts` returns the
+same phi as one (N, H_l*W_l, C_l) part per tap (the ``taps`` engines), and
+:func:`lpips_embed_parts_fn` adds the parts' static bounds and the fused
+featuriser that runs each tap through the tap epilogue kernel
+(``ops/lpips/epilogue``).
 
 Weights: :func:`init_lpips_params` seeds a surrogate backbone from a
 ``torch.Generator`` (same init distribution as the JAX surrogate, other
@@ -30,7 +34,9 @@ import torch
 from torch import nn
 
 from ganleaks_tpu_torch.ops.distance import images_unit_range
-from ganleaks_tpu_torch.ops.lpips.backbones import VGG16, backbone_channels
+from ganleaks_tpu_torch.ops.lpips.backbones import (VGG16, backbone_channels,
+                                                    tap_shapes)
+from ganleaks_tpu_torch.ops.lpips.epilogue import tap_epilogue, tap_phi
 
 # v0.1 input normalisation constants (networks_basic.py:115-116)
 LPIPS_SHIFT = (-0.030, -0.088, -0.188)
@@ -192,11 +198,16 @@ def lpips_embed(model: LPIPS, x: torch.Tensor, weight: float = 1.0,
     parts = []
     for fl, w in zip(feats, model.lins):
         n, h, wd, _c = fl.shape
-        scale = torch.sqrt(torch.clamp(w, min=0.0) * (weight / (h * wd)))
+        scale = _tap_scale(w, weight, h * wd)
         # normalisation in f32 regardless of tower dtype
         phi = normalize_tensor(fl.float()) * scale
         parts.append(phi.reshape(n, -1).to(dtype))
     return torch.cat(parts, dim=1)
+
+
+def _tap_scale(w: torch.Tensor, weight: float, n_pos: int) -> torch.Tensor:
+    """float32 ``sqrt(max(w, 0) * weight / (H * W))`` of one tap."""
+    return torch.sqrt(torch.clamp(w, min=0.0) * (weight / n_pos))
 
 
 def lpips_embed_fn(model: LPIPS, weight: float = 0.2,
@@ -206,4 +217,106 @@ def lpips_embed_fn(model: LPIPS, weight: float = 0.2,
     def embed(x: torch.Tensor) -> torch.Tensor:
         return lpips_embed(model, x, weight=weight, dtype=dtype,
                            compute_dtype=compute_dtype)
+    return embed
+
+
+# ---------------------------------------------------------------------------
+# tap-structured parts (the 'taps' / 'taps-int8' engines)
+# ---------------------------------------------------------------------------
+
+def lpips_part_shapes(net: str, sample_shape: tuple) -> list[tuple[int, int]]:
+    """(H_l*W_l, C_l) of every part of :func:`lpips_embed_parts` for one
+    (H, W, C) input."""
+    return [(h * w, c) for h, w, c in tap_shapes(net, sample_shape)]
+
+
+def lpips_embed_parts(model: LPIPS, x: torch.Tensor, weight: float = 1.0,
+                      dtype: torch.dtype = torch.float32,
+                      compute_dtype: torch.dtype | None = None
+                      ) -> list[torch.Tensor]:
+    """Tap-structured phi: one (N, H_l*W_l, C_l) part per tap, channels
+    last, such that the sum of per-part squared distances equals
+    :func:`lpips_embed`'s flat ``||phi(x) - phi(y)||^2``. The channel norm
+    takes the tap epilogue's summation order (``epilogue.channel_sumsq``),
+    so these parts equal the fused featuriser's bit for bit."""
+    feats = model.features(x, compute_dtype)
+    parts = []
+    for fl, w in zip(feats, model.lins):
+        n, h, wd, c = fl.shape
+        phi = tap_phi(fl.reshape(n, h * wd, c), _tap_scale(w, weight, h * wd))
+        parts.append(phi.to(dtype))
+    return parts
+
+
+def lpips_part_bounds(model: LPIPS, sample_shape: tuple,
+                      weight: float = 0.2) -> list[float]:
+    """Per-part elementwise bound max|phi_l| at input ``sample_shape``
+    (H, W, C): every component of a unit-normalised feature vector is
+    <= 1, so ``|phi_l| <= max_c sqrt(w_lc * weight / (H_l * W_l))``.
+    Rigorous: the static quantisation scale of the int8 engine."""
+    bounds = []
+    for (n_pos, _c), w in zip(lpips_part_shapes(model.net, sample_shape),
+                              model.lins):
+        wmax = float(np.max(np.maximum(w.detach().cpu().numpy(), 0.0)))
+        bounds.append(float(np.sqrt(wmax * weight / n_pos)))
+    return bounds
+
+
+def lpips_part_int_dot_bounds(model: LPIPS,
+                              sample_shape: tuple) -> list[float]:
+    """Per-part bound on |int8 cross dot|: per position the channel vector
+    is unit-normalised, so its int8 image has L2 <= 127 + 0.5*sqrt(C)
+    (rounding), and Cauchy-Schwarz gives |dot per position| <= that
+    squared, summed over the H_l*W_l positions."""
+    return [float(n_pos) * (127.0 + 0.5 * float(c) ** 0.5) ** 2
+            for n_pos, c in lpips_part_shapes(model.net, sample_shape)]
+
+
+def lpips_fast_parts_norms(model: LPIPS, weight: float, dtype: torch.dtype,
+                           compute_dtype: torch.dtype | None,
+                           cdtype: torch.dtype, bounds=None):
+    """The fused LPIPS featuriser of the ``taps`` engines:
+    ``fast(x, out, r) -> r`` runs the tower and each tap through
+    ``epilogue.tap_epilogue`` (the kernel on CUDA), writing the parts in
+    order into the column slices of ``out`` (N, sum of widths) — cast to
+    ``cdtype``, or int8 at ``bounds`` — and returns ``r`` plus each tap's
+    float32 norms, added tap by tap. ``fast.widths(sample_shape)`` gives
+    the part widths H_l*W_l*C_l."""
+    def fast(x: torch.Tensor, out: torch.Tensor, r: torch.Tensor
+             ) -> torch.Tensor:
+        feats = model.features(x, compute_dtype)
+        off = 0
+        for i, (fl, w) in enumerate(zip(feats, model.lins)):
+            _n, h, wd, c = fl.shape
+            width = h * wd * c
+            _, rn = tap_epilogue(
+                fl, _tap_scale(w, weight, h * wd), embed_dtype=dtype,
+                out_dtype=cdtype,
+                quant_bound=None if bounds is None else bounds[i],
+                out=out[:, off:off + width])
+            r = r + rn
+            off += width
+        return r
+
+    fast.widths = lambda sample_shape: [
+        n_pos * c for n_pos, c in lpips_part_shapes(model.net, sample_shape)]
+    return fast
+
+
+def lpips_embed_parts_fn(model: LPIPS, weight: float = 0.2,
+                         dtype: torch.dtype = torch.float32,
+                         compute_dtype: torch.dtype | None = None):
+    """Closure form of :func:`lpips_embed_parts` for
+    ``ops/distance.make_embed_parts_fn``, carrying ``part_bound_fn``,
+    ``part_int_dot_bound_fn`` and ``make_fast_parts_norms``."""
+    def embed(x: torch.Tensor) -> list[torch.Tensor]:
+        return lpips_embed_parts(model, x, weight=weight, dtype=dtype,
+                                 compute_dtype=compute_dtype)
+    embed.part_bound_fn = lambda sample_shape: lpips_part_bounds(
+        model, sample_shape, weight)
+    embed.part_int_dot_bound_fn = lambda sample_shape: \
+        lpips_part_int_dot_bounds(model, sample_shape)
+    embed.make_fast_parts_norms = lambda cdtype, bounds=None: \
+        lpips_fast_parts_norms(model, weight, dtype, compute_dtype, cdtype,
+                               bounds)
     return embed

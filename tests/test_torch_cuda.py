@@ -1,6 +1,7 @@
 """Tests of the port that need a CUDA device: the fused distance+argmin
-kernel against its plain PyTorch version on the card, and the streamed
-search launching it. They skip without a GPU.
+and distance+top-k kernels and the tap epilogue kernel against their
+plain PyTorch versions on the card, and the searches and engines that
+launch them. They skip without a GPU.
 
 This file imports neither JAX nor the JAX package, so it also runs on a
 GPU machine without them:
@@ -9,8 +10,9 @@ GPU machine without them:
 
 Tolerance: |d_kernel - d_plain| <= 1e-5 * (rq + rs) — the two sum the K
 products in different orders and rq + rs - 2 q.s cancels; indices must be
-equal wherever the plain version's best two distances are further apart
-than that, and on planted exact ties.
+equal wherever the plain version's neighbouring distances are further
+apart than that, and on planted exact ties. The tap epilogue's parts must
+be equal bit for bit, its row norms within rtol 1e-6.
 """
 
 import numpy as np
@@ -19,7 +21,11 @@ import torch
 
 from ganleaks_tpu_torch.ops.knn import knn_argmin_streamed
 from ganleaks_tpu_torch.ops.knn_fused import (knn_argmin_fused,
-                                              knn_argmin_plain, sq_norms)
+                                              knn_argmin_plain,
+                                              knn_topk_fused, knn_topk_plain,
+                                              sq_norms)
+from ganleaks_tpu_torch.ops.lpips.epilogue import (tap_epilogue,
+                                                   tap_epilogue_plain)
 
 TOL = 1e-5
 
@@ -81,3 +87,99 @@ def test_streamed_pallas_engine_launches_kernel(cuda_device):
     assert int(i_k[3]) == int(i_g[3]) == 7
     torch.testing.assert_close(i_k, i_g, rtol=0, atol=0)
     torch.testing.assert_close(d_k, d_g, rtol=1e-5, atol=1e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n_q,n_s,k_dim,k", [(300, 1000, 1000, 4),
+                                             (70, 50, 4099, 8),
+                                             (9, 3, 64, 5)])
+def test_topk_kernel_matches_plain(cuda_device, dtype, n_q, n_s, k_dim, k):
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    q = torch.randn((n_q, k_dim), generator=gen, device=cuda_device)
+    s = torch.randn((n_s, k_dim), generator=gen, device=cuda_device)
+    s[n_s - 1] = s[1] = q[3] + 0.1  # exact tie, lower index first
+    q, s = q.to(dtype), s.to(dtype)
+    rq, rs = sq_norms(q), sq_norms(s)
+    before = knn_topk_fused.launches
+    d, i = knn_topk_fused(q, s, k, rq=rq, rs=rs)
+    torch.cuda.synchronize()
+    assert knn_topk_fused.launches == before + 1
+    d_p, i_p = knn_topk_plain(q, s, k, rq, rs)
+    fin = torch.isfinite(d_p)
+    assert bool((torch.isfinite(d) == fin).all())
+    assert bool((i[~fin] == -1).all())
+    tol = (TOL * (rq[:, None] + rs.max())).expand_as(d)
+    assert bool(((d - d_p).abs()[fin] <= tol[fin]).all())
+    full = rq[:, None] + rs[None, :] - 2.0 * (q.float() @ s.float().T)
+    srt = torch.sort(full, dim=1).values
+    inf = torch.full_like(srt[:, :1], torch.inf)
+    ext = torch.cat([-inf, srt, inf], dim=1)
+    for j in range(min(k, n_s)):
+        clear = ((ext[:, j + 1] - ext[:, j] > tol[:, 0])
+                 & (ext[:, j + 2] - ext[:, j + 1] > tol[:, 0]))
+        assert bool((i[clear, j] == i_p[clear, j]).all())
+    assert i[3, :2].tolist() == [1, n_s - 1]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["f32", "bf16", "int8"])
+def test_tap_epilogue_kernel_matches_plain(cuda_device, mode):
+    """Taps as the tower gives them (channels-last permute views)."""
+    gen = torch.Generator(device=cuda_device).manual_seed(1)
+    dt = torch.float32 if mode == "f32" else torch.bfloat16
+    for c, hw in ((64, 16), (128, 8), (512, 2), (96, 3)):
+        nchw = torch.relu(torch.randn((5, c, hw, hw), generator=gen,
+                                      device=cuda_device)).to(dt)
+        tap = nchw.permute(0, 2, 3, 1)
+        scale = torch.rand((c,), generator=gen, device=cuda_device) * 0.05
+        kw = dict(embed_dtype=dt,
+                  out_dtype=torch.float32 if mode == "f32" else dt,
+                  quant_bound=0.05 if mode == "int8" else None)
+        before = tap_epilogue.launches
+        part, rn = tap_epilogue(tap, scale, **kw)
+        torch.cuda.synchronize()
+        assert tap_epilogue.launches == before + 1
+        want, rn_want = tap_epilogue_plain(tap, scale, **kw)
+        assert part.dtype == want.dtype
+        assert bool((part == want).all()), (c, mode)
+        torch.testing.assert_close(rn, rn_want, rtol=1e-6, atol=0)
+
+
+@pytest.mark.cuda
+def test_taps_engines_and_auto_launch_kernels(cuda_device, tmp_path):
+    import json
+
+    from ganleaks_tpu_torch.attack.fbb import attack_arrays
+    from ganleaks_tpu_torch.config import AttackConfig
+    from ganleaks_tpu_torch.utils.logging import MetricsLogger
+
+    rng = np.random.default_rng(0)
+    syn = rng.integers(0, 256, (40, 32, 32, 3), dtype=np.uint8)
+    pos = syn[:6].copy()
+    neg = rng.integers(0, 256, (6, 32, 32, 3), dtype=np.uint8)
+    base = dict(resolution=32, query_block=32, syn_block=16,
+                save_plots=False)
+    for engine, two_pass in (("taps", False), ("taps-int8", True),
+                             ("pallas", True), ("auto", False)):
+        counts = (tap_epilogue.launches, knn_topk_fused.launches,
+                  knn_argmin_fused.launches)
+        log = str(tmp_path / f"{engine}-{two_pass}.jsonl")
+        logger = MetricsLogger(log, echo=False)
+        out = attack_arrays(AttackConfig(engine=engine, two_pass=two_pass,
+                                         **base), syn, pos, neg,
+                            device=cuda_device, logger=logger)
+        assert out["pos_nn_idx"].tolist() == list(range(6))
+        k2, k3, k1 = (tap_epilogue.launches - counts[0],
+                      knn_topk_fused.launches - counts[1],
+                      knn_argmin_fused.launches - counts[2])
+        if engine.startswith("taps") or engine == "auto":
+            assert k2 > 0
+        if two_pass:
+            assert k3 > 0 or engine == "taps-int8"
+            assert k1 > 0  # the float32 re-rank
+        if engine == "auto":
+            logger.close()
+            with open(log) as f:
+                first = json.loads(f.readline())
+            assert first["engine_resolved"] == "taps-int8"

@@ -126,6 +126,31 @@ def test_main_path_without_optional_libraries(tmp_path):
     assert res.stdout.strip().endswith("ok")
 
 
+def test_taps_and_two_pass_paths_without_optional_libraries(tmp_path):
+    """The tap-structured engines and the certified two-pass mode (tap
+    epilogue, top-k, int8 folds) run with JAX, PyYAML, Pillow,
+    matplotlib, sklearn and scipy all unimportable."""
+    code = textwrap.dedent("""
+        import numpy as np
+        from ganleaks_tpu_torch.attack.fbb import attack_arrays
+        from ganleaks_tpu_torch.config import AttackConfig
+        rng = np.random.default_rng(0)
+        syn = rng.integers(0, 256, (6, 32, 32, 3), np.uint8)
+        pos = syn[:2].copy()
+        neg = rng.integers(0, 256, (2, 32, 32, 3), np.uint8)
+        for engine, two_pass in (("taps", False), ("taps-int8", True)):
+            cfg = AttackConfig(engine=engine, two_pass=two_pass,
+                               resolution=32, query_block=2, syn_block=4,
+                               save_plots=False)
+            out = attack_arrays(cfg, syn, pos, neg, device="cpu")
+            assert out["pos_nn_idx"].tolist() == [0, 1], out
+        print("ok")
+    """)
+    res = _run_isolated(code)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip().endswith("ok")
+
+
 def test_entry_points_refuse_without_gpu(monkeypatch, tmp_path):
     from ganleaks_tpu_torch.attack.fbb import attack_arrays, run_attack
     from ganleaks_tpu_torch.config import AttackConfig

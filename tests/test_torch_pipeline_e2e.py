@@ -146,11 +146,16 @@ def test_hyperparameter_sweep_layout(fixture_dirs, tmp_path, monkeypatch):
 
 
 def test_attack_arrays_refuses_unported_layouts():
+    """Multi-GPU layouts are refused; two_pass and the taps engines are
+    ported now and run (``tests/test_torch_two_pass.py`` holds them
+    against the JAX package)."""
     imgs = np.zeros((2, 8, 8, 3), np.uint8)
-    for over, item in (({"two_pass": True}, "M4.5"),
-                       ({"engine": "taps"}, "M4.3"),
-                       ({"engine": "taps-int8"}, "M4.3"),
-                       ({"n_chips": 4}, "M12"),
+    for over in ({"two_pass": True}, {"engine": "taps"},
+                 {"engine": "taps-int8"}):
+        out = attack_arrays(AttackConfig(distance="l2", **over), imgs, imgs,
+                            imgs, device="cpu")
+        assert out["pos_loss"].shape == (2,)
+    for over, item in (({"n_chips": 4}, "M12"),
                        ({"multihost": True}, "M12")):
         with pytest.raises(NotImplementedError, match=item):
             attack_arrays(AttackConfig(distance="l2", **over), imgs, imgs,
@@ -166,7 +171,8 @@ def test_attack_arrays_refuses_unported_layouts():
 def test_auto_engine_resolution():
     cfg = AttackConfig(engine="auto")
     assert resolve_auto_engine(cfg, "cpu").engine == "gemm"
-    assert resolve_auto_engine(cfg, "cuda").engine == "pallas"
+    # CUDA: the JAX package's accelerator recipe (no device is touched)
+    assert resolve_auto_engine(cfg, "cuda").engine == "taps-int8"
     assert resolve_auto_engine(AttackConfig(engine="exact"),
                                "cuda").engine == "exact"
 
