@@ -10,13 +10,18 @@ Phases, each printing JSON lines:
    versions, and the build of every kernel library from ``csrc/`` (one
    ``nvcc`` per source, started together);
 2. kernel: the fused distance+argmin kernel (K1) against its plain PyTorch
-   version on the card, in float32 and bfloat16 — a ragged synthetic count,
-   one smaller than a tile, several tiles per block, K not a multiple of 4,
-   the attack's K = 512,000, and planted duplicate rows (exact ties);
+   version on the card, in float32 (FFMA tile) and bfloat16 (wgmma tile,
+   asserted through the per-route launch counts) — a ragged synthetic
+   count, one smaller than a tile with K not a multiple of 8 (the bf16
+   route's zero-padded copy), several tiles per block, the attack's
+   K = 512,000, and planted duplicate rows (exact ties); then bf16 at
+   K = 512,000 on non-negative rows (LPIPS-like, a planted near-copy)
+   against float64 computed on the card;
 3. topk: the fused distance+top-k kernel (K3) against its plain version,
    float32 and bfloat16: ragged N_s, N_s < k, a long N_s across many
-   spans, K = 512,000 (zero-mean rows), planted ties across tiles and
-   spans;
+   spans, K = 512,000 (zero-mean rows), k = 128 (the wrapper's limit),
+   planted ties across tiles and spans; bf16 on non-negative rows at
+   K = 512,000 against float64;
 4. epilogue: the tap epilogue kernel (K2) against its plain version on the
    five 64-px VGG16 taps of 2,048 images as the tower produces them
    (channels-last views), float32 -> float32, bf16 -> bf16 and
@@ -27,16 +32,22 @@ Phases, each printing JSON lines:
    ``run_attack`` and ``evaluate`` on 1,024 members, 1,024 non-members and
    8,192 synthetic images written as npz, with members' noisy copies
    planted in the synthetic set: engines 'pallas' and 'gemm' (the
-   float32 cross-check), 'pallas' with ``two_pass``, 'taps', 'taps-int8'
-   (float32 tower), 'taps-int8' with ``two_pass`` and 'auto' (which must
-   resolve to taps-int8 on a bf16 tower); every loss against the float64
-   distance of its pair, every engine's indices against the float32
-   'pallas' run's;
+   float32 cross-check), 'pallas' with ``two_pass``, 'taps', 'taps' on a
+   bf16 tower with bf16 parts (the recipe 'auto' degrades to: K1 on the
+   wgmma tile), 'taps-int8' (float32 tower), 'taps-int8' with
+   ``two_pass`` and 'auto' (which must resolve to taps-int8 on a bf16
+   tower); every loss against the float64 distance of its pair, every
+   engine's indices against the float32 'pallas' run's, every run's
+   launches per kernel and tile; then the float32 top-k search
+   (``knn_topk_streamed``, engine 'pallas': K3 on the FFMA tile) on the
+   same arrays, its nearest entries against the 'pallas' run's;
 6. timing: K1 at the attack's block (2,048 x 2,048, K = 512,000) in
-   float32 and bfloat16, K3 there in bfloat16 and float32, K2 per tap and summed over the five
-   taps of a 2,048-image block — each beside its plain version, its bound
-   and, where one PyTorch call composition computes the same function,
-   that composition (timed only).
+   float32 and bfloat16, K3 there in bfloat16 and float32, K2 per tap and
+   summed over the five taps of a 2,048-image block — each beside its
+   plain version, its bound and, where one PyTorch call composition
+   computes the same function, that composition (timed only); K1 and K3
+   also on the block's first query tile alone, for the work per block
+   with and without the full grid's shared traffic.
 
 Then, on lines of their own, the ``nvidia-smi`` name/power line and the
 ``{"kernels": [...]}`` summary, and last ``{"ok": true, "device": ...}``.
@@ -127,7 +138,9 @@ def hold_against_plain(torch, name, q, s, rq, rs, ties):
                                                   knn_argmin_plain)
     n_q, k_dim = q.shape
     n_s = s.shape[0]
+    done = on_route(knn_argmin_fused, q.dtype)
     d_k, i_k = knn_argmin_fused(q, s, rq=rq, rs=rs)
+    done(name)
     d_p, i_p = knn_argmin_plain(q, s, rq, rs)
     if DEVICE == "cuda":
         torch.cuda.synchronize()  # a fault in the kernel surfaces here
@@ -158,6 +171,79 @@ def hold_against_plain(torch, name, q, s, rq, rs, ties):
             "ties": len(ties)}
 
 
+def nonneg_inputs(torch, n_q, n_s, k_dim, near, gen):
+    """LPIPS-like bf16 rows: ``relu`` of seeded normal rows (every product
+    >= 0), with each (query row, a) in ``near`` planting s[a] as a noisy
+    copy of q[row]; float32 norms."""
+    from ganleaks_tpu_torch.ops.knn_fused import sq_norms
+    dev = torch.device(DEVICE)
+    q = torch.randn((n_q, k_dim), generator=gen, device=dev).relu_()
+    s = torch.randn((n_s, k_dim), generator=gen, device=dev).relu_()
+    for row, a in near:
+        s[a] = (q[row] + 0.05 * torch.randn(
+            (k_dim,), generator=gen, device=dev)).relu_()
+    q = (q / k_dim ** 0.5).bfloat16()
+    s = (s / k_dim ** 0.5).bfloat16()
+    return q, s, sq_norms(q), sq_norms(s)
+
+
+def distances_f64(torch, q, s, rq, rs, chunk: int = 256):
+    """rq + rs - 2 q.s with the cross term in float64 on the card (the
+    float32 norms are the kernels' inputs, so only the cross term's
+    rounding differs)."""
+    cross = torch.empty((q.shape[0], s.shape[0]), dtype=torch.float64,
+                        device=q.device)
+    s64 = s.double()
+    for lo in range(0, q.shape[0], chunk):
+        cross[lo:lo + chunk] = q[lo:lo + chunk].double() @ s64.T
+    del s64
+    return rq.double()[:, None] + rs.double()[None, :] - 2.0 * cross
+
+
+def hold_against_f64(torch, name, q, s, rq, rs, near, k=None, d64=None):
+    """K1 (``k`` None) or K3 on non-negative rows against float64: every
+    reported d within TOL * (rq + rs) of its pair's float64 distance, each
+    pick within 2 TOL * (rq + rs) of the float64 rank it stands at, and
+    the planted near-copies found first."""
+    from ganleaks_tpu_torch.ops.knn_fused import (knn_argmin_fused,
+                                                  knn_topk_fused)
+    d64 = distances_f64(torch, q, s, rq, rs) if d64 is None else d64
+    if k is None:
+        done = on_route(knn_argmin_fused, q.dtype)
+        d_k, i_k = knn_argmin_fused(q, s, rq=rq, rs=rs)
+        d_k, i_k = d_k[:, None], i_k[:, None]
+    else:
+        done = on_route(knn_topk_fused, q.dtype)
+        d_k, i_k = knn_topk_fused(q, s, k, rq=rq, rs=rs)
+    done(name)
+    if DEVICE == "cuda":
+        torch.cuda.synchronize()
+    idx = i_k.long()
+    norms = rq.double()[:, None] + rs.double()[idx]
+    tol = TOL * norms
+    err = (d_k.double() - d64.gather(1, idx)).abs()
+    check(bool(torch.isfinite(d_k).all()), f"{name}: non-finite d")
+    check(bool((err <= tol).all()),
+          f"{name}: d off float64 by {float((err / tol).max()):.3g} x "
+          f"tolerance")
+    ranks = torch.sort(d64, dim=1).values[:, :idx.shape[1]]
+    gap = d64.gather(1, idx) - ranks
+    check(bool((gap <= 2.0 * tol).all()),
+          f"{name}: picks off the float64 ranks by "
+          f"{float((gap / tol).max()):.3g} x tolerance")
+    for row, a in near:
+        check(int(i_k[row, 0]) == a,
+              f"{name}: near-copy of query {row} -> {int(i_k[row, 0])}, "
+              f"want {a}")
+    return {"case": name, "n_q": q.shape[0], "n_s": s.shape[0],
+            "k_dim": q.shape[1], "k": k,
+            "dtype": str(q.dtype).replace("torch.", ""),
+            "reference": "float64",
+            "max_abs_err": float(err.max()),
+            "max_err_over_tol": float((err / tol).max()),
+            "max_rel_err": float((err / norms).max())}
+
+
 def phase_kernel(torch) -> float:
     gen = torch.Generator(device=DEVICE).manual_seed(SEED)
     cases = [
@@ -170,13 +256,19 @@ def phase_kernel(torch) -> float:
         # the attack's embedding width
         ("k512000", 256, 300, 512000, [(0, 1, 299), (255, 128, 256)]),
     ]
-    worst = 0.0
+    worst = {"float32": 0.0, "bfloat16": 0.0}
     for dtype in (torch.float32, torch.bfloat16):
         for name, n_q, n_s, k_dim, ties in cases:
             res = kernel_case(torch, name, n_q, n_s, k_dim, dtype, ties, gen)
-            if dtype == torch.float32:
-                worst = max(worst, res["max_abs_err"])
+            worst[res["dtype"]] = max(worst[res["dtype"]], res["max_abs_err"])
             emit({"phase": "kernel", **res})
+    # LPIPS-like rows: the wgmma tile's promoted sum against float64
+    q, s, rq, rs = nonneg_inputs(torch, 256, 300, 512000, [(3, 17), (200, 299)],
+                                 gen)
+    res = hold_against_f64(torch, "k512000_nonneg", q, s, rq, rs,
+                           [(3, 17), (200, 299)])
+    worst["bfloat16"] = max(worst["bfloat16"], res["max_abs_err"])
+    emit({"phase": "kernel", **res})
     return worst
 
 
@@ -190,15 +282,43 @@ def reset_launches() -> None:
     from ganleaks_tpu_torch.ops.lpips.epilogue import tap_epilogue
     for fn in (knn_argmin_fused, knn_topk_fused, tap_epilogue):
         fn.launches = 0
+    for fn in (knn_argmin_fused, knn_topk_fused):
+        fn.launches_by_route = dict.fromkeys(fn.launches_by_route, 0)
 
 
 def read_launches() -> dict:
+    """Launches per kernel, K1 and K3 per tile: 'knn_argmin.ffma' (float32)
+    and 'knn_argmin.wgmma' (bfloat16), likewise 'knn_topk.*'."""
     from ganleaks_tpu_torch.ops.knn_fused import (knn_argmin_fused,
                                                   knn_topk_fused)
     from ganleaks_tpu_torch.ops.lpips.epilogue import tap_epilogue
-    return {"knn_argmin": knn_argmin_fused.launches,
-            "knn_topk": knn_topk_fused.launches,
-            "tap_epilogue": tap_epilogue.launches}
+    out = {}
+    for name, fn in (("knn_argmin", knn_argmin_fused),
+                     ("knn_topk", knn_topk_fused)):
+        check(sum(fn.launches_by_route.values()) == fn.launches,
+              f"{name}: per-tile counts {fn.launches_by_route} do not add "
+              f"up to {fn.launches}")
+        out.update({f"{name}.{r}": n
+                    for r, n in fn.launches_by_route.items()})
+    out["tap_epilogue"] = tap_epilogue.launches
+    return out
+
+
+def on_route(fn, dtype):
+    """A check to call after one call of ``fn``: on the card it must have
+    launched the tile of ``dtype`` (FFMA for float32, wgmma for bfloat16)
+    exactly once, and no other."""
+    from ganleaks_tpu_torch.ops.knn_fused import route
+    want = route(dtype)
+    before = dict(fn.launches_by_route)
+
+    def done(name):
+        if DEVICE != "cuda":
+            return
+        got = {r: n - before[r] for r, n in fn.launches_by_route.items()}
+        check(got == {r: int(r == want) for r in got},
+              f"{name}: launches per tile {got}, want one on {want}")
+    return done
 
 
 def hold_topk(torch, name, q, s, rq, rs, k, ties):
@@ -209,7 +329,9 @@ def hold_topk(torch, name, q, s, rq, rs, k, ties):
     planted ties lower index first."""
     from ganleaks_tpu_torch.ops.knn_fused import (knn_topk_fused,
                                                   knn_topk_plain)
+    done = on_route(knn_topk_fused, q.dtype)
     d_k, i_k = knn_topk_fused(q, s, k, rq=rq, rs=rs)
+    done(name)
     d_p1, i_p1 = knn_topk_plain(q, s, k + 1, rq, rs)
     if DEVICE == "cuda":
         torch.cuda.synchronize()  # a fault in the kernel surfaces here
@@ -256,15 +378,23 @@ def phase_topk(torch) -> float:
         # the attack's embedding width (zero-mean rows)
         ("k512000", 256, 300, 512000, TOPK_K,
          [(0, 1, 299), (255, 128, 256)]),
+        # the wrapper's largest k (the wgmma ring shrinks to 3 stages)
+        ("k128", 200, 700, 1000, 128, [(5, 0, 699), (130, 300, 301)]),
     ]
-    worst = 0.0
+    worst = {"float32": 0.0, "bfloat16": 0.0}
     for dtype in (torch.float32, torch.bfloat16):
         for name, n_q, n_s, k_dim, k, ties in cases:
             q, s, rq, rs = kernel_inputs(torch, n_q, n_s, k_dim, dtype,
                                          ties, gen)
             res = hold_topk(torch, name, q, s, rq, rs, k, ties)
-            worst = max(worst, res["max_abs_err"])
+            worst[res["dtype"]] = max(worst[res["dtype"]], res["max_abs_err"])
             emit({"phase": "topk", **res})
+    q, s, rq, rs = nonneg_inputs(torch, 256, 300, 512000, [(3, 17), (200, 299)],
+                                 gen)
+    res = hold_against_f64(torch, "k512000_nonneg", q, s, rq, rs,
+                           [(3, 17), (200, 299)], k=TOPK_K)
+    worst["bfloat16"] = max(worst["bfloat16"], res["max_abs_err"])
+    emit({"phase": "topk", **res})
     return worst
 
 
@@ -358,30 +488,35 @@ def pair_distances(torch, embed, queries, syn, idx, device,
     return np.concatenate(d), np.concatenate(rq), np.concatenate(rs)
 
 
+BF16 = {"dtype": "bfloat16", "lpips_compute_dtype": "bfloat16"}
 # (label, engine, two_pass, extra config), the float32 flat engines first
 ATTACK_RUNS = [
     ("pallas", "pallas", False, {}),
     ("gemm", "gemm", False, {}),
     ("pallas_two_pass", "pallas", True, {}),
     ("taps", "taps", False, {}),
+    ("taps_bf16", "taps", False, BF16),
     ("taps_int8", "taps-int8", False, {}),
     ("taps_int8_two_pass", "taps-int8", True, {}),
     ("auto", "auto", False, {}),
 ]
 
 
-def int8_error_bound(torch, cfg, rq, rs):
-    """The two-pass certificate's bound on |d_int8 - d| per pair: the bf16
-    eta (``_default_cert_eta``) plus the int8 quantisation error
-    (``_quant_abs_err``) of the engine's static part bounds."""
+def cert_error_bound(torch, cfg, rq, rs, quantized: bool):
+    """The two-pass certificate's bound on |d_lo - d| per pair for a run
+    on the bf16 tower: the bf16 eta (``_default_cert_eta``) plus, for int8
+    parts, the quantisation error (``_quant_abs_err``) of the engine's
+    static part bounds. Returns (bound, int8 abs err or 0)."""
     from ganleaks_tpu_torch.attack.fbb import build_embed_fn
     from ganleaks_tpu_torch.ops.knn import _default_cert_eta, _quant_abs_err
     from ganleaks_tpu_torch.ops.lpips.backbones import tap_shapes
-    embed = build_embed_fn(cfg, "cpu", structured=True)
-    bounds = embed.part_bound_fn((RES, RES, 3))
-    widths = [3 * RES * RES] + [h * w * c for h, w, c
-                                in tap_shapes("vgg", (RES, RES, 3))]
-    abs_err = _quant_abs_err(tuple(bounds), [(w,) for w in widths])
+    abs_err = 0.0
+    if quantized:
+        embed = build_embed_fn(cfg, "cpu", structured=True)
+        bounds = embed.part_bound_fn((RES, RES, 3))
+        widths = [3 * RES * RES] + [h * w * c for h, w, c
+                                    in tap_shapes("vgg", (RES, RES, 3))]
+        abs_err = _quant_abs_err(tuple(bounds), [(w,) for w in widths])
     s = np.sqrt(rq) + np.sqrt(rs)
     a = _default_cert_eta(True) * s + 2.0 * abs_err
     return a * (2.0 * s + a), abs_err
@@ -423,7 +558,7 @@ def phase_attack(torch, tmp: str) -> dict:
     runs = {}
     for label, engine, two_pass, extra in ATTACK_RUNS:
         cfg = AttackConfig(exp_name=f"smoke_{label}", engine=engine,
-                           two_pass=two_pass, **base, **extra)
+                           two_pass=two_pass, **{**base, **extra})
         if DEVICE == "cuda":
             torch.cuda.reset_peak_memory_stats()
         reset_launches()
@@ -445,12 +580,13 @@ def phase_attack(torch, tmp: str) -> dict:
             "err": float((np.abs(loss - d64) / (rq + rs)).max()),
             "engine_resolved": resolved[0]["engine_resolved"]
             if resolved else None, "cfg": cfg}
-        if engine in ("taps-int8", "auto") and not two_pass:
+        # single-pass runs on bf16 embeddings or int8 parts: held to the
+        # certificate's error model (bf16 eta, + the int8 term for int8)
+        if (engine in ("taps-int8", "auto") or extra) and not two_pass:
             run_cfg = cfg if engine != "auto" else replace(
-                cfg, engine="taps-int8", dtype="bfloat16",
-                lpips_compute_dtype="bfloat16")
-            r["eps"], abs_err = int8_error_bound(torch, run_cfg, rq, rs)
-            r["abs_err"] = abs_err
+                cfg, engine="taps-int8", **BF16)
+            r["eps"], r["abs_err"] = cert_error_bound(
+                torch, run_cfg, rq, rs, run_cfg.engine == "taps-int8")
         emit({"phase": "attack", "run": label, "engine": engine,
               "two_pass": two_pass, "engine_resolved": r["engine_resolved"],
               "n_pos": n_pos, "n_neg": n_neg, "n_syn": n_syn, "k": k_dim,
@@ -474,14 +610,17 @@ def phase_attack(torch, tmp: str) -> dict:
                           f"member copies")
     check(p["err"] <= TOL, f"pallas: losses off their float64 distances by "
                            f"{p['err']:.3g} x (rq + rs)")
-    # launches: which kernels each path ran (K1 knn_argmin, K3 knn_topk,
-    # K2 tap_epilogue); the two-pass re-rank and fallback run K1
+    # launches: which kernels each path ran, K1 (knn_argmin) and K3
+    # (knn_topk) per tile — '.ffma' on float32, '.wgmma' on bf16 — and K2
+    # (tap_epilogue); pass 1 of two-pass runs K3 on bf16 embeddings, the
+    # float32 re-rank and fallbacks run K1 on the FFMA tile
     want_launches = {
-        "pallas": ("knn_argmin",), "gemm": (),
-        "pallas_two_pass": ("knn_topk", "knn_argmin"),
-        "taps": ("tap_epilogue", "knn_argmin"),
+        "pallas": ("knn_argmin.ffma",), "gemm": (),
+        "pallas_two_pass": ("knn_topk.wgmma", "knn_argmin.ffma"),
+        "taps": ("tap_epilogue", "knn_argmin.ffma"),
+        "taps_bf16": ("tap_epilogue", "knn_argmin.wgmma"),
         "taps_int8": ("tap_epilogue",),
-        "taps_int8_two_pass": ("tap_epilogue", "knn_argmin"),
+        "taps_int8_two_pass": ("tap_epilogue", "knn_argmin.ffma"),
         "auto": ("tap_epilogue",)}
     for label, r in runs.items():
         for name, n in r["launches"].items():
@@ -495,7 +634,7 @@ def phase_attack(torch, tmp: str) -> dict:
     for label, r in runs.items():
         if label == "pallas":
             continue
-        int8 = "eps" in r
+        int8 = "eps" in r  # bf16 or int8 single pass: bounded, not exact
         # an engine whose distance to a row is off by at most e can only
         # pick a row whose float64 distance lies within 2 e of the best,
         # so two engines may disagree only between such near-ties
@@ -511,7 +650,7 @@ def phase_attack(torch, tmp: str) -> dict:
               f"pallas run, not all near-ties")
         if int8:  # the certificate's own error model
             check(bool((np.abs(r["loss"] - r["d64"]) <= r["eps"]).all()),
-                  f"{label}: int8 losses outside the certificate bound")
+                  f"{label}: losses outside the certificate bound")
             check(r["auc"] > 0.9, f"{label}: AUROC {r['auc']:.4f}")
         elif label != "gemm":  # exact float32 results
             check(r["err"] <= TOL, f"{label}: losses off float64 by "
@@ -529,7 +668,46 @@ def phase_attack(torch, tmp: str) -> dict:
                 (np.abs(r["loss"] - r["d64"]) / r["eps"]).max())
     emit({"phase": "attack_check", "auroc_pallas": p["auc"],
           "loss_err_over_norms_pallas": p["err"], "runs": summary})
-    return {label: r["launches"] for label, r in runs.items()}
+    launches = {label: r["launches"] for label, r in runs.items()}
+    launches["topk_f32"] = topk_search(torch, embed, queries, syn, p)
+    return launches
+
+
+def topk_search(torch, embed, queries, syn, p) -> dict:
+    """The float32 top-k search through the port's entry point
+    (``knn_topk_streamed``, engine 'pallas', which folds every block with
+    K3 on the FFMA tile) on the attack's arrays: each query's list
+    ascending, its first entry the 'pallas' run's nearest row (or a
+    near-tie of it) at that row's float64 distance within TOL. Returns the
+    launches of the search."""
+    from ganleaks_tpu_torch.ops.knn import knn_topk_streamed
+    reset_launches()
+    t0 = time.perf_counter()
+    d, i = knn_topk_streamed(embed, queries, syn, k=TOPK_K, engine="pallas",
+                             device=DEVICE)
+    d, i = d.cpu().numpy().astype(np.float64), i.cpu().numpy()
+    secs = time.perf_counter() - t0
+    launches = read_launches()
+    want = {name: int(name == "knn_topk.ffma") for name in launches}
+    for name, n in launches.items():
+        check((n > 0) == bool(want[name]),
+              f"topk_f32: {name} launched {n} times")
+    check(d.shape == (len(queries), TOPK_K) and bool(np.isfinite(d).all()),
+          f"topk_f32: not {len(queries)} x {TOPK_K} finite distances")
+    check(bool((np.diff(d, axis=1) >= 0).all()), "topk_f32: not ascending")
+    same = i[:, 0] == p["idx"]
+    near = 2.0 * max(TOL, p["err"]) * p["norms"]
+    check(bool((np.abs(d[~same, 0] - p["d64"][~same]) <= near[~same]).all()),
+          f"topk_f32: {int((~same).sum())} nearest rows differ from the "
+          f"pallas run's, not all near-ties")
+    err = float((np.abs(d[same, 0] - p["d64"][same])
+                 / p["norms"][same]).max())
+    check(err <= TOL, f"topk_f32: d off float64 by {err:.3g} x (rq + rs)")
+    emit({"phase": "attack", "run": "topk_f32", "entry": "knn_topk_streamed",
+          "engine": "pallas", "k": TOPK_K, "kernel_launches": launches,
+          "nearest_mismatches": int((~same).sum()),
+          "loss_err_over_norms": err, "end_to_end_s": secs})
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -560,9 +738,15 @@ def bound(flops: float, peak_flops: float, nbytes: float) -> dict:
             "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
 
 
+def kernel_reps(dtype) -> int:
+    """Timed launches per K1/K3 measurement: more for the ~10 ms bf16
+    (wgmma) runs than for the ~110 ms float32 (FFMA) ones."""
+    return 3 if dtype_name(dtype) == "float32" else 10
+
+
 def timing_k1(torch, dtype) -> dict:
     from ganleaks_tpu_torch.ops.knn_fused import (knn_argmin_fused,
-                                                  knn_argmin_plain)
+                                                  knn_argmin_plain, route)
     n_q = n_s = 2048
     k_dim = 512000
     gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
@@ -581,28 +765,54 @@ def timing_k1(torch, dtype) -> dict:
                                      alpha=-2.0).float() + rq[:, None],
                          dim=1)
 
-    ms = time_ms(torch, lambda: knn_argmin_fused(q, s, rq=rq, rs=rs))
+    reps = kernel_reps(dtype)
+    ms = time_ms(torch, lambda: knn_argmin_fused(q, s, rq=rq, rs=rs), reps)
     plain_ms = time_ms(torch, lambda: knn_argmin_plain(q, s, rq, rs))
-    library_ms = time_ms(torch, library)
-    ms2 = time_ms(torch, lambda: knn_argmin_fused(q, s, rq=rq, rs=rs))
+    library_ms = time_ms(torch, library, reps)
+    ms2 = time_ms(torch, lambda: knn_argmin_fused(q, s, rq=rq, rs=rs), reps)
     flops = 2.0 * n_q * n_s * k_dim
     nbytes = (n_q + n_s) * k_dim * q.element_size() + (n_q + n_s) * 4 \
         + n_q * 8
     peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_FP32_FLOPS
-    res = {"kernel": "knn_argmin", "n_q": n_q, "n_s": n_s, "k": k_dim,
-           "dtype": dtype_name(dtype), "ms": min(ms, ms2),
+    res = {"kernel": "knn_argmin", "tile": route(dtype), "n_q": n_q,
+           "n_s": n_s, "k": k_dim, "dtype": dtype_name(dtype),
+           "ms": min(ms, ms2),
            "ms_runs": [ms, ms2], "plain_ms": plain_ms,
            "library_ms": library_ms, "max_abs_err": held["max_abs_err"],
            **bound(flops, peak, nbytes),
-           "tflops": flops / (min(ms, ms2) * 1e-3) / 1e12}
+           "tflops": flops / (min(ms, ms2) * 1e-3) / 1e12,
+           **one_tile_ms(torch, lambda a, b, ra, rb: knn_argmin_fused(
+               a, b, rq=ra, rs=rb), q, s, rq, rs, reps)}
     emit({"phase": "timing", **res})
     del q, s
     return res
 
 
+def one_tile_ms(torch, fn, q, s, rq, rs, reps) -> dict:
+    """The same call on the first 128 queries only (one query tile, a
+    sixteenth of the blocks) beside the full block: the work each block
+    does per second in both shows what the full grid's shared traffic (L2
+    and device memory) costs a block."""
+    from ganleaks_tpu_torch.ops.knn_fused import launch_plan
+    n = 128
+    ms = time_ms(torch, lambda: fn(q[:n], s, rq[:n], rs), reps)
+    ms_full = time_ms(torch, lambda: fn(q, s, rq, rs), reps)
+    out = {}
+    for name, rows, t in (("one_query_tile", n, ms),
+                          ("full", q.shape[0], ms_full)):
+        tps, n_splits = launch_plan(q[:rows], s.shape[0])
+        blocks = -(-rows // 128) * n_splits
+        flops = 2.0 * rows * s.shape[0] * q.shape[1]
+        out[f"{name}_ms"] = t
+        out[f"{name}_blocks"] = blocks
+        out[f"{name}_tiles_per_block"] = tps
+        out[f"{name}_tflops_per_block"] = flops / blocks / (t * 1e-3) / 1e12
+    return out
+
+
 def timing_k3(torch, dtype) -> dict:
     from ganleaks_tpu_torch.ops.knn_fused import (knn_topk_fused,
-                                                  knn_topk_plain)
+                                                  knn_topk_plain, route)
     n_q = n_s = 2048
     k_dim = 512000
     k = TOPK_K
@@ -617,22 +827,26 @@ def timing_k3(torch, dtype) -> dict:
                 .float() + rq[:, None])
         return torch.topk(dist, k, dim=1, largest=False)
 
-    ms = time_ms(torch, lambda: knn_topk_fused(q, s, k, rq=rq, rs=rs))
+    reps = kernel_reps(dtype)
+    ms = time_ms(torch, lambda: knn_topk_fused(q, s, k, rq=rq, rs=rs), reps)
     plain_ms = time_ms(torch, lambda: knn_topk_plain(q, s, k, rq, rs))
-    library_ms = time_ms(torch, library)
-    ms2 = time_ms(torch, lambda: knn_topk_fused(q, s, k, rq=rq, rs=rs))
+    library_ms = time_ms(torch, library, reps)
+    ms2 = time_ms(torch, lambda: knn_topk_fused(q, s, k, rq=rq, rs=rs), reps)
     flops = 2.0 * n_q * n_s * k_dim
     elt = q.element_size()
     nbytes = (n_q + n_s) * k_dim * elt + (n_q + n_s) * 4 + n_q * k * 8
     # bf16 products are exact in float32, so the bf16 tensor cores could
     # do the same math: the bf16 bound is at their peak
     peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_FP32_FLOPS
-    res = {"kernel": "knn_topk", "n_q": n_q, "n_s": n_s, "k_dim": k_dim,
+    res = {"kernel": "knn_topk", "tile": route(dtype), "n_q": n_q,
+           "n_s": n_s, "k_dim": k_dim,
            "k": k, "dtype": dtype_name(dtype), "ms": min(ms, ms2),
            "ms_runs": [ms, ms2], "plain_ms": plain_ms,
            "library_ms": library_ms, "max_abs_err": held["max_abs_err"],
            **bound(flops, peak, nbytes),
-           "tflops": flops / (min(ms, ms2) * 1e-3) / 1e12}
+           "tflops": flops / (min(ms, ms2) * 1e-3) / 1e12,
+           **one_tile_ms(torch, lambda a, b, ra, rb: knn_topk_fused(
+               a, b, k, rq=ra, rs=rb), q, s, rq, rs, reps)}
     emit({"phase": "timing", **res})
     del q, s
     return res
@@ -724,26 +938,38 @@ def main() -> int:
     k2_err = phase_epilogue(torch)
     with tempfile.TemporaryDirectory() as tmp:
         launches = phase_attack(torch, tmp)
-    t_k1 = timing_k1(torch, torch.float32)
-    timing_k1(torch, torch.bfloat16)  # reported: the bf16 'taps' recipe
+    t_k1 = {name: timing_k1(torch, dt) for name, dt in
+            (("float32", torch.float32), ("bfloat16", torch.bfloat16))}
     t_k3 = {name: timing_k3(torch, dt) for name, dt in
             (("bfloat16", torch.bfloat16), ("float32", torch.float32))}
     t_k2 = {mode: timing_k2(torch, mode) for mode in ("bf16_int8", "f32")}
 
     # launches: each kernel's count in the run of the path it serves — K1
-    # in the float32 engine='pallas' run, K3 in the two-pass run on that
-    # engine (pass 1 on bf16 embeddings), K2 in the engine='auto' run
-    # (taps-int8 on a bf16 tower: the main path on the card); the timed
-    # rows are those paths' shapes and types
+    # on the FFMA tile in the float32 engine='pallas' run, K1 on the wgmma
+    # tile in the bf16 'taps' run (the recipe 'auto' degrades to), K3 on
+    # the wgmma tile in the two-pass run on that engine (pass 1 on bf16
+    # embeddings), K3 on the FFMA tile in the float32 top-k search, K2 in
+    # the engine='auto' run (taps-int8 on a bf16 tower: the main path on
+    # the card); the timed rows are those paths' shapes and types
+    k1_src = ("ganleaks_tpu_torch/csrc/knn_argmin.cu",
+              "ganleaks_tpu/ops/knn_pallas.py:269")
+    k3_src = ("ganleaks_tpu_torch/csrc/knn_topk.cu",
+              "ganleaks_tpu/ops/knn_pallas.py:340")
     rows = [
-        ("knn_argmin", "ganleaks_tpu_torch/csrc/knn_argmin.cu",
-         "ganleaks_tpu/ops/knn_pallas.py:269",
-         launches["pallas"]["knn_argmin"], max(k1_err, t_k1["max_abs_err"]),
-         t_k1),
-        ("knn_topk", "ganleaks_tpu_torch/csrc/knn_topk.cu",
-         "ganleaks_tpu/ops/knn_pallas.py:340",
-         launches["pallas_two_pass"]["knn_topk"],
-         max(k3_err, t_k3["bfloat16"]["max_abs_err"]), t_k3["bfloat16"]),
+        ("knn_argmin.ffma", *k1_src, launches["pallas"]["knn_argmin.ffma"],
+         max(k1_err["float32"], t_k1["float32"]["max_abs_err"]),
+         t_k1["float32"]),
+        ("knn_argmin.wgmma", *k1_src,
+         launches["taps_bf16"]["knn_argmin.wgmma"],
+         max(k1_err["bfloat16"], t_k1["bfloat16"]["max_abs_err"]),
+         t_k1["bfloat16"]),
+        ("knn_topk.ffma", *k3_src, launches["topk_f32"]["knn_topk.ffma"],
+         max(k3_err["float32"], t_k3["float32"]["max_abs_err"]),
+         t_k3["float32"]),
+        ("knn_topk.wgmma", *k3_src,
+         launches["pallas_two_pass"]["knn_topk.wgmma"],
+         max(k3_err["bfloat16"], t_k3["bfloat16"]["max_abs_err"]),
+         t_k3["bfloat16"]),
         ("tap_epilogue", "ganleaks_tpu_torch/csrc/tap_epilogue.cu",
          "ganleaks_tpu/ops/lpips/epilogue_pallas.py:114",
          launches["auto"]["tap_epilogue"],

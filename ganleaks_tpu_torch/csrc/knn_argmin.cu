@@ -9,36 +9,41 @@
 // with the cross term accumulated in float32 over K and the (N_q x N_s)
 // distance matrix never written to memory.
 //
-// Bound. 2*N_q*N_s*K floating-point operations against (N_q + N_s)*K input
-// elements: at the attack's block shape (2048 x 2048, K = 512,000) that is
-// 2048 operations per float32 byte read, so the kernel is bound by
-// arithmetic, not by the 3.35 TB/s of device memory. This first version runs
-// the products on the float32 CUDA cores (FFMA, no TF32: the attack's float32
-// path must keep float32 products), whose peak is 67 TFLOP/s.
+// Bound. 2*N_q*N_s*K operations against (N_q + N_s)*K input elements: at the
+// attack's block (2048 x 2048, K = 512,000) about 2000 operations per byte
+// read, so the kernel is bound by arithmetic, not by the 3.35 TB/s of
+// device memory: 4.34 ms for bfloat16 inputs on the bf16 tensor cores
+// (989 TFLOP/s; a bf16 x bf16 product is exact in float32), 64.1 ms for
+// float32 inputs on the float32 CUDA cores (67 TFLOP/s; TF32 would cut the
+// products to ~3 digits). All times for an H100 SXM at 700 W.
 //
-// Design.
-//  * Pass 1 (knn_partial_kernel): a 256-thread block owns a 128-query tile
-//    and a contiguous span of 128-row synthetic tiles. Per synthetic tile it
-//    (knn_tile.cuh, shared with the top-k kernel) walks K in 16-deep
-//    stages through double-buffered shared memory, each
-//    thread accumulating an 8x8 register block of q.s with fmaf. bfloat16
-//    inputs are widened to float32 on load. Every 8 stages (128 K values)
-//    the stage sums are added into the main accumulator. One running float32
-//    sum of 512,000 products rounds by an estimated ~1e-5 of the sum; the
-//    two-level sum cuts that estimate to ~1e-6, under the 1e-5 * (rq + rs)
-//    tolerance the attack's index check uses.
-//    At the end of a tile, d = (rq + rs) - 2*acc, rows >= N_s are skipped,
-//    each row's first minimal column is found in registers and across the
-//    16 lanes that share the row (lexicographic (d, index) shuffles), and
-//    folded into the block's running (min, index) with strict '<' — tiles
-//    are visited in increasing order, so the earliest index wins.
-//  * The TPU grid is sequential and carries the running argmin in VMEM
-//    across the whole synthetic axis; blocks on Hopper run in parallel, so
-//    the synthetic axis is split into spans over enough blocks to fill the
-//    132 SMs, each writing one partial (min, index) per query.
+// Design: two routes by dtype, one pass-1 kernel each, one merge.
+//  * float32 (knn_partial_kernel, tile of knn_tile.cuh): a 256-thread block
+//    owns a 128-query tile and a contiguous span of 128-row synthetic
+//    tiles; per tile it walks K in 16-deep stages through double-buffered
+//    shared memory, each thread accumulating an 8x8 register block with
+//    fmaf, every 128 K values added into the main sum (two-level sum).
+//    Each row's first minimal column is found in registers and across the
+//    16 lanes sharing the row, and folded into the block's running (min,
+//    index) with strict '<'.
+//  * bfloat16 (knn_partial_wgmma, tile of knn_tile_wgmma.cuh): a 384-thread
+//    CTA, one per SM, owns a 128-query tile and a span of synthetic tiles;
+//    a producer thread feeds a ring of 32 KB stages by TMA, two consumer
+//    warpgroups run wgmma.m64n128k16 (bf16 -> f32) and promote the
+//    accumulator into a float32 register sum every few stages. On the
+//    fragment, d = (rq + rs) - 2*sum, and each row's first minimal column
+//    is found over its 32 registers and the 4 lanes of its quad; the
+//    running (min, index) of the thread's two rows stays in registers.
+//    Ring: 6 stages (192 KB); promotion every 2 stages (128 K values);
+//    registers: 64 accumulator + 64 promoted floats per consumer thread
+//    under setmaxnreg 232 (ptxas: 168 at launch, no spills).
+//  * Tiles are visited in increasing order, so strict '<' keeps the earliest
+//    index. The TPU grid is sequential and carries the running argmin across
+//    the whole synthetic axis; blocks on Hopper run in parallel, so the
+//    synthetic axis is split into spans (the wrapper plans them for one
+//    wave of blocks), each writing one partial (min, index) per query.
 //  * Pass 2 (knn_merge_kernel) walks the partials of each query in span
 //    order with strict '<', which is exactly the sequential walk.
-// No tensor cores, TMA or wgmma yet: a simple kernel that is right first.
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -46,6 +51,7 @@
 #include <climits>
 
 #include "knn_tile.cuh"
+#include "knn_tile_wgmma.cuh"
 
 namespace {
 
@@ -53,9 +59,11 @@ using knn_tile::kThreads;
 using knn_tile::kTileQ;
 using knn_tile::kTileS;
 
-template <typename T, bool VEC>
+static_assert(knn_wgmma::kTileS == kTileS, "one tile height for both routes");
+
+template <bool VEC>
 __global__ void __launch_bounds__(kThreads)
-knn_partial_kernel(const T* __restrict__ q, const T* __restrict__ s,
+knn_partial_kernel(const float* __restrict__ q, const float* __restrict__ s,
                    const float* __restrict__ rq, const float* __restrict__ rs,
                    int n_q, int n_s, int k_dim, int tiles_per_split,
                    float* __restrict__ part_d, int* __restrict__ part_i) {
@@ -80,7 +88,7 @@ knn_partial_kernel(const T* __restrict__ q, const T* __restrict__ s,
   for (int t = t_begin; t < t_end; ++t) {
     const int n0 = t * kTileS;
     float acc[8][8];
-    knn_tile::tile_dot<T, VEC>(q, s, m0, n0, n_q, n_s, k_dim, sm, acc);
+    knn_tile::tile_dot<VEC>(q, s, m0, n0, n_q, n_s, k_dim, sm, acc);
 
     // epilogue: distances, first minimal column per row, running fold
     int col[8];
@@ -133,6 +141,85 @@ knn_partial_kernel(const T* __restrict__ q, const T* __restrict__ s,
   }
 }
 
+__global__ void __launch_bounds__(knn_wgmma::kThreads, 1)
+knn_partial_wgmma(const __grid_constant__ CUtensorMap map_q,
+                  const __grid_constant__ CUtensorMap map_s,
+                  const float* __restrict__ rq, const float* __restrict__ rs,
+                  int n_q, int n_s, int k_dim, int tiles_per_split,
+                  int n_stages, float* __restrict__ part_d,
+                  int* __restrict__ part_i) {
+  extern __shared__ unsigned char smem[];
+  const knn_wgmma::Ring ring(smem, n_stages);
+  const int m0 = blockIdx.y * kTileQ;
+  const int split = blockIdx.x;
+  const int n_tiles = (n_s + kTileS - 1) / kTileS;
+  const int t_begin = split * tiles_per_split;
+  const int t_end = min(n_tiles, t_begin + tiles_per_split);
+  const int n_kb = (k_dim + knn_wgmma::kStageK - 1) / knn_wgmma::kStageK;
+
+  if (threadIdx.x == 0) ring.init();
+  __syncthreads();
+
+  if (threadIdx.x >= knn_wgmma::kConsumerThreads) {  // producer warpgroup
+    knn_wgmma::producer_regs();
+    if (threadIdx.x == knn_wgmma::kConsumerThreads)
+      knn_wgmma::produce(ring, &map_q, &map_s, m0, t_begin, t_end, n_kb);
+  } else {  // consumer warpgroups
+    knn_wgmma::consumer_regs();
+    const int wg = threadIdx.x >> 7;
+    int rows[2], lane_col;
+    knn_wgmma::frag_rows(rows, lane_col);
+    float rqh[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      rqh[h] = m0 + rows[h] < n_q ? rq[m0 + rows[h]] : 0.f;
+    float run_d[2] = {CUDART_INF_F, CUDART_INF_F};
+    int run_i[2] = {0, 0};
+    knn_wgmma::Cursor c;
+    float acc[knn_wgmma::kFragRegs], sum[knn_wgmma::kFragRegs];
+#pragma unroll
+    for (int j = 0; j < knn_wgmma::kFragRegs; ++j) acc[j] = 0.f;
+
+    for (int t = t_begin; t < t_end; ++t) {
+      const int n0 = t * kTileS;
+      knn_wgmma::consume_tile(ring, c, wg, n_kb, acc, sum);
+      float best_d[2] = {CUDART_INF_F, CUDART_INF_F};
+      int best_i[2] = {INT_MAX, INT_MAX};
+#pragma unroll
+      for (int j = 0; j < knn_wgmma::kFragRegs; ++j) {  // columns ascend
+        const int col = n0 + 8 * (j >> 2) + lane_col + (j & 1);
+        const int h = (j >> 1) & 1;
+        if (col < n_s) {
+          const float d = (rqh[h] + rs[col]) - 2.f * sum[j];
+          if (d < best_d[h]) {
+            best_d[h] = d;
+            best_i[h] = col;
+          }
+        }
+      }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        knn_wgmma::quad_min(best_d[h], best_i[h]);
+        if (best_d[h] < run_d[h]) {  // the quad holds the same values
+          run_d[h] = best_d[h];
+          run_i[h] = best_i[h];
+        }
+      }
+    }
+    if ((threadIdx.x & 3) == 0) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int m = m0 + rows[h];
+        if (m < n_q) {
+          const size_t o = static_cast<size_t>(split) * n_q + m;
+          part_d[o] = run_d[h];
+          part_i[o] = run_i[h];
+        }
+      }
+    }
+  }
+}
+
 __global__ void knn_merge_kernel(const float* __restrict__ part_d,
                                  const int* __restrict__ part_i, int n_splits,
                                  int n_q, float* __restrict__ d_out,
@@ -153,30 +240,34 @@ __global__ void knn_merge_kernel(const float* __restrict__ part_d,
   i_out[m] = best_i;
 }
 
-template <typename T>
-cudaError_t launch(const void* q, const void* s, const float* rq,
-                   const float* rs, int n_q, int n_s, int k_dim,
-                   int tiles_per_split, float* part_d, int* part_i,
-                   float* d_out, int* i_out, cudaStream_t stream) {
-  const int n_tiles = (n_s + kTileS - 1) / kTileS;
-  const int n_splits = (n_tiles + tiles_per_split - 1) / tiles_per_split;
-  const int q_tiles = (n_q + kTileQ - 1) / kTileQ;
-  if (q_tiles > 65535) return cudaErrorInvalidValue;  // grid.y limit
-  const dim3 grid(n_splits, q_tiles);
-  const bool vec = knn_tile::vector_rows<T>(q, s, k_dim);
-  const T* qt = static_cast<const T*>(q);
-  const T* st = static_cast<const T*>(s);
-  if (vec) {
-    knn_partial_kernel<T, true><<<grid, kThreads, 0, stream>>>(
-        qt, st, rq, rs, n_q, n_s, k_dim, tiles_per_split, part_d, part_i);
+cudaError_t launch_ffma(dim3 grid, const float* q, const float* s,
+                        const float* rq, const float* rs, int n_q, int n_s,
+                        int k_dim, int tiles_per_split, float* part_d,
+                        int* part_i, cudaStream_t stream) {
+  if (knn_tile::vector_rows(q, s, k_dim)) {
+    knn_partial_kernel<true><<<grid, kThreads, 0, stream>>>(
+        q, s, rq, rs, n_q, n_s, k_dim, tiles_per_split, part_d, part_i);
   } else {
-    knn_partial_kernel<T, false><<<grid, kThreads, 0, stream>>>(
-        qt, st, rq, rs, n_q, n_s, k_dim, tiles_per_split, part_d, part_i);
+    knn_partial_kernel<false><<<grid, kThreads, 0, stream>>>(
+        q, s, rq, rs, n_q, n_s, k_dim, tiles_per_split, part_d, part_i);
   }
-  cudaError_t err = cudaGetLastError();
+  return cudaGetLastError();
+}
+
+cudaError_t launch_wgmma(dim3 grid, const void* q, const void* s,
+                         const float* rq, const float* rs, int n_q, int n_s,
+                         int k_dim, int tiles_per_split, float* part_d,
+                         int* part_i, cudaStream_t stream) {
+  CUtensorMap map_q, map_s;
+  int n_stages;
+  size_t smem;
+  const cudaError_t err = knn_wgmma::prepare_launch(
+      knn_partial_wgmma, q, s, n_q, n_s, k_dim, 0, &map_q, &map_s, &n_stages,
+      &smem);
   if (err != cudaSuccess) return err;
-  knn_merge_kernel<<<(n_q + 255) / 256, 256, 0, stream>>>(
-      part_d, part_i, n_splits, n_q, d_out, i_out);
+  knn_partial_wgmma<<<grid, knn_wgmma::kThreads, smem, stream>>>(
+      map_q, map_s, rq, rs, n_q, n_s, k_dim, tiles_per_split, n_stages,
+      part_d, part_i);
   return cudaGetLastError();
 }
 
@@ -184,39 +275,49 @@ cudaError_t launch(const void* q, const void* s, const float* rq,
 
 extern "C" {
 
-// Rows per synthetic tile: the wrapper sizes the partial buffers with it.
+// Rows per synthetic tile (both routes): the wrapper sizes the partial
+// buffers with it.
 int knn_argmin_tile_rows() { return kTileS; }
 
-// dtype: 0 = float32, 1 = bfloat16. q (n_q, k_dim) and s (n_s, k_dim) are
-// row-major and contiguous; rq (n_q,), rs (n_s,) float32 squared row norms.
-// part_d/part_i hold n_splits * n_q entries, with
-// n_splits = ceil(ceil(n_s / tile_rows) / tiles_per_split).
-// Launches on `stream` without synchronising; returns the cudaError_t of the
-// launches (0 on success).
+// dtype: 0 = float32 (FFMA tile), 1 = bfloat16 (wgmma tile; k_dim % 8 == 0
+// and 16-byte-aligned q and s, for TMA). q (n_q, k_dim) and s (n_s, k_dim)
+// are row-major and contiguous; rq (n_q,), rs (n_s,) float32 squared row
+// norms. part_d/part_i hold n_splits * n_q entries, with
+// n_splits = ceil(ceil(n_s / tile_rows) / tiles_per_split). Launches on
+// `stream` without synchronising; returns the cudaError_t of the launches
+// (0 on success).
 int knn_argmin_launch(int dtype, const void* q, const void* s, const void* rq,
                       const void* rs, int n_q, int n_s, int k_dim,
                       int tiles_per_split, void* part_d, void* part_i,
                       void* d_out, void* i_out, void* stream) {
   if (n_q <= 0 || n_s <= 0 || k_dim <= 0 || tiles_per_split <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
+  const int n_tiles = (n_s + kTileS - 1) / kTileS;
+  const int n_splits = (n_tiles + tiles_per_split - 1) / tiles_per_split;
+  const int q_tiles = (n_q + kTileQ - 1) / kTileQ;
+  if (q_tiles > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid(n_splits, q_tiles);
   const auto* rqf = static_cast<const float*>(rq);
   const auto* rsf = static_cast<const float*>(rs);
   auto* pd = static_cast<float*>(part_d);
   auto* pi = static_cast<int*>(part_i);
-  auto* dd = static_cast<float*>(d_out);
-  auto* ii = static_cast<int*>(i_out);
   auto st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (dtype == 0) {
-    err = launch<float>(q, s, rqf, rsf, n_q, n_s, k_dim, tiles_per_split, pd,
-                        pi, dd, ii, st);
+    err = launch_ffma(grid, static_cast<const float*>(q),
+                      static_cast<const float*>(s), rqf, rsf, n_q, n_s, k_dim,
+                      tiles_per_split, pd, pi, st);
   } else if (dtype == 1) {
-    err = launch<uint16_t>(q, s, rqf, rsf, n_q, n_s, k_dim, tiles_per_split,
-                           pd, pi, dd, ii, st);
+    err = launch_wgmma(grid, q, s, rqf, rsf, n_q, n_s, k_dim, tiles_per_split,
+                       pd, pi, st);
   } else {
     err = cudaErrorInvalidValue;
   }
-  return static_cast<int>(err);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  knn_merge_kernel<<<(n_q + 255) / 256, 256, 0, st>>>(
+      pd, pi, n_splits, n_q, static_cast<float*>(d_out),
+      static_cast<int*>(i_out));
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // extern "C"

@@ -15,27 +15,30 @@
 //
 // Bound. The same work as the argmin kernel (knn_argmin.cu): 2*N_q*N_s*K
 // operations against (N_q + N_s)*K input elements, far above the card's
-// operations-per-byte balance, so it is bound by arithmetic. Products run
-// on the float32 CUDA cores (67 TFLOP/s peak); for bfloat16 inputs the
-// bf16 tensor cores (989 TFLOP/s) could do the same math exactly, which
-// this first version leaves to later work.
+// operations-per-byte balance, so it is bound by arithmetic: at the attack's
+// block (2048 x 2048, K = 512,000) 4.34 ms for bfloat16 inputs on the bf16
+// tensor cores, 64.1 ms for float32 inputs on the float32 CUDA cores (H100
+// SXM, 700 W).
 //
-// Design.
-//  * Pass 1 (knn_topk_partial_kernel) is the argmin kernel's tiling: a
-//    256-thread block owns a 128-query tile and a span of 128-row synthetic
-//    tiles, and computes each tile's cross terms with knn_tile::tile_dot.
-//  * Each query row keeps a running list of k (d, index) entries in shared
-//    memory, ascending, initialised to (+inf, -1). After a tile, the 16
-//    lanes that share a row extract the tile's first minimal column (a
-//    lexicographic (d, index) shuffle over their 8 columns each) k times;
-//    an extracted entry is inserted by one lane after every running entry
-//    of equal distance whenever it beats the list's last entry, and the
-//    owning lane masks the column. Running entries come from earlier tiles
-//    (lower indices), so "ascending d, earliest index first" holds — the
-//    running entries are merged before the tile's, as in the TPU kernel.
+// Design: the argmin kernel's two routes and split, with a k-list epilogue.
+//  * Each query row keeps a running list of k (d, index) entries in
+//    dynamic shared memory, ascending, initialised to (+inf, -1). After a
+//    tile, the lanes that share a row extract the tile's first minimal
+//    column (a lexicographic (d, index) shuffle) k times; an extracted entry
+//    is inserted by one lane after every running entry of equal distance
+//    whenever it beats the list's last entry, and the owning lane masks the
+//    column. Running entries come from earlier tiles (lower indices), so
+//    "ascending d, earliest index first" holds — the running entries are
+//    merged before the tile's, as in the TPU kernel.
+//  * float32 (knn_topk_partial_kernel): the FFMA tile of knn_tile.cuh; a
+//    row's 128 columns lie on 16 lanes, 8 each.
+//  * bfloat16 (knn_topk_partial_wgmma): the wgmma + TMA tile of
+//    knn_tile_wgmma.cuh; a row's columns lie on the 4 lanes of a quad, 32
+//    each, d computed in place in the promoted sum. The lists (128 x k x 8
+//    bytes) share the CTA's shared memory with the ring, so the launch
+//    picks the ring's stage count from k (6 up to k = 33, 3 at k = 128).
 //  * Pass 2 (knn_topk_merge_kernel) merges each query's per-span lists in
 //    span order by the same insertion, earlier spans first among equals.
-// No tensor cores, TMA or wgmma yet: a simple kernel that is right first.
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -43,6 +46,7 @@
 #include <climits>
 
 #include "knn_tile.cuh"
+#include "knn_tile_wgmma.cuh"
 
 namespace {
 
@@ -68,9 +72,10 @@ __device__ __forceinline__ void insert_entry(float* ld, int* li, int k,
   li[p] = i;
 }
 
-template <typename T, bool VEC>
+template <bool VEC>
 __global__ void __launch_bounds__(kThreads)
-knn_topk_partial_kernel(const T* __restrict__ q, const T* __restrict__ s,
+knn_topk_partial_kernel(const float* __restrict__ q,
+                        const float* __restrict__ s,
                         const float* __restrict__ rq,
                         const float* __restrict__ rs, int n_q, int n_s,
                         int k_dim, int k, int tiles_per_split,
@@ -98,7 +103,7 @@ knn_topk_partial_kernel(const T* __restrict__ q, const T* __restrict__ s,
   for (int t = t_begin; t < t_end; ++t) {
     const int n0 = t * kTileS;
     float acc[8][8];
-    knn_tile::tile_dot<T, VEC>(q, s, m0, n0, n_q, n_s, k_dim, sm, acc);
+    knn_tile::tile_dot<VEC>(q, s, m0, n0, n_q, n_s, k_dim, sm, acc);
 
     int col[8];
     float rs_c[8];
@@ -165,6 +170,109 @@ knn_topk_partial_kernel(const T* __restrict__ q, const T* __restrict__ s,
   }
 }
 
+__global__ void __launch_bounds__(knn_wgmma::kThreads, 1)
+knn_topk_partial_wgmma(const __grid_constant__ CUtensorMap map_q,
+                       const __grid_constant__ CUtensorMap map_s,
+                       const float* __restrict__ rq,
+                       const float* __restrict__ rs, int n_q, int n_s,
+                       int k_dim, int k, int tiles_per_split, int n_stages,
+                       float* __restrict__ part_d,
+                       int* __restrict__ part_i) {
+  extern __shared__ unsigned char smem[];
+  const knn_wgmma::Ring ring(smem, n_stages);
+  float* run_d = reinterpret_cast<float*>(ring.extra);
+  int* run_i = reinterpret_cast<int*>(run_d + kTileQ * k);
+  const int m0 = blockIdx.y * kTileQ;
+  const int split = blockIdx.x;
+  const int n_tiles = (n_s + kTileS - 1) / kTileS;
+  const int t_begin = split * tiles_per_split;
+  const int t_end = min(n_tiles, t_begin + tiles_per_split);
+  const int n_kb = (k_dim + knn_wgmma::kStageK - 1) / knn_wgmma::kStageK;
+
+  if (threadIdx.x == 0) ring.init();
+  __syncthreads();
+
+  if (threadIdx.x >= knn_wgmma::kConsumerThreads) {  // producer warpgroup
+    knn_wgmma::producer_regs();
+    if (threadIdx.x == knn_wgmma::kConsumerThreads)
+      knn_wgmma::produce(ring, &map_q, &map_s, m0, t_begin, t_end, n_kb);
+  } else {  // consumer warpgroups
+    knn_wgmma::consumer_regs();
+    const int wg = threadIdx.x >> 7;
+    const int quad_lane = threadIdx.x & 3;
+    int rows[2], lane_col;
+    knn_wgmma::frag_rows(rows, lane_col);
+    float rqh[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      rqh[h] = m0 + rows[h] < n_q ? rq[m0 + rows[h]] : 0.f;
+      // each row's list belongs to its quad alone: no barrier across warps
+      for (int e = quad_lane; e < k; e += 4) {
+        run_d[rows[h] * k + e] = CUDART_INF_F;
+        run_i[rows[h] * k + e] = -1;
+      }
+    }
+    __syncwarp();
+    knn_wgmma::Cursor c;
+    float acc[knn_wgmma::kFragRegs], dv[knn_wgmma::kFragRegs];
+#pragma unroll
+    for (int j = 0; j < knn_wgmma::kFragRegs; ++j) acc[j] = 0.f;
+
+    for (int t = t_begin; t < t_end; ++t) {
+      const int n0 = t * kTileS;
+      knn_wgmma::consume_tile(ring, c, wg, n_kb, acc, dv);
+#pragma unroll
+      for (int j = 0; j < knn_wgmma::kFragRegs; ++j) {  // d in place
+        const int col = n0 + 8 * (j >> 2) + lane_col + (j & 1);
+        dv[j] = col < n_s ? (rqh[(j >> 1) & 1] + rs[col]) - 2.f * dv[j]
+                          : CUDART_INF_F;
+      }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float* ld = run_d + rows[h] * k;
+        int* li = run_i + rows[h] * k;
+        // rounds run on every lane of the warp (full-mask shuffles) until
+        // no row of the warp can enter its list: a round that cannot enter
+        // changes nothing, and neither can any later one
+        for (int r = 0; r < k; ++r) {
+          float best_d = CUDART_INF_F;
+          int best_i = INT_MAX;
+#pragma unroll
+          for (int j = 0; j < knn_wgmma::kFragRegs; ++j) {  // columns ascend
+            if (((j >> 1) & 1) == h && dv[j] < best_d) {
+              best_d = dv[j];
+              best_i = n0 + 8 * (j >> 2) + lane_col + (j & 1);
+            }
+          }
+          knn_wgmma::quad_min(best_d, best_i);
+          const bool take = best_d < ld[k - 1];  // same on the quad's lanes
+          if (!__any_sync(0xffffffffu, take)) break;
+          __syncwarp();  // every lane read ld[k - 1] before lane 0 writes
+          if (take) {
+            if (quad_lane == 0) insert_entry(ld, li, k, best_d, best_i);
+#pragma unroll
+            for (int j = 0; j < knn_wgmma::kFragRegs; ++j)
+              if (((j >> 1) & 1) == h &&
+                  n0 + 8 * (j >> 2) + lane_col + (j & 1) == best_i)
+                dv[j] = CUDART_INF_F;
+          }
+          __syncwarp();  // the insert is visible to the next round's reads
+        }
+      }
+    }
+    for (int h = 0; h < 2; ++h) {
+      const int m = m0 + rows[h];
+      if (m < n_q) {
+        const size_t o = (static_cast<size_t>(split) * n_q + m) * k;
+        for (int e = quad_lane; e < k; e += 4) {
+          part_d[o + e] = run_d[rows[h] * k + e];
+          part_i[o + e] = run_i[rows[h] * k + e];
+        }
+      }
+    }
+  }
+}
+
 __global__ void knn_topk_merge_kernel(const float* __restrict__ part_d,
                                       const int* __restrict__ part_i,
                                       int n_splits, int n_q, int k,
@@ -188,12 +296,13 @@ __global__ void knn_topk_merge_kernel(const float* __restrict__ part_d,
   }
 }
 
-template <typename T, bool VEC>
-cudaError_t launch_partial(dim3 grid, size_t lists_bytes, cudaStream_t stream,
-                           const T* q, const T* s, const float* rq,
-                           const float* rs, int n_q, int n_s, int k_dim, int k,
-                           int tiles_per_split, float* part_d, int* part_i) {
-  auto kernel = knn_topk_partial_kernel<T, VEC>;
+template <bool VEC>
+cudaError_t launch_ffma_vec(dim3 grid, size_t lists_bytes, cudaStream_t stream,
+                            const float* q, const float* s, const float* rq,
+                            const float* rs, int n_q, int n_s, int k_dim,
+                            int k, int tiles_per_split, float* part_d,
+                            int* part_i) {
+  auto kernel = knn_topk_partial_kernel<VEC>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(lists_bytes));
@@ -203,31 +312,33 @@ cudaError_t launch_partial(dim3 grid, size_t lists_bytes, cudaStream_t stream,
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t launch(const void* q, const void* s, const float* rq,
-                   const float* rs, int n_q, int n_s, int k_dim, int k,
-                   int tiles_per_split, float* part_d, int* part_i,
-                   float* d_out, int* i_out, cudaStream_t stream) {
-  const int n_tiles = (n_s + kTileS - 1) / kTileS;
-  const int n_splits = (n_tiles + tiles_per_split - 1) / tiles_per_split;
-  const int q_tiles = (n_q + kTileQ - 1) / kTileQ;
-  if (q_tiles > 65535) return cudaErrorInvalidValue;  // grid.y limit
-  const dim3 grid(n_splits, q_tiles);
-  const size_t lists_bytes =
-      static_cast<size_t>(kTileQ) * k * (sizeof(float) + sizeof(int));
-  const T* qt = static_cast<const T*>(q);
-  const T* st = static_cast<const T*>(s);
-  cudaError_t err =
-      knn_tile::vector_rows<T>(q, s, k_dim)
-          ? launch_partial<T, true>(grid, lists_bytes, stream, qt, st, rq, rs,
-                                    n_q, n_s, k_dim, k, tiles_per_split,
-                                    part_d, part_i)
-          : launch_partial<T, false>(grid, lists_bytes, stream, qt, st, rq,
-                                     rs, n_q, n_s, k_dim, k, tiles_per_split,
-                                     part_d, part_i);
+cudaError_t launch_ffma(dim3 grid, size_t lists_bytes, cudaStream_t stream,
+                        const float* q, const float* s, const float* rq,
+                        const float* rs, int n_q, int n_s, int k_dim, int k,
+                        int tiles_per_split, float* part_d, int* part_i) {
+  return knn_tile::vector_rows(q, s, k_dim)
+             ? launch_ffma_vec<true>(grid, lists_bytes, stream, q, s, rq, rs,
+                                     n_q, n_s, k_dim, k, tiles_per_split,
+                                     part_d, part_i)
+             : launch_ffma_vec<false>(grid, lists_bytes, stream, q, s, rq, rs,
+                                      n_q, n_s, k_dim, k, tiles_per_split,
+                                      part_d, part_i);
+}
+
+cudaError_t launch_wgmma(dim3 grid, size_t lists_bytes, cudaStream_t stream,
+                         const void* q, const void* s, const float* rq,
+                         const float* rs, int n_q, int n_s, int k_dim, int k,
+                         int tiles_per_split, float* part_d, int* part_i) {
+  CUtensorMap map_q, map_s;
+  int n_stages;
+  size_t smem;
+  const cudaError_t err = knn_wgmma::prepare_launch(
+      knn_topk_partial_wgmma, q, s, n_q, n_s, k_dim, lists_bytes, &map_q,
+      &map_s, &n_stages, &smem);
   if (err != cudaSuccess) return err;
-  knn_topk_merge_kernel<<<(n_q + 255) / 256, 256, 0, stream>>>(
-      part_d, part_i, n_splits, n_q, k, d_out, i_out);
+  knn_topk_partial_wgmma<<<grid, knn_wgmma::kThreads, smem, stream>>>(
+      map_q, map_s, rq, rs, n_q, n_s, k_dim, k, tiles_per_split, n_stages,
+      part_d, part_i);
   return cudaGetLastError();
 }
 
@@ -238,9 +349,10 @@ extern "C" {
 // Rows per synthetic tile: the wrapper sizes the partial buffers with it.
 int knn_topk_tile_rows() { return kTileS; }
 
-// dtype: 0 = float32, 1 = bfloat16. q (n_q, k_dim) and s (n_s, k_dim) are
-// row-major and contiguous; rq (n_q,), rs (n_s,) float32 squared row norms.
-// part_d/part_i hold n_splits * n_q * k entries, with
+// dtype: 0 = float32 (FFMA tile), 1 = bfloat16 (wgmma tile; k_dim % 8 == 0
+// and 16-byte-aligned q and s, for TMA). q (n_q, k_dim) and s (n_s, k_dim)
+// are row-major and contiguous; rq (n_q,), rs (n_s,) float32 squared row
+// norms. part_d/part_i hold n_splits * n_q * k entries, with
 // n_splits = ceil(ceil(n_s / tile_rows) / tiles_per_split); d_out/i_out hold
 // n_q * k, row-major. Launches on `stream` without synchronising; returns
 // the cudaError_t of the launches (0 on success).
@@ -251,24 +363,34 @@ int knn_topk_launch(int dtype, const void* q, const void* s, const void* rq,
   if (n_q <= 0 || n_s <= 0 || k_dim <= 0 || k <= 0 || k > kMaxK ||
       tiles_per_split <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
+  const int n_tiles = (n_s + kTileS - 1) / kTileS;
+  const int n_splits = (n_tiles + tiles_per_split - 1) / tiles_per_split;
+  const int q_tiles = (n_q + kTileQ - 1) / kTileQ;
+  if (q_tiles > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid(n_splits, q_tiles);
+  const size_t lists_bytes =
+      static_cast<size_t>(kTileQ) * k * (sizeof(float) + sizeof(int));
   const auto* rqf = static_cast<const float*>(rq);
   const auto* rsf = static_cast<const float*>(rs);
   auto* pd = static_cast<float*>(part_d);
   auto* pi = static_cast<int*>(part_i);
-  auto* dd = static_cast<float*>(d_out);
-  auto* ii = static_cast<int*>(i_out);
   auto st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (dtype == 0) {
-    err = launch<float>(q, s, rqf, rsf, n_q, n_s, k_dim, k, tiles_per_split,
-                        pd, pi, dd, ii, st);
+    err = launch_ffma(grid, lists_bytes, st, static_cast<const float*>(q),
+                      static_cast<const float*>(s), rqf, rsf, n_q, n_s, k_dim,
+                      k, tiles_per_split, pd, pi);
   } else if (dtype == 1) {
-    err = launch<uint16_t>(q, s, rqf, rsf, n_q, n_s, k_dim, k,
-                           tiles_per_split, pd, pi, dd, ii, st);
+    err = launch_wgmma(grid, lists_bytes, st, q, s, rqf, rsf, n_q, n_s, k_dim,
+                       k, tiles_per_split, pd, pi);
   } else {
     err = cudaErrorInvalidValue;
   }
-  return static_cast<int>(err);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  knn_topk_merge_kernel<<<(n_q + 255) / 256, 256, 0, st>>>(
+      pd, pi, n_splits, n_q, k, static_cast<float*>(d_out),
+      static_cast<int*>(i_out));
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // extern "C"

@@ -1,7 +1,6 @@
 """Fused distance + first-index argmin and fused distance + top-k: the
 hand-written CUDA kernels ``csrc/knn_argmin.cu`` and ``csrc/knn_topk.cu``
-(sharing the cross-term tile of ``csrc/knn_tile.cuh``) and their plain
-PyTorch versions.
+and their plain PyTorch versions.
 
 :func:`knn_argmin_fused` replaces
 ``ganleaks_tpu/ops/knn_pallas.py::knn_argmin_pallas`` (Pallas kernel
@@ -13,20 +12,28 @@ reaches memory. :func:`knn_topk_fused` replaces ``knn_topk_pallas``
 the earliest index first among equals; when N_s < k the trailing entries
 are (+inf, -1).
 
-Bound on an H100: ``2*N_q*N_s*K`` operations against ``(N_q+N_s)*K`` input
-elements — at the attack's 2048 x 2048 block with K = 512,000 that is ~2000
-operations per float32 byte, far above the card's balance point, so the
-kernel is bound by arithmetic. It runs true float32 products on the CUDA
-cores (67 TFLOP/s peak; TF32 would cut the products to ~3 digits), so its
-floor at that block is ~64 ms. The design splits the synthetic axis over
-enough blocks to fill all SMs and merges the per-span partials in a second
-pass (see the source's header). The top-k kernel does the same work; with
-bfloat16 inputs the bf16 tensor cores could do it exactly at 989 TFLOP/s
-(~4.3 ms), which this first version leaves to later work.
+Bound on an H100 SXM (700 W): ``2*N_q*N_s*K`` operations against
+``(N_q+N_s)*K`` input elements — at the attack's 2048 x 2048 block with
+K = 512,000 about 2000 operations per byte read, far above the card's
+balance point, so both kernels are bound by arithmetic. Two routes by
+dtype, sharing each kernel's span split and merge:
 
-Each wrapper launches its kernel for CUDA tensors and counts its launches
-in ``<wrapper>.launches``; it takes the plain version only for tensors on
-the CPU. It never falls back: a failed build or launch raises.
+* float32 -> the FFMA tile (``csrc/knn_tile.cuh``): true float32 products
+  on the CUDA cores (67 TFLOP/s; TF32 would cut them to ~3 digits), floor
+  64.1 ms at that block.
+* bfloat16 -> the tensor-core tile (``csrc/knn_tile_wgmma.cuh``): ``wgmma``
+  bf16 x bf16 -> f32 from shared memory that TMA fills through an mbarrier
+  ring, one CTA per SM, the accumulator promoted into a float32 register
+  sum every two 64-deep K stages (128 K values). The products are
+  exact in float32, so the math is the FFMA tile's; floor 4.34 ms at 989
+  TFLOP/s. TMA needs K % 8 == 0 and 16-byte-aligned rows: other inputs go
+  through an explicit zero-padded copy (:func:`pad_k`), which leaves every
+  dot product unchanged.
+
+Each wrapper launches its kernel for CUDA tensors, counting its launches in
+``<wrapper>.launches`` and per route in ``<wrapper>.launches_by_route``
+(``{"ffma": n, "wgmma": n}``); it takes the plain version only for tensors
+on the CPU. It never falls back: a failed build or launch raises.
 """
 
 from __future__ import annotations
@@ -35,8 +42,31 @@ import ctypes
 
 import torch
 
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# dtype -> (code of the C launch entry, route)
+_ROUTES = {torch.float32: (0, "ffma"), torch.bfloat16: (1, "wgmma")}
 TOPK_MAX_K = 128  # kMaxK of csrc/knn_topk.cu (running lists in shared memory)
+
+
+def route(dtype: torch.dtype) -> str:
+    """The tile that computes the cross term for embeddings of ``dtype``:
+    'ffma' (float32) or 'wgmma' (bfloat16); anything else raises."""
+    try:
+        return _ROUTES[dtype][1]
+    except KeyError:
+        raise ValueError(f"q and s must share a dtype in float32/bfloat16, "
+                         f"got {dtype}") from None
+
+
+def pad_k(x: torch.Tensor) -> torch.Tensor:
+    """``x`` (N, K) with K zero-padded to a multiple of 8, in a new tensor;
+    ``x`` itself when K already is one and its rows start on 16 bytes
+    (what TMA needs). Zero columns change no dot product and no norm."""
+    pad = -x.shape[1] % 8
+    if pad == 0 and x.data_ptr() % 16 == 0:
+        return x
+    out = x.new_zeros((x.shape[0], x.shape[1] + pad))
+    out[:, :x.shape[1]] = x
+    return out
 
 
 def sq_norms(x: torch.Tensor) -> torch.Tensor:
@@ -75,12 +105,33 @@ def _sm_count(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
-def _tiles_per_split(n_q: int, n_s: int, tile: int, n_sm: int) -> int:
-    """Synthetic tiles per block: as few as keep >= 2 blocks per SM, so
-    the grid fills the card while each block keeps a long K loop."""
+def tiles_per_split(n_q: int, n_s: int, tile: int, n_sm: int,
+                    tile_route: str) -> int:
+    """Synthetic tiles per block; span ``j`` covers tiles
+    ``[j * tps, min(n_tiles, (j + 1) * tps))``.
+
+    'ffma': as few as keep >= 2 blocks per SM, so the grid fills the card
+    while each block keeps a long K loop. 'wgmma' (one CTA per SM): the
+    span length whose grid finishes in the fewest tile-times,
+    ``waves x span``, the longer span among equals (fewer partials to
+    merge)."""
     n_qt = -(-n_q // tile)
     n_st = -(-n_s // tile)
-    return max(1, (n_qt * n_st) // (2 * n_sm))
+    if tile_route == "ffma":
+        return max(1, (n_qt * n_st) // (2 * n_sm))
+
+    def cost(tps: int) -> int:
+        return -(-(n_qt * -(-n_st // tps)) // n_sm) * tps
+    return min(range(1, n_st + 1), key=lambda tps: (cost(tps), -tps))
+
+
+def launch_plan(q: torch.Tensor, n_s: int, tile: int = 128
+                ) -> tuple[int, int]:
+    """(tiles per split, splits) of a launch on CUDA ``q`` against ``n_s``
+    synthetic rows."""
+    tps = tiles_per_split(q.shape[0], n_s, tile, _sm_count(q.device),
+                          route(q.dtype))
+    return tps, -(-(-(-n_s // tile)) // tps)
 
 
 def _library(name: str, n_ints: int):
@@ -106,9 +157,10 @@ def _check_pair(q: torch.Tensor, s: torch.Tensor) -> None:
     if q.dim() != 2 or s.dim() != 2 or q.shape[1] != s.shape[1]:
         raise ValueError(f"expected q (N_q, K) and s (N_s, K), got "
                          f"{tuple(q.shape)} and {tuple(s.shape)}")
-    if q.dtype != s.dtype or q.dtype not in _DTYPE_CODES:
+    if q.dtype != s.dtype:
         raise ValueError(f"q and s must share a dtype in float32/bfloat16, "
                          f"got {q.dtype} and {s.dtype}")
+    route(q.dtype)
     if q.device != s.device:
         raise ValueError(f"q is on {q.device}, s on {s.device}")
     if s.shape[0] == 0:
@@ -120,6 +172,46 @@ def _check_pair(q: torch.Tensor, s: torch.Tensor) -> None:
         raise ValueError("q and s must be contiguous")
 
 
+def _launch(fn, name: str, q: torch.Tensor, s: torch.Tensor,
+            rq: torch.Tensor | None, rs: torch.Tensor | None, k: int
+            ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Launch ``csrc/<name>.cu`` on CUDA ``q``/``s`` (``k``: the top-k
+    list length, 0 for the argmin) and count the launch on ``fn``."""
+    n_q, k_dim = q.shape
+    n_s = s.shape[0]
+    rq = sq_norms(q) if rq is None else _check_norms(rq, n_q, q, "rq")
+    rs = sq_norms(s) if rs is None else _check_norms(rs, n_s, q, "rs")
+    shape = (n_q, k) if k else (n_q,)
+    d = torch.empty(shape, dtype=torch.float32, device=q.device)
+    idx = torch.empty(shape, dtype=torch.int32, device=q.device)
+    if n_q == 0:
+        return d, idx
+    code, tile_route = _ROUTES[q.dtype]
+    if tile_route == "wgmma":
+        q, s = pad_k(q), pad_k(s)
+    lib = _library(name, 5 if k else 4)
+    tile = getattr(lib, f"{name}_tile_rows")()
+    tps, n_splits = launch_plan(q, n_s, tile)
+    part_d = torch.empty((n_splits, *shape), dtype=torch.float32,
+                         device=q.device)
+    part_i = torch.empty((n_splits, *shape), dtype=torch.int32,
+                         device=q.device)
+    ints = (n_q, n_s, q.shape[1], *((k,) if k else ()), tps)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = getattr(lib, f"{name}_launch")(
+            code, q.data_ptr(), s.data_ptr(), rq.data_ptr(), rs.data_ptr(),
+            *ints, part_d.data_ptr(), part_i.data_ptr(), d.data_ptr(),
+            idx.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed with CUDA error "
+                           f"{err} (n_q={n_q}, n_s={n_s}, K={k_dim}, k={k}, "
+                           f"{q.dtype}, {tile_route} tile)")
+    fn.launches += 1
+    fn.launches_by_route[tile_route] += 1
+    return d, idx
+
+
 def knn_argmin_fused(q: torch.Tensor, s: torch.Tensor, *,
                      rq: torch.Tensor | None = None,
                      rs: torch.Tensor | None = None
@@ -128,46 +220,19 @@ def knn_argmin_fused(q: torch.Tensor, s: torch.Tensor, *,
     (d float32 (N_q,), idx int32 (N_q,)), ``d`` the minimal
     ``rq + rs - 2 q.s`` and ``idx`` its first index.
 
-    ``q`` and ``s``: contiguous, same device, float32 or bfloat16 (products
-    accumulate in float32 either way). ``rq``/``rs``: optional float32
-    squared row norms (computed from the embeddings when absent; the
-    streamed search passes norms taken before a cache-dtype cast)."""
+    ``q`` and ``s``: contiguous, same device, float32 (FFMA tile) or
+    bfloat16 (wgmma tile); products accumulate in float32 either way.
+    ``rq``/``rs``: optional float32 squared row norms (computed from the
+    embeddings when absent; the streamed search passes norms taken before a
+    cache-dtype cast)."""
     _check_pair(q, s)
     if q.device.type == "cpu":
         return knn_argmin_plain(q, s, rq, rs)
-    n_q, k_dim = q.shape
-    n_s = s.shape[0]
-    rq = sq_norms(q) if rq is None else _check_norms(rq, n_q, q, "rq")
-    rs = sq_norms(s) if rs is None else _check_norms(rs, n_s, q, "rs")
-    d = torch.empty(n_q, dtype=torch.float32, device=q.device)
-    idx = torch.empty(n_q, dtype=torch.int32, device=q.device)
-    if n_q == 0:
-        return d, idx
-
-    lib = _library("knn_argmin", 4)
-    tile = lib.knn_argmin_tile_rows()
-    tps = _tiles_per_split(n_q, n_s, tile, _sm_count(q.device))
-    n_splits = -(-(-(-n_s // tile)) // tps)
-    part_d = torch.empty((n_splits, n_q), dtype=torch.float32,
-                         device=q.device)
-    part_i = torch.empty((n_splits, n_q), dtype=torch.int32,
-                         device=q.device)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.knn_argmin_launch(
-            _DTYPE_CODES[q.dtype], q.data_ptr(), s.data_ptr(),
-            rq.data_ptr(), rs.data_ptr(), n_q, n_s, k_dim, tps,
-            part_d.data_ptr(), part_i.data_ptr(), d.data_ptr(),
-            idx.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError(f"knn_argmin kernel launch failed with CUDA "
-                           f"error {err} (n_q={n_q}, n_s={n_s}, K={k_dim}, "
-                           f"{q.dtype})")
-    knn_argmin_fused.launches += 1
-    return d, idx
+    return _launch(knn_argmin_fused, "knn_argmin", q, s, rq, rs, 0)
 
 
 knn_argmin_fused.launches = 0
+knn_argmin_fused.launches_by_route = {"ffma": 0, "wgmma": 0}
 
 
 def knn_topk_plain(q: torch.Tensor, s: torch.Tensor, k: int,
@@ -204,38 +269,10 @@ def knn_topk_fused(q: torch.Tensor, s: torch.Tensor, k: int, *,
         raise ValueError(f"k must be >= 1, got {k}")
     if q.device.type == "cpu":
         return knn_topk_plain(q, s, k, rq, rs)
-    n_q, k_dim = q.shape
-    n_s = s.shape[0]
-    rq = sq_norms(q) if rq is None else _check_norms(rq, n_q, q, "rq")
-    rs = sq_norms(s) if rs is None else _check_norms(rs, n_s, q, "rs")
-    d = torch.empty((n_q, k), dtype=torch.float32, device=q.device)
-    idx = torch.empty((n_q, k), dtype=torch.int32, device=q.device)
-    if n_q == 0:
-        return d, idx
-
     if k > TOPK_MAX_K:
         raise ValueError(f"k={k} exceeds the kernel's limit {TOPK_MAX_K}")
-    lib = _library("knn_topk", 5)
-    tile = lib.knn_topk_tile_rows()
-    tps = _tiles_per_split(n_q, n_s, tile, _sm_count(q.device))
-    n_splits = -(-(-(-n_s // tile)) // tps)
-    part_d = torch.empty((n_splits, n_q, k), dtype=torch.float32,
-                         device=q.device)
-    part_i = torch.empty((n_splits, n_q, k), dtype=torch.int32,
-                         device=q.device)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.knn_topk_launch(
-            _DTYPE_CODES[q.dtype], q.data_ptr(), s.data_ptr(),
-            rq.data_ptr(), rs.data_ptr(), n_q, n_s, k_dim, k, tps,
-            part_d.data_ptr(), part_i.data_ptr(), d.data_ptr(),
-            idx.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError(f"knn_topk kernel launch failed with CUDA error "
-                           f"{err} (n_q={n_q}, n_s={n_s}, K={k_dim}, k={k}, "
-                           f"{q.dtype})")
-    knn_topk_fused.launches += 1
-    return d, idx
+    return _launch(knn_topk_fused, "knn_topk", q, s, rq, rs, k)
 
 
 knn_topk_fused.launches = 0
+knn_topk_fused.launches_by_route = {"ffma": 0, "wgmma": 0}

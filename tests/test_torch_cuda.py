@@ -30,6 +30,15 @@ from ganleaks_tpu_torch.ops.lpips.epilogue import (tap_epilogue,
 TOL = 1e-5
 
 
+def launched_on(fn, dtype, before):
+    """``fn`` launched exactly once since ``before`` (a copy of its
+    ``launches_by_route``), on the tile of ``dtype``: FFMA for float32,
+    wgmma for bfloat16."""
+    want = "wgmma" if dtype == torch.bfloat16 else "ffma"
+    got = {r: n - before[r] for r, n in fn.launches_by_route.items()}
+    return got == {r: int(r == want) for r in got}
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -40,8 +49,12 @@ def cuda_device():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("n_q,n_s,k", [(300, 1000, 1000), (70, 50, 4099)])
+@pytest.mark.parametrize("n_q,n_s,k", [(300, 1000, 1000), (70, 50, 4099),
+                                       (40, 300, 5), (40, 300, 7),
+                                       (130, 200, 129)])
 def test_kernel_matches_plain(cuda_device, dtype, n_q, n_s, k):
+    """K not a multiple of 8 (5, 7, 129, 4099): the bf16 route runs the
+    wgmma tile on a zero-padded copy."""
     gen = torch.Generator(device=cuda_device).manual_seed(0)
     q = torch.randn((n_q, k), generator=gen, device=cuda_device)
     s = torch.randn((n_s, k), generator=gen, device=cuda_device)
@@ -49,9 +62,11 @@ def test_kernel_matches_plain(cuda_device, dtype, n_q, n_s, k):
     q, s = q.to(dtype), s.to(dtype)
     rq, rs = sq_norms(q), sq_norms(s)
     before = knn_argmin_fused.launches
+    by_route = dict(knn_argmin_fused.launches_by_route)
     d, i = knn_argmin_fused(q, s, rq=rq, rs=rs)
     torch.cuda.synchronize()
     assert knn_argmin_fused.launches == before + 1
+    assert launched_on(knn_argmin_fused, dtype, by_route)
     d_p, i_p = knn_argmin_plain(q, s, rq, rs)
     tol = TOL * (rq + rs[i_p.long()])
     assert bool(((d - d_p).abs() <= tol).all())
@@ -93,8 +108,12 @@ def test_streamed_pallas_engine_launches_kernel(cuda_device):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("n_q,n_s,k_dim,k", [(300, 1000, 1000, 4),
                                              (70, 50, 4099, 8),
-                                             (9, 3, 64, 5)])
+                                             (9, 3, 64, 5),
+                                             (40, 300, 7, 3),
+                                             (150, 700, 256, 128)])
 def test_topk_kernel_matches_plain(cuda_device, dtype, n_q, n_s, k_dim, k):
+    """Odd K (the bf16 route's padded copy) and k = 128, the wrapper's
+    limit (the wgmma ring at 3 stages beside the lists)."""
     gen = torch.Generator(device=cuda_device).manual_seed(0)
     q = torch.randn((n_q, k_dim), generator=gen, device=cuda_device)
     s = torch.randn((n_s, k_dim), generator=gen, device=cuda_device)
@@ -102,9 +121,11 @@ def test_topk_kernel_matches_plain(cuda_device, dtype, n_q, n_s, k_dim, k):
     q, s = q.to(dtype), s.to(dtype)
     rq, rs = sq_norms(q), sq_norms(s)
     before = knn_topk_fused.launches
+    by_route = dict(knn_topk_fused.launches_by_route)
     d, i = knn_topk_fused(q, s, k, rq=rq, rs=rs)
     torch.cuda.synchronize()
     assert knn_topk_fused.launches == before + 1
+    assert launched_on(knn_topk_fused, dtype, by_route)
     d_p, i_p = knn_topk_plain(q, s, k, rq, rs)
     fin = torch.isfinite(d_p)
     assert bool((torch.isfinite(d) == fin).all())
