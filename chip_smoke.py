@@ -25,8 +25,11 @@ Phases, each printing JSON lines:
 4. epilogue: the tap epilogue kernel (K2) against its plain version on the
    five 64-px VGG16 taps of 2,048 images as the tower produces them
    (channels-last views), float32 -> float32, bf16 -> bf16 and
-   bf16 -> int8 (bounds from ``lpips_part_bounds``): parts bit for bit,
-   row norms within rtol 1e-6;
+   bf16 -> int8 (bounds from ``lpips_part_bounds``), and on edge cases in
+   the same three modes (positions not a multiple of the tile, C of 17,
+   40, 96 and 1056, one image, an NCHW-contiguous tap, an out slice at an
+   unaligned column): parts bit for bit, row norms within rtol 1e-6 and
+   identical over two launches;
 5. attack: the full-width fbb l2-lpips attack (VGG16 at 64x64x3,
    K = 512,000, seeded surrogate backbone with the real lin heads) through
    ``run_attack`` and ``evaluate`` on 1,024 members, 1,024 non-members and
@@ -45,7 +48,8 @@ Phases, each printing JSON lines:
    float32 and bfloat16, K3 there in bfloat16 and float32, K2 per tap and
    summed over the five taps of a 2,048-image block — each beside its
    plain version, its bound and, where one PyTorch call composition
-   computes the same function, that composition (timed only); K1 and K3
+   computes the same function, that composition (timed only), K2 also
+   with GB/s and its share of the byte bound; K1 and K3
    also on the block's first query tile alone, for the work per block
    with and without the full grid's shared traffic.
 
@@ -455,7 +459,69 @@ def phase_epilogue(torch) -> float:
                 check(rn_rel <= 1e-6, f"epilogue {mode} tap {i}: rn off "
                                       f"by {rn_rel:.3g}")
                 del part, rn, want, rn_want
+        for mode in epilogue_modes(torch):
+            for case in EPILOGUE_EDGE_CASES:
+                worst = max(worst, epilogue_edge_case(torch, mode, *case))
     return worst
+
+
+# (name, N, H, W, C, layout, out column offset): layouts and shapes the
+# tower's taps do not cover — positions not a multiple of the kernel's
+# tile, channel counts off its 32-channel chunk or over 1024, one image, an
+# NCHW-contiguous tap (its generic load path), an out slice at an unaligned
+# column (no 16-byte or bulk stores)
+EPILOGUE_EDGE_CASES = [
+    ("ragged_positions", 2048, 5, 7, 64, "nhwc", 0),
+    ("c17", 2048, 8, 8, 17, "nhwc", 0),
+    ("c40", 2048, 16, 16, 40, "nhwc", 0),
+    ("c96", 2048, 16, 16, 96, "nhwc", 0),
+    ("c1056", 256, 4, 4, 1056, "nhwc", 0),
+    ("n1", 1, 64, 64, 64, "nhwc", 0),
+    ("nchw", 2048, 32, 32, 128, "nchw", 0),
+    ("unaligned_out", 2048, 16, 16, 256, "nhwc", 3),
+]
+
+
+def epilogue_edge_case(torch, mode, name, n, h, w, c, layout, col) -> float:
+    """K2 against its plain version on one edge case in one of
+    ``epilogue_modes`` (bounds from the scale): parts bit for bit, rn
+    within rtol 1e-6 and identical over two launches."""
+    from ganleaks_tpu_torch.ops.lpips.epilogue import (tap_epilogue,
+                                                       tap_epilogue_plain)
+    _, edt, odt, quant = epilogue_modes(torch)[mode]
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 6)
+    shape = (n, c, h, w) if layout == "nchw" else (n, h, w, c)
+    tap = torch.randn(shape, generator=gen, device=DEVICE).relu_().to(edt)
+    if layout == "nchw":
+        tap = tap.permute(0, 2, 3, 1)
+    scale = torch.rand((c,), generator=gen, device=DEVICE) * 0.05
+    kw = dict(embed_dtype=edt, out_dtype=odt,
+              quant_bound=float(scale.max()) if quant else None)
+    width = h * w * c
+    buf = torch.zeros((n, col + width + 5), dtype=torch.int8 if quant
+                      else odt, device=DEVICE)
+    part, rn = tap_epilogue(tap, scale, out=buf[:, col:col + width], **kw)
+    rn1 = rn.clone()
+    part, rn = tap_epilogue(tap, scale, out=buf[:, col:col + width], **kw)
+    want, rn_want = tap_epilogue_plain(tap, scale, **kw)
+    if DEVICE == "cuda":
+        torch.cuda.synchronize()
+    diff = (part.float() - want.float()).abs()
+    n_diff = int((part != want).sum())
+    rn_rel = float(((rn - rn_want).abs() / rn_want).max())
+    untouched = bool((buf[:, :col] == 0).all()
+                     and (buf[:, col + width:] == 0).all())
+    emit({"phase": "epilogue", "mode": mode, "case": name,
+          "shape": list(tap.shape), "strides": list(tap.stride()),
+          "out_column": col, "parts_differing": n_diff,
+          "max_abs_diff": float(diff.max()), "rn_max_rel_err": rn_rel,
+          "rn_repeatable": bool(torch.equal(rn, rn1))})
+    check(n_diff == 0, f"epilogue {mode} {name}: {n_diff} parts differ")
+    check(rn_rel <= 1e-6, f"epilogue {mode} {name}: rn off by {rn_rel:.3g}")
+    check(bool(torch.equal(rn, rn1)),
+          f"epilogue {mode} {name}: rn differs between two launches")
+    check(untouched, f"epilogue {mode} {name}: wrote outside its slice")
+    return float(diff.max())
 
 
 # ---------------------------------------------------------------------------
@@ -893,12 +959,15 @@ def timing_k2(torch, mode: str) -> dict:
                   "tap": i, "shape": [n, h, w, c], "ms": min(t, t2),
                   "ms_runs": [t, t2], "plain_ms": tp,
                   "bound_ms": bound_ms[-1], "gb": b / 1e9,
-                  "gb_per_s": b / (min(t, t2) * 1e-3) / 1e9})
+                  "gb_per_s": b / (min(t, t2) * 1e-3) / 1e9,
+                  "bound_share": bound_ms[-1] / min(t, t2)})
     res = {"kernel": "tap_epilogue", "mode": mode, "n_images": 2 * N_POS,
            "ms": sum(taps_ms), "plain_ms": sum(plain_ms),
            "library_ms": None, "max_abs_err": err,
            **bound(ops, PEAK_FP32_FLOPS, nbytes), "gb": nbytes / 1e9,
+           "gb_per_s": nbytes / (sum(taps_ms) * 1e-3) / 1e9,
            "per_tap_ms": taps_ms}
+    res["bound_share"] = res["bound_ms"] / res["ms"]
     emit({"phase": "timing", "summed_over_taps": True, **res})
     return res
 

@@ -26,6 +26,9 @@ and the plain version's equal the JAX package's.
 Bound on an H100: bytes — one read of the tap and one write of the part
 per element (a 2,048-image block of the five 64-px VGG16 taps is ~3.07 GB
 in bf16 -> int8, ~0.92 ms at 3.35 TB/s; ~8.2 GB in float32, ~2.4 ms).
+The kernel reaches the same bits as the plain version through exact
+bit-level identities in place of the slow conversions; its header lists
+them and ``tests/test_torch_epilogue_bits.py`` emulates each one.
 
 :func:`tap_epilogue` launches the kernel for CUDA tensors (counted in
 ``tap_epilogue.launches``) and takes the plain version only for tensors on
@@ -101,10 +104,8 @@ def tap_epilogue_plain(fl: torch.Tensor, scale, *, embed_dtype: torch.dtype,
     return out, rn
 
 
-def _library():
-    from ganleaks_tpu_torch.ops.cuda_build import load_library
-
-    lib = load_library("tap_epilogue")
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare ``tap_epilogue_launch``'s C signature on a loaded library."""
     if not getattr(lib, "_ganleaks_typed", False):
         lib.tap_epilogue_launch.argtypes = (
             [ctypes.c_int, ctypes.c_void_p] + [ctypes.c_int] * 4
@@ -114,6 +115,29 @@ def _library():
         lib.tap_epilogue_launch.restype = ctypes.c_int
         lib._ganleaks_typed = True
     return lib
+
+
+def _library():
+    from ganleaks_tpu_torch.ops.cuda_build import load_library
+
+    return bind(load_library("tap_epilogue"))
+
+
+def launch_on(lib: ctypes.CDLL, fl4: torch.Tensor, sc: torch.Tensor,
+              embed_dtype: torch.dtype, qscale: float, out: torch.Tensor,
+              rn: torch.Tensor) -> int:
+    """One launch of ``lib``'s kernel on CUDA tensors already checked by
+    :func:`tap_epilogue`; returns the CUDA error code (0 on success)."""
+    n, h, w, c = fl4.shape
+    strides = (ctypes.c_int64 * 4)(*fl4.stride())
+    with torch.cuda.device(fl4.device):
+        stream = torch.cuda.current_stream(fl4.device).cuda_stream
+        return lib.tap_epilogue_launch(
+            _IN_CODES[fl4.dtype], fl4.data_ptr(), n, h, w, c,
+            ctypes.cast(strides, ctypes.c_void_p),
+            sc.data_ptr(), int(embed_dtype == torch.bfloat16),
+            _OUT_CODES[out.dtype], qscale, out.data_ptr(), out.stride(0),
+            rn.data_ptr(), stream)
 
 
 def tap_epilogue(fl: torch.Tensor, scale, *, embed_dtype: torch.dtype,
@@ -165,17 +189,8 @@ def tap_epilogue(fl: torch.Tensor, scale, *, embed_dtype: torch.dtype,
             n, dtype=torch.float32, device=fl.device)
     sc = _as_scale(scale, c, fl.device)
     rn = torch.empty(n, dtype=torch.float32, device=fl.device)
-    strides = (ctypes.c_int64 * 4)(*fl4.stride())
     qscale = 127.0 / quant_bound if quant_bound is not None else 0.0
-    lib = _library()
-    with torch.cuda.device(fl.device):
-        stream = torch.cuda.current_stream(fl.device).cuda_stream
-        err = lib.tap_epilogue_launch(
-            _IN_CODES[fl.dtype], fl4.data_ptr(), n, h, w, c,
-            ctypes.cast(strides, ctypes.c_void_p),
-            sc.data_ptr(), int(embed_dtype == torch.bfloat16),
-            _OUT_CODES[res_dtype], qscale, out.data_ptr(), out.stride(0),
-            rn.data_ptr(), stream)
+    err = launch_on(_library(), fl4, sc, embed_dtype, qscale, out, rn)
     if err != 0:
         raise RuntimeError(f"tap_epilogue kernel launch failed with CUDA "
                            f"error {err} (N={n}, P={p}, C={c}, {fl.dtype} "

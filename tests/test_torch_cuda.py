@@ -204,3 +204,59 @@ def test_taps_engines_and_auto_launch_kernels(cuda_device, tmp_path):
             with open(log) as f:
                 first = json.loads(f.readline())
             assert first["engine_resolved"] == "taps-int8"
+
+
+# (name, N, H, W, C, layout, out column offset): the layouts and shapes the
+# tower's taps do not cover — a position count that is not a multiple of
+# the tile, channel counts off the 32-channel chunk or over 1024, one
+# image, an NCHW-contiguous tap (the generic load path), an out slice at an
+# unaligned column (no 16-byte stores), and more images than the grid has
+# blocks (each block walks several)
+EPILOGUE_EDGE_CASES = [
+    ("ragged_positions", 3, 5, 7, 64, "nhwc", 0),
+    ("c17", 4, 3, 3, 17, "nhwc", 0),
+    ("c40", 4, 6, 2, 40, "nhwc", 0),
+    ("c96", 4, 9, 9, 96, "nhwc", 0),
+    ("c1056", 2, 3, 2, 1056, "nhwc", 0),
+    ("n1", 1, 64, 64, 64, "nhwc", 0),
+    ("nchw", 3, 8, 8, 128, "nchw", 0),
+    ("unaligned_out", 3, 8, 8, 128, "nhwc", 3),
+    ("two_waves", 1500, 4, 4, 512, "nhwc", 0),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["f32", "bf16", "int8"])
+@pytest.mark.parametrize("name,n,h,w,c,layout,col", EPILOGUE_EDGE_CASES,
+                         ids=[case[0] for case in EPILOGUE_EDGE_CASES])
+def test_tap_epilogue_kernel_edge_cases(cuda_device, mode, name, n, h, w, c,
+                                        layout, col):
+    """Parts bit for bit, rn within rtol 1e-6, and rn the same on a second
+    launch (it is reduced in a fixed order)."""
+    gen = torch.Generator(device=cuda_device).manual_seed(2)
+    dt = torch.float32 if mode == "f32" else torch.bfloat16
+    if layout == "nchw":
+        tap = torch.relu(torch.randn((n, c, h, w), generator=gen,
+                                     device=cuda_device)).to(dt)
+        tap = tap.permute(0, 2, 3, 1)
+    else:
+        tap = torch.relu(torch.randn((n, h, w, c), generator=gen,
+                                     device=cuda_device)).to(dt)
+    scale = torch.rand((c,), generator=gen, device=cuda_device) * 0.05
+    kw = dict(embed_dtype=dt,
+              out_dtype=torch.float32 if mode == "f32" else dt,
+              quant_bound=float(scale.max()) if mode == "int8" else None)
+    want, rn_want = tap_epilogue_plain(tap, scale, **kw)
+    width = h * w * c
+    buf = torch.zeros((n, col + width + 5), dtype=want.dtype,
+                      device=cuda_device)
+    before = tap_epilogue.launches
+    part, rn = tap_epilogue(tap, scale, out=buf[:, col:col + width], **kw)
+    _, rn2 = tap_epilogue(tap, scale, out=buf[:, col:col + width], **kw)
+    torch.cuda.synchronize()
+    assert tap_epilogue.launches == before + 2
+    assert bool((part == want).all()), (name, mode)
+    assert bool((buf[:, :col] == 0).all() and (buf[:, col + width:] == 0)
+                .all())
+    torch.testing.assert_close(rn, rn_want, rtol=1e-6, atol=0)
+    assert torch.equal(rn, rn2)
