@@ -51,7 +51,33 @@ Phases, each printing JSON lines:
    computes the same function, that composition (timed only), K2 also
    with GB/s and its share of the byte bound; K1 and K3
    also on the block's first query tile alone, for the work per block
-   with and without the full grid's shared traffic.
+   with and without the full grid's shared traffic;
+7. fid: ``fid_from_image_sets``'s parts at full width — InceptionV3 pool_3
+   at 299x299 in float32, batch 50, on 5,000 64x64 member images and their
+   5,000 noisy copies; the tower is the seeded surrogate with its
+   BatchNorm statistics calibrated on 100 other images (as drawn, whole
+   channels never fire and the covariances are singular). FID under
+   'newton-schulz', 'eigh' (float64 on the card) and 'scipy', the device
+   square roots within 1e-3 + 1e-3 * FID of scipy's with no fall-back, the
+   FID of a set against itself (within 1e-3 of the -2 eps n its eps
+   offset gives), the count of scipy fall-backs, and the
+   card's activations on 8 images against the same tower on the CPU in
+   float64, before and after the calibration;
+8. reconstruction: ``run_reconstruction_attack`` end to end on seeded
+   VAE-GAN weights (z_dim 100, d 64, self-attention gamma nonzero) written
+   as npz, 2,048 member + 2,048 non-member npz queries, batch 256,
+   'l2-lpips' (VGG16), then ``evaluate``; the first 32 queries' losses
+   against the same modules on the CPU in float64 with the same eps;
+9. tabular: ``run_tabular_attack`` at medGAN's MIMIC-III width (D =
+   1,071 binary codes; 10,000 synthetic rows against 4,652 members and
+   4,652 non-members, the 10% hold-out of 46,520 patients) with 'pallas'
+   (K1 on the FFMA tile, launches counted) and 'gemm': every loss and
+   index against float64 distances; K1 at that shape against its plain
+   version, and timed.
+
+Phases 7 and 8 run no hand-written kernel (their convolutions and products
+are the library's, as in the JAX package they are XLA's); their launch
+counts are read and printed all the same.
 
 Then, on lines of their own, the ``nvidia-smi`` name/power line and the
 ``{"kernels": [...]}`` summary, and last ``{"ok": true, "device": ...}``.
@@ -88,6 +114,16 @@ N_POS = 1024
 N_SYN = 8192
 RES = 64
 TOPK_K = 4  # AttackConfig.two_pass_k
+FID_N = 5000       # images per FID set: more than 2048, full-rank statistics
+FID_BATCH = 50     # z_fid.py:68
+FID_CALIB = 100    # images that set the surrogate tower's BN statistics
+FID_NOISE = 24     # +- pixel noise of the second FID set's copies
+RECON_N = 2048     # member and non-member queries of the reconstruction
+RECON_BATCH = 256  # ReconstructionConfig.batch
+RECON_CHECK = 32   # queries of the first batch held against float64
+TAB_D = 1071       # medGAN's MIMIC-III width (Choi et al. 2017, Table 1)
+TAB_SYN = 10000
+TAB_Q = 4652       # the 10% hold-out of 46,520 patients, on either side
 
 
 def emit(obj: dict) -> None:
@@ -972,6 +1008,379 @@ def timing_k2(torch, mode: str) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 7: FID at full width
+# ---------------------------------------------------------------------------
+
+def noisy_copies(rng, images: np.ndarray, amp: int) -> np.ndarray:
+    noise = rng.integers(-amp, amp + 1, images.shape, dtype=np.int16)
+    return np.clip(images.astype(np.int16) + noise, 0, 255).astype(np.uint8)
+
+
+def calibrate_batchnorm(torch, model, images: np.ndarray) -> None:
+    """Give the surrogate tower the BatchNorm statistics a trained one
+    holds: each BN's running mean and variance become those of its input
+    over ``images`` (one forward pass, so every layer sees inputs already
+    normalised). At mean 0 and var 1 every input after the first ReLU is
+    non-negative, so whole channels stay below zero for every image: pool_3
+    features that never vary, and covariances singular whatever the set
+    size."""
+    from ganleaks_tpu_torch.ops.inception import BasicConv2d, preprocess
+
+    def hook(bn):
+        def set_stats(_mod, _inp, out):
+            bn.running_mean.copy_(out.mean((0, 2, 3)))
+            bn.running_var.copy_(out.var((0, 2, 3)))
+        return set_stats
+    handles = [blk.conv.register_forward_hook(hook(blk.bn))
+               for blk in model.modules() if isinstance(blk, BasicConv2d)]
+    model.to(DEVICE).eval()
+    with torch.no_grad():
+        model(preprocess(torch.from_numpy(images).to(DEVICE)))
+    for h in handles:
+        h.remove()
+
+
+def tower_error(torch, model, images: np.ndarray) -> float:
+    """Largest gap, over the largest activation, between the card's pool_3
+    activations of ``images`` through ``get_activations`` and the same
+    module's on the CPU in float64."""
+    import copy
+
+    import torch.nn.functional as F
+
+    from ganleaks_tpu_torch.ops import fid
+    got = fid.get_activations(model, images, len(images), device=DEVICE)
+    x64 = torch.from_numpy(images).double().permute(0, 3, 1, 2)
+    x64 = F.interpolate(x64 / 255.0, size=(299, 299), mode="bilinear",
+                        align_corners=False, antialias=False) * 2.0 - 1.0
+    with torch.inference_mode():
+        want = copy.deepcopy(model).cpu().double()(x64).numpy()
+    return float(np.abs(got - want).max() / np.abs(want).max())
+
+
+def phase_fid(torch) -> dict:
+    from ganleaks_tpu_torch.ops import fid
+    rng = np.random.default_rng(SEED + 7)
+    members = make_images(rng, FID_N, RES)
+    copies = noisy_copies(rng, members, FID_NOISE)
+    model = fid.init_inception_params(SEED)
+    # the surrogate as drawn: its features barely vary, so float32 rounding
+    # barely moves them
+    drawn = tower_error(torch, model, members[:8])
+    calibrate_batchnorm(torch, model, make_images(rng, FID_CALIB, RES))
+    # calibrated, every feature follows its input, and float32's rounding
+    # of it: a looser bar
+    calibrated = tower_error(torch, model, members[:8])
+    fid.frechet_distance.scipy_fallbacks = 0
+    reset_launches()
+    if DEVICE == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    acts1 = fid.get_activations(model, members, FID_BATCH, device=DEVICE)
+    acts2 = fid.get_activations(model, copies, FID_BATCH, device=DEVICE)
+    act_s = time.perf_counter() - t0
+    launches = read_launches()
+    check(acts1.shape == (FID_N, 2048) and bool(np.isfinite(acts1).all())
+          and bool(np.isfinite(acts2).all()),
+          f"fid: activations {acts1.shape}, not {FID_N} x 2048 finite")
+
+    m1, s1 = fid.activation_statistics(acts1)
+    m2, s2 = fid.activation_statistics(acts2)
+    values, secs, fallbacks = {}, {}, {}
+    for method in ("newton-schulz", "eigh", "scipy"):
+        before = fid.frechet_distance.scipy_fallbacks
+        t0 = time.perf_counter()
+        values[method] = fid.frechet_distance(m1, s1, m2, s2, method=method,
+                                              device=DEVICE)
+        secs[method] = time.perf_counter() - t0
+        fallbacks[method] = fid.frechet_distance.scipy_fallbacks - before
+    before = fid.frechet_distance.scipy_fallbacks
+    self_fid = fid.frechet_distance(m1, s1, m1, s1, method="newton-schulz",
+                                    device=DEVICE)
+    fallbacks["self"] = fid.frechet_distance.scipy_fallbacks - before
+    # the spread of eigenvalues the square roots work on
+    w = np.linalg.eigvalsh(s1)
+    res = {"phase": "fid", "n_images": [FID_N, FID_N], "batch": FID_BATCH,
+           "copy_noise": FID_NOISE, "activation_s": act_s,
+           "images_per_sec": 2 * FID_N / act_s,
+           "act_max_rel_err_vs_cpu_f64": drawn,
+           "calibrated_act_max_rel_err_vs_cpu_f64": calibrated,
+           "constant_features": int(((np.diag(s1) == 0)
+                                     & (np.diag(s2) == 0)).sum()),
+           "fid": values,
+           "sqrtm_s": secs, "scipy_fallbacks": fallbacks,
+           "fid_self_newton_schulz": self_fid,
+           "trace_sigma": [float(np.trace(s1)), float(np.trace(s2))],
+           "sigma1_eigenvalues": {"max": float(w[-1]), "min": float(w[0]),
+                                  "below_1e-6_of_max":
+                                      int((w < 1e-6 * w[-1]).sum())},
+           "kernel_launches": launches}
+    emit(res)
+    check(drawn <= 1e-4, f"fid: activations off float64 by {drawn:.3g} "
+                         f"of their max")
+    check(calibrated <= 1e-3, f"fid: calibrated activations off float64 by "
+                              f"{calibrated:.3g} of their max")
+    want = values["scipy"]
+    check(np.isfinite(want), "fid: scipy FID is not finite")
+    for method in ("newton-schulz", "eigh"):
+        # tests/test_fid_split.py's bar: rtol 1e-3, atol 1e-3
+        err = abs(values[method] - want)
+        check(err <= 1e-3 + 1e-3 * abs(want),
+              f"fid: {method} {values[method]} vs scipy {want} "
+              f"(off by {err:.3g})")
+        check(fallbacks[method] == 0,
+              f"fid: {method} fell back to scipy on full-rank statistics")
+    # with S1 = S2 the eps offset (z_fid.py's eps, kept on the device path)
+    # makes the trace exactly Tr(S1) + eps * n: a set's FID against itself
+    # is -2 eps n, -0.0041 at 2048 features
+    want_self = -2.0 * 1e-6 * len(m1)
+    check(abs(self_fid - want_self) <= 1e-3,
+          f"fid: FID of a set against itself {self_fid}, not {want_self}")
+    return res
+
+
+# ---------------------------------------------------------------------------
+# phase 8: the VAE-GAN reconstruction attack at full width
+# ---------------------------------------------------------------------------
+
+def seeded_vaegan(torch, seed: int):
+    """Encoder and Generator (z_dim 100, d 64) with every weight drawn from
+    a ``torch.Generator``: conv and linear weights and biases uniform in
+    +-1/sqrt(fan_in), BatchNorm scale N(1, 0.02), bias N(0, 0.02), running
+    mean N(0, 0.1) and var U(0.5, 1.5), spectral vectors unit normal draws,
+    the self-attention gamma 0.5 (nonzero, so the attention path counts)."""
+    from ganleaks_tpu_torch.models.vaegan import Encoder, Generator
+    from ganleaks_tpu_torch.ops.nn import (BatchNormTorch, SelfAttention,
+                                           SNConvTranspose2d, l2normalize)
+    g = torch.Generator().manual_seed(seed)
+    models = (Encoder(100, 64), Generator(100, 64))
+    with torch.no_grad():
+        for model in models:
+            for mod in model.modules():
+                if isinstance(mod, BatchNormTorch):
+                    mod.weight.normal_(1.0, 0.02, generator=g)
+                    mod.bias.normal_(0.0, 0.02, generator=g)
+                    mod.running_mean.normal_(0.0, 0.1, generator=g)
+                    mod.running_var.uniform_(0.5, 1.5, generator=g)
+                elif isinstance(mod, SelfAttention):
+                    mod.gamma.fill_(0.5)
+                elif hasattr(mod, "weight") and mod.weight is not None:
+                    # torch's default fan_in: weight[0] is (in, k, k) of a
+                    # conv, (out, k, k) of a transposed conv, (in,) of a
+                    # linear layer
+                    bound = 1.0 / mod.weight[0].numel() ** 0.5
+                    mod.weight.uniform_(-bound, bound, generator=g)
+                    mod.bias.uniform_(-bound, bound, generator=g)
+                if isinstance(mod, SNConvTranspose2d):
+                    mod.u.copy_(l2normalize(torch.randn(mod.u.shape,
+                                                        generator=g)))
+                    mod.v.copy_(l2normalize(torch.randn(mod.v.shape,
+                                                        generator=g)))
+    return tuple(m.eval() for m in models)
+
+
+def phase_reconstruction(torch, tmp: str) -> dict:
+    from ganleaks_tpu_torch.attack.eval_roc import evaluate
+    from ganleaks_tpu_torch.attack.reconstruction import (
+        batch_generator, run_reconstruction_attack)
+    from ganleaks_tpu_torch.config import EvalConfig, ReconstructionConfig
+    from ganleaks_tpu_torch.io.npz import load_npz_images
+    from ganleaks_tpu_torch.ops.distance import l2_pair
+    from ganleaks_tpu_torch.ops.lpips import default_lpips_params, lpips_pair
+    from ganleaks_tpu_torch.utils.checkpoint import (load_variables,
+                                                     save_params_npz)
+    from ganleaks_tpu_torch.weights import (dump_jax_tree,
+                                            vaegan_from_jax_variables)
+    enc, gen = seeded_vaegan(torch, SEED + 8)
+    paths = {}
+    for name, model in (("netE", enc), ("netG", gen)):
+        paths[name] = os.path.join(tmp, f"{name}.npz")
+        save_params_npz(paths[name], dump_jax_tree(model))
+    rng = np.random.default_rng(SEED + 8)
+    pos = make_images(rng, RECON_N, RES)
+    for name, arr in (("pos", pos), ("neg", make_images(rng, RECON_N, RES))):
+        paths[name] = os.path.join(tmp, f"recon_{name}.npz")
+        np.savez(paths[name], images=arr)
+    cfg = ReconstructionConfig(
+        exp_name="smoke_recon", pos_data_dir=paths["pos"],
+        neg_data_dir=paths["neg"], netE=paths["netE"], netG=paths["netG"],
+        z_dim=100, d=64, distance="l2-lpips", batch=RECON_BATCH,
+        save_plots=False, seed=SEED, save_root=os.path.join(tmp, "runs"))
+    reset_launches()
+    t0 = time.perf_counter()
+    out = run_reconstruction_attack(cfg, DEVICE)
+    e2e = time.perf_counter() - t0
+    launches = read_launches()
+    ev = evaluate(EvalConfig(result_load_dir=out["save_dir"]))
+    for name in ("pos", "neg"):
+        loss = np.load(os.path.join(out["save_dir"], f"{name}_loss.npy"))
+        idx = np.load(os.path.join(out["save_dir"], f"{name}_idx.npy"))
+        check(loss.shape == (RECON_N, 1) and loss.dtype == np.float64
+              and bool(np.isfinite(loss).all()) and bool((loss > 0).all()),
+              f"recon: {name}_loss not {RECON_N} finite positive float64")
+        check(bool((idx.ravel() == np.arange(RECON_N)).all()),
+              f"recon: {name}_idx is not the sequential counter")
+
+    # the first queries of the first batch on the CPU in float64, the same
+    # eps (the batch's draw on the card from its generator, as the encoder
+    # makes it, cut to those rows)
+    t0 = time.perf_counter()
+    x = torch.from_numpy(load_npz_images(paths["pos"], RES,
+                                         limit=RECON_CHECK)).double()
+    enc64, gen64 = (vaegan_from_jax_variables(
+        kind, load_variables(paths[name])).double()
+        for kind, name in (("encoder", "netE"), ("generator", "netG")))
+    eps = torch.randn((RECON_BATCH, 100),
+                      generator=batch_generator(SEED, 0, 0, DEVICE),
+                      device=DEVICE)[:RECON_CHECK].cpu().double()
+    lp64 = default_lpips_params().double().eval()
+    with torch.inference_mode():
+        mu, logvar = enc64.encode(x.permute(0, 3, 1, 2))
+        rec = gen64(eps * torch.exp(logvar) + mu).permute(0, 2, 3, 1)
+        want = (l2_pair(rec, x) + 0.2 * lpips_pair(lp64, rec, x)).numpy()
+    ref_s = time.perf_counter() - t0
+    got = out["pos_loss"][:RECON_CHECK].astype(np.float64)
+    check(got.shape == want.shape, f"recon: losses {got.shape} against "
+                                   f"the reference's {want.shape}")
+    rel = float((np.abs(got - want) / np.abs(want)).max())
+    res = {"phase": "reconstruction", "z_dim": 100, "d": 64, "res": RES,
+           "distance": "l2-lpips", "n_pos": RECON_N, "n_neg": RECON_N,
+           "batch": RECON_BATCH, "end_to_end_s": e2e,
+           "queries_per_sec": out["queries_per_sec"],
+           "auroc": ev["auc"], "checked_queries": RECON_CHECK,
+           "first_batch_max_rel_err_vs_cpu_f64": rel,
+           "cpu_f64_reference_s": ref_s, "kernel_launches": launches}
+    emit(res)
+    check(rel <= 1e-4, f"recon: first batch off float64 by rel {rel:.3g}")
+    return res
+
+
+# ---------------------------------------------------------------------------
+# phase 9: the tabular fbb attack at MIMIC-III width
+# ---------------------------------------------------------------------------
+
+def binary_rows(rng):
+    """Sparse binary code matrices: each of the D columns a code with its
+    own frequency (mostly rare, exponential with mean 0.03, capped at 0.5);
+    half the members planted in the synthetic set with 3 codes flipped."""
+    p = np.clip(rng.exponential(0.03, TAB_D), 0.001, 0.5)
+
+    def rows(n):
+        return (rng.random((n, TAB_D)) < p).astype(np.float32)
+    pos, neg, syn = rows(TAB_Q), rows(TAB_Q), rows(TAB_SYN)
+    slots = rng.permutation(TAB_SYN)[:TAB_Q // 2]
+    syn[slots] = pos[:TAB_Q // 2]
+    cols = rng.integers(0, TAB_D, (TAB_Q // 2, 3))
+    for j in range(3):
+        syn[slots, cols[:, j]] = 1.0 - syn[slots, cols[:, j]]
+    return syn, pos, neg
+
+
+def phase_tabular(torch, tmp: str) -> dict:
+    from ganleaks_tpu_torch.attack.eval_roc import evaluate
+    from ganleaks_tpu_torch.attack.tabular import run_tabular_attack
+    from ganleaks_tpu_torch.config import EvalConfig, TabularAttackConfig
+    from ganleaks_tpu_torch.ops.distance import rows_embedding
+    from ganleaks_tpu_torch.ops.knn_fused import knn_argmin_fused
+    syn, pos, neg = binary_rows(np.random.default_rng(SEED + 9))
+    paths = {}
+    for name, arr in (("syn", syn), ("pos", pos), ("neg", neg)):
+        paths[name] = os.path.join(tmp, f"tab_{name}.npy")
+        np.save(paths[name], arr)
+    # float64 distances of the float32 embeddings the attack searches
+    emb = {name: rows_embedding(torch.from_numpy(arr).to(DEVICE))
+           for name, arr in (("syn", syn), ("pos", pos), ("neg", neg))}
+    s64 = emb["syn"].double()
+    rs64 = (s64 ** 2).sum(1)
+    runs = {}
+    for engine in ("pallas", "gemm"):
+        cfg = TabularAttackConfig(
+            exp_name=f"smoke_tab_{engine}", syn_data_path=paths["syn"],
+            pos_data_path=paths["pos"], neg_data_path=paths["neg"],
+            engine=engine, save_root=os.path.join(tmp, "runs"))
+        reset_launches()
+        t0 = time.perf_counter()
+        out = run_tabular_attack(cfg, DEVICE)
+        e2e = time.perf_counter() - t0
+        launches = read_launches()
+        ev = evaluate(EvalConfig(result_load_dir=out["save_dir"]))
+        worst, mism, gap = 0.0, 0, 0.0
+        for name in ("pos", "neg"):
+            q64 = emb[name].double()
+            rq64 = (q64 ** 2).sum(1)
+            d64 = rq64[:, None] + rs64[None, :] - 2.0 * (q64 @ s64.T)
+            idx = torch.from_numpy(out[f"{name}_nn_idx"]).long().to(DEVICE)
+            loss = torch.from_numpy(out[f"{name}_loss"]).to(DEVICE)
+            lim = TOL * (rq64 + rs64[idx])
+            pick = d64.gather(1, idx[:, None])[:, 0]
+            err = (loss - pick).abs()
+            check(bool((err <= lim).all()),
+                  f"tabular {engine} {name}: losses off float64 by "
+                  f"{float((err / lim).max()):.3g} x the bound")
+            best, first = torch.min(d64, dim=1)
+            diff = idx != first
+            # two distances each off by at most the bound: a pick may
+            # differ from the float64 argmin only within twice of it
+            ok = (pick - best) <= 2.0 * lim
+            check(bool((ok | ~diff).all()),
+                  f"tabular {engine} {name}: {int((diff & ~ok).sum())} "
+                  f"indices off the float64 argmin beyond the bound")
+            worst = max(worst, float((err / (rq64 + rs64[idx])).max()))
+            mism += int(diff.sum())
+            gaps = ((pick - best) / (rq64 + rs64[idx]))[diff]
+            gap = max([gap] + gaps.tolist())
+            del d64
+        runs[engine] = r = {
+            "end_to_end_s": e2e,
+            "query_pairs_per_sec": out["query_pairs_per_sec"],
+            "auroc": ev["auc"], "kernel_launches": launches,
+            "loss_err_over_norms": worst,
+            "index_differs_from_f64_argmin": mism,
+            "max_gap_over_norms_where_differs": gap}
+        emit({"phase": "tabular", "engine": engine, "d": TAB_D,
+              "n_syn": TAB_SYN, "n_pos": TAB_Q, "n_neg": TAB_Q, **r})
+    check(runs["pallas"]["kernel_launches"]["knn_argmin.ffma"] >= 1,
+          "tabular: engine='pallas' never launched K1")
+    check(sum(runs["gemm"]["kernel_launches"].values()) == 0,
+          "tabular: engine='gemm' launched a kernel")
+    check(runs["pallas"]["auroc"] > 0.6,
+          f"tabular: AUROC {runs['pallas']['auroc']:.4f} with planted "
+          f"member copies")
+    check(abs(runs["pallas"]["auroc"] - runs["gemm"]["auroc"]) <= 1e-3,
+          "tabular: AUROC of 'pallas' and 'gemm' differ")
+
+    # K1 at the tabular shape: against its plain version, then timed
+    q, s = emb["pos"].contiguous(), emb["syn"].contiguous()
+    from ganleaks_tpu_torch.ops.knn_fused import knn_argmin_plain, sq_norms
+    rq, rs = sq_norms(q), sq_norms(s)
+    held = hold_against_plain(torch, "tabular_k1071", q, s, rq, rs, [])
+    emit({"phase": "kernel", **held})
+    timing = {}
+    if DEVICE == "cuda":
+        def library():  # one composition of PyTorch calls, timed only
+            return torch.min(torch.addmm(rs[None, :], q, s.T, alpha=-2.0)
+                             + rq[:, None], dim=1)
+        ms = time_ms(torch, lambda: knn_argmin_fused(q, s, rq=rq, rs=rs),
+                     10)
+        plain_ms = time_ms(torch, lambda: knn_argmin_plain(q, s, rq, rs), 10)
+        library_ms = time_ms(torch, library, 10)
+        ms2 = time_ms(torch, lambda: knn_argmin_fused(q, s, rq=rq, rs=rs),
+                      10)
+        n_q, k_dim = q.shape
+        flops = 2.0 * n_q * TAB_SYN * k_dim
+        nbytes = (n_q + TAB_SYN) * k_dim * 4 + (n_q + TAB_SYN) * 4 + n_q * 8
+        timing = {"kernel": "knn_argmin", "tile": "ffma", "n_q": n_q,
+                  "n_s": TAB_SYN, "k": k_dim, "dtype": "float32",
+                  "ms": min(ms, ms2), "ms_runs": [ms, ms2],
+                  "plain_ms": plain_ms, "library_ms": library_ms,
+                  "max_abs_err": held["max_abs_err"],
+                  **bound(flops, PEAK_FP32_FLOPS, nbytes),
+                  "tflops": flops / (min(ms, ms2) * 1e-3) / 1e12}
+        emit({"phase": "timing", "case": "tabular_k1071", **timing})
+    return {"runs": runs, "held": held, "timing": timing}
+
+
 def main() -> int:
     try:
         import torch
@@ -1002,16 +1411,38 @@ def main() -> int:
                            if "registers" in ln or "spill" in ln]
                     for name in cuda_build.SOURCES}})
 
+    phase_s = {}
+    clock = time.perf_counter()
+
+    def lap(name: str) -> None:
+        nonlocal clock
+        now = time.perf_counter()
+        phase_s[name] = now - clock
+        clock = now
+
     k1_err = phase_kernel(torch)
+    lap("kernel")
     k3_err = phase_topk(torch)
+    lap("topk")
     k2_err = phase_epilogue(torch)
+    lap("epilogue")
     with tempfile.TemporaryDirectory() as tmp:
         launches = phase_attack(torch, tmp)
+    lap("attack")
     t_k1 = {name: timing_k1(torch, dt) for name, dt in
             (("float32", torch.float32), ("bfloat16", torch.bfloat16))}
     t_k3 = {name: timing_k3(torch, dt) for name, dt in
             (("bfloat16", torch.bfloat16), ("float32", torch.float32))}
     t_k2 = {mode: timing_k2(torch, mode) for mode in ("bf16_int8", "f32")}
+    lap("timing")
+    phase_fid(torch)
+    lap("fid")
+    with tempfile.TemporaryDirectory() as tmp:
+        phase_reconstruction(torch, tmp)
+        lap("reconstruction")
+        tab = phase_tabular(torch, tmp)
+        lap("tabular")
+    emit({"phase": "seconds", "build_s": build_s, **phase_s})
 
     # launches: each kernel's count in the run of the path it serves — K1
     # on the FFMA tile in the float32 engine='pallas' run, K1 on the wgmma
@@ -1026,7 +1457,8 @@ def main() -> int:
               "ganleaks_tpu/ops/knn_pallas.py:340")
     rows = [
         ("knn_argmin.ffma", *k1_src, launches["pallas"]["knn_argmin.ffma"],
-         max(k1_err["float32"], t_k1["float32"]["max_abs_err"]),
+         max(k1_err["float32"], t_k1["float32"]["max_abs_err"],
+             tab["held"]["max_abs_err"]),
          t_k1["float32"]),
         ("knn_argmin.wgmma", *k1_src,
          launches["taps_bf16"]["knn_argmin.wgmma"],

@@ -1,4 +1,4 @@
-"""Typed configuration (copy of the attack/eval part of
+"""Typed configuration (copy of the attack, evaluation and FID part of
 ``ganleaks_tpu.config``): one dataclass per entry point, a YAML loader
 (PyYAML imported only when a file or a raw string needs parsing) and
 ``key=value`` overrides whose unknown keys raise.
@@ -128,6 +128,63 @@ class AttackConfig:
     save_plots: bool = True        # the 20 closest-pair PNGs (needs Pillow)
     wandb: str | None = None
     seed: int = 0
+
+
+@dataclass
+class ReconstructionConfig:
+    """Encoder-seeded reconstruction attack (BASELINE config #3: VAE-GAN);
+    field for field the JAX package's ``ReconstructionConfig``. The artifact
+    layout mirrors the fbb attack's so ``eval_roc`` consumes the run
+    unchanged."""
+
+    exp_name: str = "recon_debug"
+    pos_data_dir: str = "data/miniCelebA/train"
+    neg_data_dir: str = "data/miniCelebA/test"
+    data_num: int = 20000
+    resolution: int = 64
+    reader: str = "center_crop"    # VAE-GAN trains on the center-crop reader
+                                   # (vaegan/utils.py:44-71); 'resize' = fbb's
+    netE: str = ""                 # encoder weights: .msgpack (trainer) / .npz (converter)
+    netG: str = ""                 # generator weights
+    z_dim: int = 100               # must match the checkpoint (train.py:30)
+    d: int = 64
+    distance: str = "l2"           # 'l2' | 'l2-lpips' (same metric family as fbb)
+    lpips_net: str = "vgg"
+    lpips_weights: str | None = None
+    batch: int = 256
+    save_root: str = "recon_attack"
+    save_plots: bool = True
+    wandb: str | None = None
+    seed: int = 0
+
+
+@dataclass
+class TabularAttackConfig:
+    """fbb attack on (N, D) tabular records (medGAN's ``synthetic.npy``,
+    reference ``gan_models/medgan/train.py:247-318``); field for field the
+    JAX package's ``TabularAttackConfig``."""
+
+    exp_name: str = "fbb_tabular_debug"
+    syn_data_path: str | None = None     # synthetic.npy / .npz / .csv
+    pos_data_path: str | None = None     # member rows (.npy/.npz/.csv)
+    neg_data_path: str | None = None     # non-member rows
+    dataset_csv: str | None = None       # alternative: the medGAN CSV; the
+                                         # reference 90/10 split defines
+                                         # members/non-members
+    data_num: int = 20000
+    engine: str = "gemm"                 # 'gemm' | 'pallas' (the fused CUDA
+                                         # distance+argmin kernel) | 'exact'
+    syn_block: int = 8192
+    save_root: str = "fbb_attack"
+    wandb: str | None = None
+    seed: int = 0
+
+
+@dataclass
+class FIDConfig:
+    batch_size: int = 50           # z_fid.py:68
+    weights: str | None = None     # InceptionV3 weights npz (JAX schema)
+    sqrtm: str = "newton-schulz"   # 'newton-schulz' | 'eigh' | 'scipy'
 
 
 @dataclass

@@ -1,6 +1,7 @@
-"""Host-side image IO (copy of the resize-variant reader of
-``ganleaks_tpu.io.images``). Pillow is imported inside the function that
-decodes PNGs, so the npz ingest path runs without it.
+"""Host-side image IO (copy of the two readers of ``ganleaks_tpu.io.images``:
+the fbb attack's resize variant and the VAE-GAN's center crop). Pillow is
+imported inside the functions that decode PNGs, so the npz ingest path runs
+without it.
 
 Images are NHWC: float32 in [-1, 1], or the original uint8 bytes.
 """
@@ -42,6 +43,34 @@ def read_image(filepath: str, resolution: int = 64) -> np.ndarray:
     return 2.0 * (img / 255.0) - 1.0
 
 
+def read_image_center_crop(filepath: str, resolution: int = 64,
+                           cx: int = 89, cy: int = 121) -> np.ndarray:
+    """Center-crop-variant reader (``gan_models/vaegan/utils.py:44-71``):
+    crop [cy-64:cy+64, cx-64:cx+64], then 2x box halvings in float32 from
+    128 down to ``resolution``, ``rint``/clip through uint8, and the
+    float32 ``x / 255 * 2 - 1``. Images already at the resolution pass
+    through uncropped. Like the JAX package it halves log2(128 /
+    resolution) times (the reference's loop is wrong below 64,
+    DIVERGENCES.md)."""
+    import PIL.Image
+
+    pil = PIL.Image.open(filepath)
+    if pil.mode != "RGB":
+        pil = pil.convert("RGB")
+    img = np.asarray(pil)
+    if img.shape != (resolution, resolution, 3):
+        img = img[cy - 64: cy + 64, cx - 64: cx + 64]
+        resize_factor = 128 // resolution
+        img = img.astype(np.float32)
+        while resize_factor > 1:
+            img = (img[0::2, 0::2, :] + img[0::2, 1::2, :]
+                   + img[1::2, 0::2, :] + img[1::2, 1::2, :]) * 0.25
+            resize_factor //= 2
+        img = np.rint(img).clip(0, 255).astype(np.uint8)
+    img = img.astype(np.float32) / 255.0
+    return img * 2.0 - 1.0
+
+
 def unit_to_uint8_exact(arr: np.ndarray) -> np.ndarray:
     """Invert the readers' ``2*(x/255)-1`` scaling back to the original
     bytes (``rint((v+1)*127.5)`` recovers every byte value exactly),
@@ -58,16 +87,17 @@ def unit_to_uint8_exact(arr: np.ndarray) -> np.ndarray:
 
 def load_image_dir(data_dir: str, resolution: int = 64, ext: str = "png",
                    limit: int | None = None, num_threads: int = 8,
-                   dtype=np.float32) -> np.ndarray:
+                   dtype=np.float32, reader=read_image) -> np.ndarray:
     """Load a directory of images into one NHWC array: float32 in [-1, 1]
-    (default) or the original uint8 bytes with ``dtype=np.uint8``."""
+    (default) or the original uint8 bytes with ``dtype=np.uint8``, each
+    file decoded by ``reader(path, resolution)``."""
     paths = get_filepaths_from_dir(data_dir, ext)
     if limit is not None:
         paths = paths[:limit]
     if not paths:
         raise FileNotFoundError(f"no *.{ext} files under {data_dir}")
     with ThreadPoolExecutor(max_workers=num_threads) as pool:
-        imgs = list(pool.map(lambda p: read_image(p, resolution), paths))
+        imgs = list(pool.map(lambda p: reader(p, resolution), paths))
     out = np.asarray(imgs, dtype=np.float32)
     if np.dtype(dtype) == np.uint8:
         return unit_to_uint8_exact(out)

@@ -59,6 +59,27 @@ def pixel_embedding(x: torch.Tensor) -> torch.Tensor:
                                                  device=flat.device)))
 
 
+def l2_pair(x_hat: torch.Tensor, x_gt: torch.Tensor) -> torch.Tensor:
+    """Reference ``loss_l2_fn``: the mean over all but the leading axis of
+    (x_gt - x_hat)^2 (``utils.py:163``)."""
+    diff = x_gt - x_hat
+    return torch.mean(torch.square(diff), dim=tuple(range(1, diff.dim())))
+
+
+def rows_embedding(x: torch.Tensor) -> torch.Tensor:
+    """Tabular rows (medGAN path) as embeddings of the mean-square
+    distance: (N, D) records times ``1 / sqrt(D)``. The scale is the JAX
+    package's float32 scalar, bit for bit: the correctly rounded float32
+    square root of D, then its correctly rounded float32 reciprocal (numpy
+    on the host, where both are IEEE operations)."""
+    if x.dim() != 2:
+        x = x.reshape(x.shape[0], -1)
+    np_dtype = torch.empty((), dtype=x.dtype).numpy().dtype
+    one = np_dtype.type(1.0)
+    scale = one / np.sqrt(np_dtype.type(x.shape[1]))
+    return x * torch.tensor(scale, dtype=x.dtype, device=x.device)
+
+
 def make_embed_fn(distance: str, lpips_embed: Callable | None = None,
                   dtype: torch.dtype = torch.float32
                   ) -> Callable[[torch.Tensor], torch.Tensor]:

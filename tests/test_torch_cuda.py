@@ -1,7 +1,9 @@
 """Tests of the port that need a CUDA device: the fused distance+argmin
 and distance+top-k kernels and the tap epilogue kernel against their
 plain PyTorch versions on the card, and the searches and engines that
-launch them. They skip without a GPU.
+launch them; the distance+argmin kernel on the tabular path's binary rows
+(K = 1,071) against float64; the InceptionV3 tower and the spectral-norm
+layer on the card against the CPU. They skip without a GPU.
 
 This file imports neither JAX nor the JAX package, so it also runs on a
 GPU machine without them:
@@ -260,3 +262,72 @@ def test_tap_epilogue_kernel_edge_cases(cuda_device, mode, name, n, h, w, c,
                 .all())
     torch.testing.assert_close(rn, rn_want, rtol=1e-6, atol=0)
     assert torch.equal(rn, rn2)
+
+
+@pytest.mark.cuda
+def test_kernel_on_binary_rows_at_k1071(cuda_device):
+    """The tabular path's shape: medGAN's K = 1,071 (not a multiple of 4,
+    8 or the tile's depth) on sparse binary rows scaled by 1/sqrt(K), where
+    whole sets of synthetic rows tie. Held against the plain version and
+    against float64: every d within TOL * (rq + rs) of its pair's float64
+    distance, and each pick within 2 TOL * (rq + rs) of the float64
+    minimum."""
+    from ganleaks_tpu_torch.ops.distance import rows_embedding
+
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    k = 1071
+    p = torch.rand((k,), generator=gen, device=cuda_device) * 0.1
+    q = rows_embedding((torch.rand((700, k), generator=gen,
+                                   device=cuda_device) < p).float())
+    s = rows_embedding((torch.rand((3000, k), generator=gen,
+                                   device=cuda_device) < p).float())
+    s[1234] = s[17] = q[5]  # exact copies: distance 0, lower index wins
+    rq, rs = sq_norms(q), sq_norms(s)
+    before = dict(knn_argmin_fused.launches_by_route)
+    d, i = knn_argmin_fused(q, s, rq=rq, rs=rs)
+    torch.cuda.synchronize()
+    assert launched_on(knn_argmin_fused, torch.float32, before)
+    d_p, i_p = knn_argmin_plain(q, s, rq, rs)
+    tol = TOL * (rq + rs[i_p.long()])
+    assert bool(((d - d_p).abs() <= tol).all())
+    q64, s64 = q.double(), s.double()
+    d64 = (q64 ** 2).sum(1)[:, None] + (s64 ** 2).sum(1)[None, :] \
+        - 2.0 * (q64 @ s64.T)
+    pick = d64.gather(1, i.long()[:, None])[:, 0]
+    bound = TOL * (rq.double() + rs.double()[i.long()])
+    assert bool(((d.double() - pick).abs() <= bound).all())
+    assert bool((pick - d64.min(1).values <= 2.0 * bound).all())
+    assert int(i[5]) == 17
+
+
+@pytest.mark.cuda
+def test_inception_tower_cuda_matches_cpu(cuda_device):
+    """The float32 tower on the card (cuDNN, TF32 off) against the same
+    module on the CPU: within 1e-4 of the activations' max."""
+    from ganleaks_tpu_torch.ops.fid import get_activations, init_inception_params
+
+    model = init_inception_params(0)
+    imgs = np.random.default_rng(0).integers(0, 256, (6, 64, 64, 3),
+                                             dtype=np.uint8)
+    cpu = get_activations(model, imgs, batch_size=3, device="cpu")
+    gpu = get_activations(model, imgs, batch_size=3, device=cuda_device)
+    np.testing.assert_allclose(gpu, cpu, rtol=0,
+                               atol=1e-4 * np.abs(cpu).max())
+
+
+@pytest.mark.cuda
+def test_spectral_norm_layer_cuda_matches_cpu(cuda_device):
+    """One power iteration per forward on the card as on the CPU, the u/v
+    buffers unchanged by the forward."""
+    from ganleaks_tpu_torch.ops.nn import SNConvTranspose2d
+
+    torch.manual_seed(0)
+    layer = SNConvTranspose2d(32, 16, 4, 2, 1).eval()
+    x = torch.randn((4, 32, 8, 8))
+    with torch.no_grad():
+        want = layer(x)
+        u, v = layer.u.clone(), layer.v.clone()
+        layer = layer.to(cuda_device)
+        got = layer(x.to(cuda_device)).cpu()
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    assert torch.equal(layer.u.cpu(), u) and torch.equal(layer.v.cpu(), v)

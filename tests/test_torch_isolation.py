@@ -16,7 +16,7 @@ import torch
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(REPO, "ganleaks_tpu_torch")
-LAZY = ("yaml", "PIL", "matplotlib", "wandb")
+LAZY = ("yaml", "PIL", "matplotlib", "wandb", "pandas", "scipy", "msgpack")
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "ganleaks_tpu", "sklearn")
 
 
@@ -63,7 +63,7 @@ def _run_isolated(code: str) -> subprocess.CompletedProcess:
     blocker = textwrap.dedent(f"""
         import sys
         sys.path.insert(0, {REPO!r})
-        BLOCKED = {FORBIDDEN + LAZY + ("scipy",)!r}
+        BLOCKED = {FORBIDDEN + LAZY!r}
 
         class _Block:
             def find_spec(self, name, path=None, target=None):
@@ -149,6 +149,104 @@ def test_taps_and_two_pass_paths_without_optional_libraries(tmp_path):
     res = _run_isolated(code)
     assert res.returncode == 0, res.stderr
     assert res.stdout.strip().endswith("ok")
+
+
+def test_fid_reconstruction_tabular_without_optional_libraries(tmp_path):
+    """FID (the eigh square root), the reconstruction attack
+    (distance='l2', npz weights and npz queries) and the tabular attack
+    (.npy rows, the fused engine) run with JAX, PyYAML, Pillow,
+    matplotlib, sklearn, scipy, pandas and msgpack all unimportable."""
+    code = textwrap.dedent(f"""
+        import os
+        import numpy as np
+        import torch
+        from ganleaks_tpu_torch.attack.eval_roc import evaluate
+        from ganleaks_tpu_torch.attack.reconstruction import (
+            run_reconstruction_attack)
+        from ganleaks_tpu_torch.attack.tabular import run_tabular_attack
+        from ganleaks_tpu_torch.config import (EvalConfig,
+                                               ReconstructionConfig,
+                                               TabularAttackConfig)
+        from ganleaks_tpu_torch.models.vaegan import Encoder, Generator
+        from ganleaks_tpu_torch.ops.fid import (fid_from_image_sets,
+                                                init_inception_params)
+        from ganleaks_tpu_torch.utils.checkpoint import save_params_npz
+        from ganleaks_tpu_torch.weights import dump_jax_tree
+        d = {str(tmp_path)!r}
+        os.chdir(d)
+        torch.set_num_threads(1)  # the suite runs in several processes
+        rng = np.random.default_rng(0)
+        a = rng.integers(0, 256, (4, 32, 32, 3), np.uint8)
+        b = rng.integers(0, 256, (4, 32, 32, 3), np.uint8)
+        val = fid_from_image_sets(init_inception_params(0), a, b,
+                                  batch_size=2, method="eigh", device="cpu")
+        assert np.isfinite(val), val
+
+        for name, model in (("netE", Encoder(16, 8)),
+                            ("netG", Generator(16, 8))):
+            save_params_npz(f"{{d}}/{{name}}.npz", dump_jax_tree(model))
+        for name in ("pos", "neg"):
+            np.savez(f"{{d}}/{{name}}.npz",
+                     images=rng.integers(0, 256, (3, 64, 64, 3), np.uint8))
+        out = run_reconstruction_attack(ReconstructionConfig(
+            pos_data_dir=d + "/pos.npz", neg_data_dir=d + "/neg.npz",
+            netE=d + "/netE.npz", netG=d + "/netG.npz", z_dim=16, d=8,
+            batch=2, save_plots=False), device="cpu")
+        assert out["pos_loss"].shape == (3,)
+        assert 0.0 <= evaluate(EvalConfig(
+            result_load_dir=out["save_dir"]))["auc"] <= 1.0
+
+        for name, n in (("syn", 30), ("pos", 5), ("neg", 5)):
+            np.save(f"{{d}}/{{name}}.npy",
+                    (rng.random((n, 17)) < 0.3).astype(np.float32))
+        out = run_tabular_attack(TabularAttackConfig(
+            syn_data_path=d + "/syn.npy", pos_data_path=d + "/pos.npy",
+            neg_data_path=d + "/neg.npy", engine="pallas"), device="cpu")
+        assert out["pos_nn_idx"].shape == (5,)
+        print("ok")
+    """)
+    res = _run_isolated(code)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip().endswith("ok")
+
+
+def test_new_entry_points_refuse_without_gpu(monkeypatch, tmp_path):
+    from ganleaks_tpu_torch.attack.reconstruction import (
+        fbb_tabular, run_reconstruction_attack)
+    from ganleaks_tpu_torch.attack.tabular import run_tabular_attack
+    from ganleaks_tpu_torch.cli import fbb_tabular as cli_tabular
+    from ganleaks_tpu_torch.cli import fid as cli_fid
+    from ganleaks_tpu_torch.cli import reconstruction as cli_recon
+    from ganleaks_tpu_torch.config import (ReconstructionConfig,
+                                           TabularAttackConfig)
+    from ganleaks_tpu_torch.ops import fid
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.chdir(tmp_path)
+    rows = np.zeros((3, 4), np.float32)
+    np.savez(tmp_path / "s.npz", mu=np.zeros(2), sigma=np.eye(2))
+    stats = str(tmp_path / "s.npz")
+    imgs = np.zeros((2, 8, 8, 3), np.uint8)
+    calls = [
+        lambda: fid.get_activations(torch.nn.Identity(), imgs),
+        lambda: fid.fid_from_image_sets(torch.nn.Identity(), imgs, imgs),
+        lambda: fid.fid_from_paths(torch.nn.Identity(), stats, stats),
+        lambda: fid.frechet_distance(np.zeros(2), np.eye(2), np.zeros(2),
+                                     np.eye(2), method="eigh"),
+        lambda: run_reconstruction_attack(ReconstructionConfig()),
+        lambda: run_tabular_attack(TabularAttackConfig()),
+        lambda: fbb_tabular(rows, rows, rows),
+        lambda: cli_fid.main([stats, stats]),
+        lambda: cli_recon.main([]),
+        lambda: cli_tabular.main([]),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+    # the host-only square root needs no device
+    assert fid.frechet_distance(np.zeros(2), np.eye(2), np.zeros(2),
+                                np.eye(2), method="scipy") == \
+        pytest.approx(0.0, abs=1e-9)
 
 
 def test_entry_points_refuse_without_gpu(monkeypatch, tmp_path):
