@@ -22,9 +22,10 @@ Phases, each printing JSON lines:
    spans, K = 512,000 (zero-mean rows), k = 128 (the wrapper's limit),
    planted ties across tiles and spans; bf16 on non-negative rows at
    K = 512,000 against float64;
-4. epilogue: the tap epilogue kernel (K2) against its plain version on the
-   five 64-px VGG16 taps of 2,048 images as the tower produces them
-   (channels-last views), float32 -> float32, bf16 -> bf16 and
+4. epilogue: the tap epilogue kernel (K2) against its plain version on
+   every 64-px tap of 2,048 images as each LPIPS tower produces them
+   (VGG16, AlexNet, SqueezeNet1.1 and ResNet18: 5, 5, 7 and 5 taps,
+   channels-last views), float32 -> float32, bf16 -> bf16 and
    bf16 -> int8 (bounds from ``lpips_part_bounds``), and on edge cases in
    the same three modes (positions not a multiple of the tile, C of 17,
    40, 96 and 1056, one image, an NCHW-contiguous tap, an out slice at an
@@ -44,6 +45,11 @@ Phases, each printing JSON lines:
    launches per kernel and tile; then the float32 top-k search
    (``knn_topk_streamed``, engine 'pallas': K3 on the FFMA tile) on the
    same arrays, its nearest entries against the 'pallas' run's;
+5b. attack_towers: the same attack on the same sets with the AlexNet and
+   SqueezeNet1.1 towers (seeded surrogate backbones, uniform lin heads):
+   'taps' (K2, K1 on the FFMA tile; the exact float32 reference), 'gemm',
+   'taps' on a bf16 tower (K1 on the wgmma tile) and 'auto', held as in
+   phase 5;
 6. timing: K1 at the attack's block (2,048 x 2,048, K = 512,000) in
    float32 and bfloat16, K3 there in bfloat16 and float32, K2 per tap and
    summed over the five taps of a 2,048-image block — each beside its
@@ -51,7 +57,18 @@ Phases, each printing JSON lines:
    computes the same function, that composition (timed only), K2 also
    with GB/s and its share of the byte bound; K1 and K3
    also on the block's first query tile alone, for the work per block
-   with and without the full grid's shared traffic;
+   with and without the full grid's shared traffic; K2 also summed over
+   the alex and over the squeeze taps of 2,048 images, and each tap also
+   queued behind a spin of the card (``device_ms``: the kernel's device
+   time without the wrapper's host time between launches);
+6b. scores and train: ``make_pair_dist_fn`` on 1,024 seeded 64-px 2AFC
+   triplets ('net-lin' on vgg, alex and squeeze, 'net' on resnet: 2AFC
+   and JND scores), the first 32 against the same towers on the CPU in
+   float64, 'l2' and 'ssim' on the host; then three ``train_2afc`` steps
+   (alex lin heads and the rank net, batch 50) on the card and on the CPU
+   in float64 with the same dropout masks: losses within rtol 1e-4, lin
+   heads >= 0, the trained lin heads and rank net within 1e-6 (1% of an
+   Adam step at lr 1e-4) of float64's;
 7. fid: ``fid_from_image_sets``'s parts at full width — InceptionV3 pool_3
    at 299x299 in float32, batch 50, on 5,000 64x64 member images and their
    5,000 noisy copies; the tower is the seeded surrogate with its
@@ -114,6 +131,7 @@ N_POS = 1024
 N_SYN = 8192
 RES = 64
 TOPK_K = 4  # AttackConfig.two_pass_k
+LPIPS_NETS = ("vgg", "alex", "squeeze", "resnet")  # every LPIPS tower
 FID_N = 5000       # images per FID set: more than 2048, full-rank statistics
 FID_BATCH = 50     # z_fid.py:68
 FID_CALIB = 100    # images that set the surrogate tower's BN statistics
@@ -124,6 +142,14 @@ RECON_CHECK = 32   # queries of the first batch held against float64
 TAB_D = 1071       # medGAN's MIMIC-III width (Choi et al. 2017, Table 1)
 TAB_SYN = 10000
 TAB_Q = 4652       # the 10% hold-out of 46,520 patients, on either side
+SCORES_N = 1024    # seeded 64-px 2AFC triplets
+SCORES_BATCH = 256  # ScoresConfig.batch_size
+SCORES_CHECK = 32  # triplets held against the CPU in float64
+SCORES_SSIM = 256  # triplets the host's DSSIM (a python loop) scores
+TRAIN_BATCH = 50   # the reference trainer's batch of 64-px patches
+TRAIN_STEPS = 3
+TRAIN_LR = 1e-4
+TRAIN_ATOL = TRAIN_LR / 100  # 1% of one Adam step (|update| ~ lr)
 
 
 def emit(obj: dict) -> None:
@@ -450,8 +476,8 @@ def epilogue_modes(torch) -> dict:
 
 
 def tower_taps(torch, model, x, tower_dtype):
-    """The five taps as the port's tower returns them, with each tap's
-    scale (the main path's featuriser does exactly this)."""
+    """The taps as the port's tower returns them, with each tap's scale
+    (the main path's featuriser does exactly this)."""
     from ganleaks_tpu_torch.ops.lpips.lpips import _tap_scale
     feats = model.features(x, tower_dtype)
     return [(fl, _tap_scale(w, 0.2, fl.shape[1] * fl.shape[2]))
@@ -459,14 +485,28 @@ def tower_taps(torch, model, x, tower_dtype):
 
 
 def phase_epilogue(torch) -> float:
+    x = torch.from_numpy(make_images(np.random.default_rng(SEED + 2),
+                                     2 * N_POS, RES)).to(DEVICE)
+    worst = 0.0
+    for net in LPIPS_NETS:
+        worst = max(worst, epilogue_tower_taps(torch, net, x))
+    with torch.inference_mode():
+        for mode in epilogue_modes(torch):
+            for case in EPILOGUE_EDGE_CASES:
+                worst = max(worst, epilogue_edge_case(torch, mode, *case))
+    return worst
+
+
+def epilogue_tower_taps(torch, net, x) -> float:
+    """K2 against its plain version on every tap of ``net``'s tower for
+    the images ``x``, in each of ``epilogue_modes``: parts bit for bit, rn
+    within rtol 1e-6."""
     from ganleaks_tpu_torch.ops.lpips import (default_lpips_params,
                                               lpips_part_bounds)
     from ganleaks_tpu_torch.ops.lpips.epilogue import (tap_epilogue,
                                                        tap_epilogue_plain)
-    model = default_lpips_params().to(DEVICE).eval()
+    model = default_lpips_params(net).to(DEVICE).eval()
     bounds = lpips_part_bounds(model, (RES, RES, 3))
-    x = torch.from_numpy(make_images(np.random.default_rng(SEED + 2),
-                                     2 * N_POS, RES)).to(DEVICE)
     worst = 0.0
     with torch.inference_mode():
         for mode, (tdt, edt, odt, quant) in epilogue_modes(torch).items():
@@ -481,23 +521,21 @@ def phase_epilogue(torch) -> float:
                 n_diff = int((part != want).sum())
                 rn_rel = float(((rn - rn_want).abs() / rn_want).max())
                 worst = max(worst, float(diff.max()))
-                emit({"phase": "epilogue", "mode": mode, "tap": i,
-                      "shape": list(fl.shape), "strides": list(fl.stride()),
+                emit({"phase": "epilogue", "net": net, "mode": mode,
+                      "tap": i, "shape": list(fl.shape),
+                      "strides": list(fl.stride()),
                       "out_dtype": str(part.dtype).replace("torch.", ""),
                       "parts_differing": n_diff,
                       "max_abs_diff": float(diff.max()),
                       "rn_max_rel_err": rn_rel})
                 # the limit is bit-for-bit equality: one differing part
                 # element fails the phase
-                check(n_diff == 0, f"epilogue {mode} tap {i}: {n_diff} "
-                                   f"parts differ, max |diff| "
+                check(n_diff == 0, f"epilogue {net} {mode} tap {i}: "
+                                   f"{n_diff} parts differ, max |diff| "
                                    f"{float(diff.max()):.3g}")
-                check(rn_rel <= 1e-6, f"epilogue {mode} tap {i}: rn off "
-                                      f"by {rn_rel:.3g}")
+                check(rn_rel <= 1e-6, f"epilogue {net} {mode} tap {i}: rn "
+                                      f"off by {rn_rel:.3g}")
                 del part, rn, want, rn_want
-        for mode in epilogue_modes(torch):
-            for case in EPILOGUE_EDGE_CASES:
-                worst = max(worst, epilogue_edge_case(torch, mode, *case))
     return worst
 
 
@@ -602,6 +640,26 @@ ATTACK_RUNS = [
     ("taps_int8_two_pass", "taps-int8", True, {}),
     ("auto", "auto", False, {}),
 ]
+# phase 5b on the alex and squeeze towers: 'taps' (K1 on the FFMA tile,
+# exact float32) is the reference; 'gemm' is cuBLAS's float32 fold
+TOWER_RUNS = [
+    ("taps", "taps", False, {}),
+    ("gemm", "gemm", False, {}),
+    ("taps_bf16", "taps", False, BF16),
+    ("auto", "auto", False, {}),
+]
+# which kernels each run launches, K1 (knn_argmin) and K3 (knn_topk) per
+# tile — '.ffma' on float32, '.wgmma' on bf16 — and K2 (tap_epilogue);
+# pass 1 of two-pass runs K3 on bf16 embeddings, the float32 re-rank and
+# fallbacks run K1 on the FFMA tile
+WANT_LAUNCHES = {
+    "pallas": ("knn_argmin.ffma",), "gemm": (),
+    "pallas_two_pass": ("knn_topk.wgmma", "knn_argmin.ffma"),
+    "taps": ("tap_epilogue", "knn_argmin.ffma"),
+    "taps_bf16": ("tap_epilogue", "knn_argmin.wgmma"),
+    "taps_int8": ("tap_epilogue",),
+    "taps_int8_two_pass": ("tap_epilogue", "knn_argmin.ffma"),
+    "auto": ("tap_epilogue",)}
 
 
 def cert_error_bound(torch, cfg, rq, rs, quantized: bool):
@@ -616,30 +674,25 @@ def cert_error_bound(torch, cfg, rq, rs, quantized: bool):
     if quantized:
         embed = build_embed_fn(cfg, "cpu", structured=True)
         bounds = embed.part_bound_fn((RES, RES, 3))
-        widths = [3 * RES * RES] + [h * w * c for h, w, c
-                                    in tap_shapes("vgg", (RES, RES, 3))]
+        widths = [3 * RES * RES] + [
+            h * w * c for h, w, c in tap_shapes(cfg.lpips_net,
+                                                (RES, RES, 3))]
         abs_err = _quant_abs_err(tuple(bounds), [(w,) for w in widths])
     s = np.sqrt(rq) + np.sqrt(rs)
     a = _default_cert_eta(True) * s + 2.0 * abs_err
     return a * (2.0 * s + a), abs_err
 
 
-def phase_attack(torch, tmp: str) -> dict:
-    from dataclasses import replace
-
-    from ganleaks_tpu_torch.attack.eval_roc import evaluate
-    from ganleaks_tpu_torch.attack.fbb import build_embed_fn, run_attack
-    from ganleaks_tpu_torch.config import AttackConfig, EvalConfig
-
-    n_pos = n_neg = N_POS
-    n_syn = N_SYN
-    k_dim = 125 * RES * RES  # pixel part 3 R^2 + five VGG16 taps 122 R^2
+def attack_data(tmp: str) -> dict:
+    """The attack's sets, written as npz: 1,024 members, 1,024
+    non-members and 8,192 synthetic images, members' noisy copies planted
+    in the synthetic set."""
     rng = np.random.default_rng(SEED)
     t0 = time.perf_counter()
-    pos = make_images(rng, n_pos, RES)
-    neg = make_images(rng, n_neg, RES)
-    syn = make_images(rng, n_syn, RES)
-    slots = rng.permutation(n_syn)[:n_pos]  # members' noisy copies
+    pos = make_images(rng, N_POS, RES)
+    neg = make_images(rng, N_POS, RES)
+    syn = make_images(rng, N_SYN, RES)
+    slots = rng.permutation(N_SYN)[:N_POS]  # members' noisy copies
     syn[slots] = np.clip(pos.astype(np.int16)
                          + rng.integers(-8, 9, pos.shape, dtype=np.int16),
                          0, 255).astype(np.uint8)
@@ -647,19 +700,39 @@ def phase_attack(torch, tmp: str) -> dict:
     for name, arr in (("pos", pos), ("neg", neg), ("syn", syn)):
         paths[name] = os.path.join(tmp, f"{name}.npz")
         np.savez(paths[name], images=arr)
-    data_s = time.perf_counter() - t0
+    return {"paths": paths, "syn": syn, "queries": np.concatenate([pos, neg]),
+            "tmp": tmp, "data_s": time.perf_counter() - t0}
 
+
+def attack_runs(torch, data: dict, net: str, run_list, ref: str):
+    """``run_attack`` and ``evaluate`` on ``data`` with the l2-lpips
+    distance on ``net``'s tower, once per entry of ``run_list``; every loss
+    against the float64 distance of its pair, every run's indices against
+    the ``ref`` run's (an exact float32 fold), every run's launches per
+    kernel and tile. Returns (label -> run record, the float32 flat
+    featuriser the float64 distances came from)."""
+    from dataclasses import replace
+
+    from ganleaks_tpu_torch.attack.eval_roc import evaluate
+    from ganleaks_tpu_torch.attack.fbb import build_embed_fn, run_attack
+    from ganleaks_tpu_torch.config import AttackConfig, EvalConfig
+    from ganleaks_tpu_torch.ops.lpips.backbones import tap_shapes
+
+    n_pos = n_neg = N_POS
+    n_syn = N_SYN
+    k_dim = 3 * RES * RES + sum(h * w * c for h, w, c
+                                in tap_shapes(net, (RES, RES, 3)))
+    paths, syn, queries = data["paths"], data["syn"], data["queries"]
     base = dict(syn_data_path=paths["syn"], pos_data_dir=paths["pos"],
                 neg_data_dir=paths["neg"], resolution=RES,
-                distance="l2-lpips", dtype="float32", query_block=2048,
-                syn_block=2048, two_pass_k=TOPK_K, save_plots=False,
-                save_root=os.path.join(tmp, "runs"))
-    queries = np.concatenate([pos, neg])
-    embed = build_embed_fn(
-        AttackConfig(distance="l2-lpips", dtype="float32"), DEVICE)
+                distance="l2-lpips", lpips_net=net, dtype="float32",
+                query_block=2048, syn_block=2048, two_pass_k=TOPK_K,
+                save_plots=False, save_root=os.path.join(data["tmp"], "runs"))
+    embed = build_embed_fn(AttackConfig(distance="l2-lpips", lpips_net=net,
+                                        dtype="float32"), DEVICE)
     runs = {}
-    for label, engine, two_pass, extra in ATTACK_RUNS:
-        cfg = AttackConfig(exp_name=f"smoke_{label}", engine=engine,
+    for label, engine, two_pass, extra in run_list:
+        cfg = AttackConfig(exp_name=f"smoke_{net}_{label}", engine=engine,
                            two_pass=two_pass, **{**base, **extra})
         if DEVICE == "cuda":
             torch.cuda.reset_peak_memory_stats()
@@ -689,7 +762,7 @@ def phase_attack(torch, tmp: str) -> dict:
                 cfg, engine="taps-int8", **BF16)
             r["eps"], r["abs_err"] = cert_error_bound(
                 torch, run_cfg, rq, rs, run_cfg.engine == "taps-int8")
-        emit({"phase": "attack", "run": label, "engine": engine,
+        emit({"phase": "attack", "net": net, "run": label, "engine": engine,
               "two_pass": two_pass, "engine_resolved": r["engine_resolved"],
               "n_pos": n_pos, "n_neg": n_neg, "n_syn": n_syn, "k": k_dim,
               "auroc": ev["auc"], "ap": ev["ap"],
@@ -701,40 +774,29 @@ def phase_attack(torch, tmp: str) -> dict:
               "query_pairs_per_sec": out["query_pairs_per_sec"],
               "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9
               if DEVICE == "cuda" else None,
-              "data_gen_s": data_s})
+              "data_gen_s": data["data_s"]})
 
-    p = runs["pallas"]
+    p = runs[ref]
     for key in ("pos_loss", "neg_loss"):
         check(p["out"][key].shape == (n_pos,)
               and bool(np.isfinite(p["out"][key]).all()),
-              f"{key}: not {n_pos} finite values")
-    check(p["auc"] > 0.9, f"AUROC {p['auc']:.4f} <= 0.9 with planted "
+              f"{net} {key}: not {n_pos} finite values")
+    check(p["auc"] > 0.9, f"{net}: AUROC {p['auc']:.4f} <= 0.9 with planted "
                           f"member copies")
-    check(p["err"] <= TOL, f"pallas: losses off their float64 distances by "
-                           f"{p['err']:.3g} x (rq + rs)")
-    # launches: which kernels each path ran, K1 (knn_argmin) and K3
-    # (knn_topk) per tile — '.ffma' on float32, '.wgmma' on bf16 — and K2
-    # (tap_epilogue); pass 1 of two-pass runs K3 on bf16 embeddings, the
-    # float32 re-rank and fallbacks run K1 on the FFMA tile
-    want_launches = {
-        "pallas": ("knn_argmin.ffma",), "gemm": (),
-        "pallas_two_pass": ("knn_topk.wgmma", "knn_argmin.ffma"),
-        "taps": ("tap_epilogue", "knn_argmin.ffma"),
-        "taps_bf16": ("tap_epilogue", "knn_argmin.wgmma"),
-        "taps_int8": ("tap_epilogue",),
-        "taps_int8_two_pass": ("tap_epilogue", "knn_argmin.ffma"),
-        "auto": ("tap_epilogue",)}
+    check(p["err"] <= TOL, f"{net} {ref}: losses off their float64 "
+                           f"distances by {p['err']:.3g} x (rq + rs)")
     for label, r in runs.items():
         for name, n in r["launches"].items():
-            if name in want_launches[label]:
-                check(n > 0, f"{label}: {name} never launched")
+            if name in WANT_LAUNCHES[label]:
+                check(n > 0, f"{net} {label}: {name} never launched")
             else:
-                check(n == 0, f"{label}: {name} launched {n} times")
+                check(n == 0, f"{net} {label}: {name} launched {n} times")
     check(runs["auto"]["engine_resolved"] == "taps-int8",
-          f"engine='auto' resolved to {runs['auto']['engine_resolved']}")
+          f"{net}: engine='auto' resolved to "
+          f"{runs['auto']['engine_resolved']}")
     summary = {}
     for label, r in runs.items():
-        if label == "pallas":
+        if label == ref:
             continue
         int8 = "eps" in r  # bf16 or int8 single pass: bounded, not exact
         # an engine whose distance to a row is off by at most e can only
@@ -748,18 +810,18 @@ def phase_attack(torch, tmp: str) -> dict:
                 p["norms"], r["norms"])
         gap = np.abs(r["d64"] - p["d64"])
         check(bool((gap[mm] <= near[mm]).all()),
-              f"{label}: {int(mm.sum())} index mismatches with the float32 "
-              f"pallas run, not all near-ties")
+              f"{net} {label}: {int(mm.sum())} index mismatches with the "
+              f"float32 {ref} run, not all near-ties")
         if int8:  # the certificate's own error model
             check(bool((np.abs(r["loss"] - r["d64"]) <= r["eps"]).all()),
-                  f"{label}: losses outside the certificate bound")
-            check(r["auc"] > 0.9, f"{label}: AUROC {r['auc']:.4f}")
+                  f"{net} {label}: losses outside the certificate bound")
+            check(r["auc"] > 0.9, f"{net} {label}: AUROC {r['auc']:.4f}")
         elif label != "gemm":  # exact float32 results
-            check(r["err"] <= TOL, f"{label}: losses off float64 by "
+            check(r["err"] <= TOL, f"{net} {label}: losses off float64 by "
                                    f"{r['err']:.3g} x (rq + rs)")
         if label == "gemm" or not int8:
             check(abs(r["auc"] - p["auc"]) <= 1e-6,
-                  f"AUROC {label} {r['auc']} vs pallas {p['auc']}")
+                  f"{net}: AUROC {label} {r['auc']} vs {ref} {p['auc']}")
         summary[label] = {
             "index_mismatches": int(mm.sum()), "auroc": r["auc"],
             "loss_err_over_norms": r["err"],
@@ -768,11 +830,30 @@ def phase_attack(torch, tmp: str) -> dict:
             summary[label]["abs_err"] = r["abs_err"]
             summary[label]["max_err_over_bound"] = float(
                 (np.abs(r["loss"] - r["d64"]) / r["eps"]).max())
-    emit({"phase": "attack_check", "auroc_pallas": p["auc"],
-          "loss_err_over_norms_pallas": p["err"], "runs": summary})
+    emit({"phase": "attack_check", "net": net, "reference": ref,
+          f"auroc_{ref}": p["auc"], f"loss_err_over_norms_{ref}": p["err"],
+          "runs": summary})
+    return runs, embed
+
+
+def phase_attack(torch, data: dict) -> dict:
+    """Phase 5: VGG16 through every engine, then the float32 top-k
+    search; returns each run's launches."""
+    runs, embed = attack_runs(torch, data, "vgg", ATTACK_RUNS, "pallas")
     launches = {label: r["launches"] for label, r in runs.items()}
-    launches["topk_f32"] = topk_search(torch, embed, queries, syn, p)
+    launches["topk_f32"] = topk_search(torch, embed, data["queries"],
+                                       data["syn"], runs["pallas"])
     return launches
+
+
+def phase_attack_towers(torch, data: dict) -> dict:
+    """Phase 5b: the alex and squeeze towers on the same sets; returns
+    net -> label -> launches."""
+    out = {}
+    for net in ("alex", "squeeze"):
+        runs, _ = attack_runs(torch, data, net, TOWER_RUNS, "taps")
+        out[net] = {label: r["launches"] for label, r in runs.items()}
+    return out
 
 
 def topk_search(torch, embed, queries, syn, p) -> dict:
@@ -821,6 +902,24 @@ def time_ms(torch, fn, reps: int = 3) -> float:
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def device_ms(torch, fn, reps: int = 10) -> float:
+    """Like ``time_ms``, but the launches are queued behind a ~10 ms spin
+    of the card (``torch.cuda._sleep``), so the host is far ahead when
+    they run and the events time the device alone, not the wrapper's
+    host time between launches."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(20_000_000)
     start.record()
     for _ in range(reps):
         fn()
@@ -954,19 +1053,21 @@ def timing_k3(torch, dtype) -> dict:
     return res
 
 
-def timing_k2(torch, mode: str) -> dict:
-    """K2 per tap and summed over the five taps of one 2,048-image block,
-    in one of ``epilogue_modes``; no single PyTorch call computes it."""
+def timing_k2(torch, mode: str, net: str = "vgg") -> dict:
+    """K2 per tap and summed over the taps of ``net``'s tower for one
+    2,048-image block, in one of ``epilogue_modes``; no single PyTorch
+    call computes it."""
     from ganleaks_tpu_torch.ops.lpips import (default_lpips_params,
                                               lpips_part_bounds)
     from ganleaks_tpu_torch.ops.lpips.epilogue import (tap_epilogue,
                                                        tap_epilogue_plain)
     tdt, edt, odt, quant = epilogue_modes(torch)[mode]
-    model = default_lpips_params().to("cuda").eval()
+    model = default_lpips_params(net).to("cuda").eval()
     bounds = lpips_part_bounds(model, (RES, RES, 3))
     x = torch.from_numpy(make_images(np.random.default_rng(SEED + 5),
                                      2 * N_POS, RES)).to("cuda")
-    taps_ms, plain_ms, bound_ms, ops, nbytes, err = [], [], [], 0.0, 0.0, 0.0
+    taps_ms, dev_ms, plain_ms, bound_ms = [], [], [], []
+    ops, nbytes, err = 0.0, 0.0, 0.0
     with torch.inference_mode():
         taps = tower_taps(torch, model, x, tdt)
         for i, (fl, sc) in enumerate(taps):
@@ -979,6 +1080,7 @@ def timing_k2(torch, mode: str) -> dict:
             t = time_ms(torch, lambda: tap_epilogue(fl, sc, **kw), reps=10)
             tp = time_ms(torch, lambda: tap_epilogue_plain(fl, sc, **kw))
             t2 = time_ms(torch, lambda: tap_epilogue(fl, sc, **kw), reps=10)
+            td = device_ms(torch, lambda: tap_epilogue(fl, sc, **kw))
             n, h, w, c = fl.shape
             elems = n * h * w * c
             out_elt = 1 if quant else torch.empty((), dtype=odt).element_size()
@@ -987,25 +1089,172 @@ def timing_k2(torch, mode: str) -> dict:
             # quantising multiply): float32 work on the CUDA cores
             f = elems * (7 if quant else 6)
             taps_ms.append(min(t, t2))
+            dev_ms.append(td)
             plain_ms.append(tp)
             bound_ms.append(bound(f, PEAK_FP32_FLOPS, b)["bound_ms"])
             ops += f
             nbytes += b
-            emit({"phase": "timing", "kernel": "tap_epilogue", "mode": mode,
-                  "tap": i, "shape": [n, h, w, c], "ms": min(t, t2),
-                  "ms_runs": [t, t2], "plain_ms": tp,
+            emit({"phase": "timing", "kernel": "tap_epilogue", "net": net,
+                  "mode": mode, "tap": i, "shape": [n, h, w, c],
+                  "ms": min(t, t2),
+                  "ms_runs": [t, t2], "device_ms": td, "plain_ms": tp,
                   "bound_ms": bound_ms[-1], "gb": b / 1e9,
                   "gb_per_s": b / (min(t, t2) * 1e-3) / 1e9,
                   "bound_share": bound_ms[-1] / min(t, t2)})
-    res = {"kernel": "tap_epilogue", "mode": mode, "n_images": 2 * N_POS,
+    res = {"kernel": "tap_epilogue", "net": net, "mode": mode,
+           "n_images": 2 * N_POS,
            "ms": sum(taps_ms), "plain_ms": sum(plain_ms),
            "library_ms": None, "max_abs_err": err,
            **bound(ops, PEAK_FP32_FLOPS, nbytes), "gb": nbytes / 1e9,
            "gb_per_s": nbytes / (sum(taps_ms) * 1e-3) / 1e9,
-           "per_tap_ms": taps_ms}
+           "per_tap_ms": taps_ms, "device_ms": sum(dev_ms),
+           "per_tap_device_ms": dev_ms}
     res["bound_share"] = res["bound_ms"] / res["ms"]
+    res["device_bound_share"] = res["bound_ms"] / res["device_ms"]
     emit({"phase": "timing", "summed_over_taps": True, **res})
     return res
+
+
+# ---------------------------------------------------------------------------
+# phase 6b: 2AFC/JND scores and the lin-head trainer
+# ---------------------------------------------------------------------------
+
+SCORE_MODELS = (("net-lin", "vgg"), ("net-lin", "alex"),
+                ("net-lin", "squeeze"), ("net", "resnet"))
+
+
+def score_triplets(rng, n: int) -> dict:
+    """2AFC triplets in [-1, 1]: reference images and two noisy copies at
+    per-triplet noise levels; judge 1 where p1 is the cleaner copy (0.5 on
+    equal levels), 'same' where a copy's noise is at most 8 levels."""
+    ref = make_images(rng, n, RES)
+    amp = {k: rng.integers(2, 40, n) for k in ("p0", "p1")}
+    out = {"ref": (ref / 127.5 - 1.0).astype(np.float32)}
+    for k, a in amp.items():
+        a4 = a[:, None, None, None]
+        img = np.clip(ref.astype(np.int16)
+                      + rng.integers(-a4, a4 + 1, ref.shape), 0, 255)
+        out[k] = (img / 127.5 - 1.0).astype(np.float32)
+    out["judge"] = np.where(amp["p1"] < amp["p0"], 1.0,
+                            np.where(amp["p1"] == amp["p0"], 0.5, 0.0))
+    out["same"] = {k: (a <= 8).astype(np.float64) for k, a in amp.items()}
+    return out
+
+
+def phase_scores(torch) -> dict:
+    """``make_pair_dist_fn`` on the card for 'net-lin' x vgg/alex/squeeze
+    and 'net' x resnet on SCORES_N triplets (2AFC and JND scores), the
+    first SCORES_CHECK held against the same tower on the CPU in float64;
+    'l2' and 'ssim' on the host."""
+    from ganleaks_tpu_torch.ops.lpips import (default_lpips_params,
+                                              lpips_pair, pnet_pair)
+    from ganleaks_tpu_torch.ops.lpips.scoring import (make_pair_dist_fn,
+                                                      score_2afc, score_jnd)
+    t = score_triplets(np.random.default_rng(SEED + 7), SCORES_N)
+    c = SCORES_CHECK
+    out = {}
+    for model, net in SCORE_MODELS + (("l2", None), ("ssim", None)):
+        dist = make_pair_dist_fn(model, net=net or "vgg",
+                                 device=DEVICE if net else None)
+        n = SCORES_N if model != "ssim" else SCORES_SSIM
+        t0 = time.perf_counter()
+        d0, d1 = (np.concatenate([dist(t["ref"][i:min(i + SCORES_BATCH, n)],
+                                       t[k][i:min(i + SCORES_BATCH, n)])
+                                  for i in range(0, n, SCORES_BATCH)])
+                  for k in ("p0", "p1"))
+        secs = time.perf_counter() - t0
+        check(d0.shape == d1.shape == (n,) and bool(np.isfinite(d0).all())
+              and bool(np.isfinite(d1).all()),
+              f"scores {model} {net}: not {n} finite distance pairs")
+        rec = {"phase": "scores", "model": model, "net": net, "n": n,
+               "device": DEVICE if net else "host", "seconds": secs,
+               "pairs_per_s": 2 * n / secs,
+               "score_2afc": score_2afc(d0, d1, t["judge"][:n]),
+               "score_jnd": score_jnd(np.concatenate([d0, d1]),
+                                      np.concatenate([t["same"]["p0"][:n],
+                                                      t["same"]["p1"][:n]]))}
+        if net:  # the same tower on the CPU in float64
+            fn = lpips_pair if model == "net-lin" else pnet_pair
+            m64 = default_lpips_params(net).double().eval()
+            with torch.no_grad():
+                r64 = torch.from_numpy(t["ref"][:c]).double()
+                w = np.concatenate([
+                    fn(m64, r64, torch.from_numpy(t[k][:c]).double())
+                    .numpy() for k in ("p0", "p1")])
+            got = np.concatenate([d0[:c], d1[:c]])
+            err = np.abs(got - w)
+            # float32 on the card: rtol 1e-4, plus 1e-6 absolute for the
+            # cosine distance's 1 - cos cancellation on near copies
+            rec["max_rel_err_f64"] = float((err / np.abs(w)).max())
+            rec["max_abs_err_f64"] = float(err.max())
+            check(bool((err <= 1e-4 * np.abs(w) + 1e-6).all()),
+                  f"scores {model} {net}: off the CPU float64 distances by "
+                  f"{float((err / np.abs(w)).max()):.3g} relative")
+        out[f"{model}_{net}" if net else model] = rec
+        emit(rec)
+    return out
+
+
+def phase_train(torch) -> dict:
+    """TRAIN_STEPS steps of ``train_2afc`` (one batch of TRAIN_BATCH
+    triplets per epoch, the alex tower's lin heads and the rank net) on
+    the card in float32 and on the CPU in float64, with the dropout masks
+    drawn from one seeded CPU generator in both: every step's loss within
+    rtol 1e-4, lin heads >= 0, and the trained lin heads and rank net
+    within TRAIN_ATOL of the float64 run's (every step's update and clamp
+    shows there; each group moved by more than 100 TRAIN_ATOL)."""
+    from ganleaks_tpu_torch.ops.lpips import default_lpips_params
+    from ganleaks_tpu_torch.ops.lpips.train2afc import Dist2Logit, train_2afc
+    t = score_triplets(np.random.default_rng(SEED + 8), TRAIN_BATCH)
+    batch = {k: t[k] for k in ("ref", "p0", "p1", "judge")}
+    hist, params = {}, {}
+
+    def groups(model, rank) -> dict:
+        out = {"lins": torch.cat([w.reshape(-1) for w in model.lins])}
+        out["rank"] = torch.cat([q.reshape(-1) for q in rank.parameters()])
+        return {k: v.detach().cpu().double().numpy() for k, v in out.items()}
+
+    for dev, dtype in ((DEVICE, torch.float32), ("cpu", torch.float64)):
+        key = dtype_name(dtype)
+        model = default_lpips_params("alex").to(device=dev, dtype=dtype)
+        rank = Dist2Logit(seed=SEED).to(device=dev, dtype=dtype)
+        init = groups(model, rank)
+        npdt = np.float64 if dtype == torch.float64 else np.float32
+        b = {k: v.astype(npdt) for k, v in batch.items()}
+        t0 = time.perf_counter()
+        _, _, hist[key] = train_2afc(
+            model.eval(), [b], epochs=TRAIN_STEPS, decay_epochs=0,
+            lr=TRAIN_LR, rank=rank,
+            generator=torch.Generator().manual_seed(SEED))
+        secs = time.perf_counter() - t0
+        params[key] = groups(model, rank)
+        moved = {k: float(np.abs(params[key][k] - init[k]).max())
+                 for k in init}
+        lins_min = min(float(w.min()) for w in model.lins)
+        check(lins_min >= 0.0, f"train {dev}: a lin head went below 0")
+        check(min(moved.values()) > 100 * TRAIN_ATOL,
+              f"train {dev}: the steps barely moved the weights: {moved}")
+        emit({"phase": "train", "device": dev, "dtype": dtype_name(dtype),
+              "net": "alex", "batch": TRAIN_BATCH, "steps": TRAIN_STEPS,
+              "lr": TRAIN_LR, "losses": [h["loss"] for h in hist[key]],
+              "acc": [h["acc"] for h in hist[key]], "seconds": secs,
+              "lins_min": lins_min, "max_moved": moved})
+    card = np.array([h["loss"] for h in hist["float32"]])
+    ref = np.array([h["loss"] for h in hist["float64"]])
+    rel = float((np.abs(card - ref) / np.abs(ref)).max())
+    check(card.shape == (TRAIN_STEPS,) and rel <= 1e-4,
+          f"train: losses {card.tolist()} off float64 {ref.tolist()} by "
+          f"{rel:.3g} relative")
+    param_err = {k: float(np.abs(params["float32"][k]
+                                 - params["float64"][k]).max())
+                 for k in params["float64"]}
+    for k, err in param_err.items():
+        check(err <= TRAIN_ATOL,
+              f"train: trained {k} off float64 by {err:.3g} "
+              f"(limit {TRAIN_ATOL:g})")
+    emit({"phase": "train_check", "loss_max_rel_err_f64": rel,
+          "param_max_abs_err_f64": param_err})
+    return {"loss_max_rel_err_f64": rel, "param_max_abs_err_f64": param_err}
 
 
 # ---------------------------------------------------------------------------
@@ -1427,14 +1676,25 @@ def main() -> int:
     k2_err = phase_epilogue(torch)
     lap("epilogue")
     with tempfile.TemporaryDirectory() as tmp:
-        launches = phase_attack(torch, tmp)
-    lap("attack")
+        data = attack_data(tmp)
+        launches = phase_attack(torch, data)
+        lap("attack")
+        phase_attack_towers(torch, data)
+        lap("attack_towers")
+        del data
     t_k1 = {name: timing_k1(torch, dt) for name, dt in
             (("float32", torch.float32), ("bfloat16", torch.bfloat16))}
     t_k3 = {name: timing_k3(torch, dt) for name, dt in
             (("bfloat16", torch.bfloat16), ("float32", torch.float32))}
     t_k2 = {mode: timing_k2(torch, mode) for mode in ("bf16_int8", "f32")}
+    for net in ("alex", "squeeze"):
+        for mode in ("bf16_int8", "f32"):
+            timing_k2(torch, mode, net)
     lap("timing")
+    phase_scores(torch)
+    lap("scores")
+    phase_train(torch)
+    lap("train")
     phase_fid(torch)
     lap("fid")
     with tempfile.TemporaryDirectory() as tmp:

@@ -7,7 +7,8 @@ distances and its ROC evaluation on an NVIDIA GPU:
 * images (uint8 NHWC) are dequantised through the exact lookup table
   (``ops/distance``);
 * each image is featurised once into an embedding — the pixel part plus
-  the five scaled, channel-normalised VGG16 taps (``ops/lpips``) — so the
+  the scaled, channel-normalised taps of an LPIPS tower (``ops/lpips``:
+  VGG16, AlexNet, SqueezeNet1.1 or ResNet18) — so the
   attack distance is a squared Euclidean distance; the ``taps`` engines
   write the taps as parts through the hand-written tap epilogue kernel
   (``ops/lpips/epilogue``, ``csrc/tap_epilogue.cu``), int8-quantised for
@@ -21,6 +22,11 @@ distances and its ROC evaluation on an NVIDIA GPU:
   certifies the result;
 * ``attack/fbb`` writes the reference's artifacts and ``attack/eval_roc``
   scores them.
+
+Beside the attack: FID (``ops/fid``), the reconstruction and tabular
+attacks (``attack/reconstruction``, ``attack/tabular``) and LPIPS's
+scoring and lin-head training (``ops/lpips/scoring``,
+``ops/lpips/train2afc``, ``cli/lpips_scores``).
 
 The package imports torch, numpy and the standard library only. PyYAML,
 Pillow and matplotlib are imported inside the functions that need them.

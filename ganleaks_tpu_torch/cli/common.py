@@ -1,5 +1,6 @@
 """Shared CLI plumbing: every entry point takes ``--local_config <yaml>``
-plus ``key=value`` overrides (values parsed as YAML)."""
+plus ``key=value`` overrides (each value parsed by its field's type in
+``config``)."""
 
 from __future__ import annotations
 
@@ -23,9 +24,8 @@ def parse_config(cls: Type[T], argv: list[str] | None = None,
     for item in ns.overrides:
         if "=" not in item:
             ap.error(f"override {item!r} is not key=value")
-    if ns.overrides:
-        import yaml
-        for item in ns.overrides:
-            k, v = item.split("=", 1)
-            over[k] = yaml.safe_load(v)
+    for item in ns.overrides:
+        k, v = item.split("=", 1)
+        over[k] = v
     return load_config(cls, ns.local_config, over)
+

@@ -1,7 +1,7 @@
-"""Typed configuration (copy of the attack, evaluation and FID part of
-``ganleaks_tpu.config``): one dataclass per entry point, a YAML loader
-(PyYAML imported only when a file or a raw string needs parsing) and
-``key=value`` overrides whose unknown keys raise.
+"""Typed configuration (copy of the attack, evaluation, FID and LPIPS
+scoring part of ``ganleaks_tpu.config``): one dataclass per entry point,
+a YAML loader (PyYAML imported only when a file or a raw string needs
+parsing) and ``key=value`` overrides whose unknown keys raise.
 
 The fields are the JAX package's, so existing YAML configs load unchanged.
 Fields that select a layout this port does not have yet (``n_chips > 1``,
@@ -12,28 +12,58 @@ Fields that select a layout this port does not have yet (``n_chips > 1``,
 from __future__ import annotations
 
 import dataclasses
+import json
+import types
+import typing
 from dataclasses import dataclass
-from typing import Any, Sequence, Type, TypeVar
+from typing import Any, Sequence, Type, TypeVar, Union
 
 T = TypeVar("T")
 
 
+_YAML_NULL = ("", "~", "null", "Null", "NULL")
+_YAML_BOOL = {w: b for b, words in ((True, "yes true on"),
+                                    (False, "no false off"))
+              for word in words.split()
+              for w in (word, word.capitalize(), word.upper())}
+
+
 def _coerce(value: Any, typ: Any) -> Any:
-    """Best-effort coercion of YAML values onto dataclass field types."""
+    """Best-effort coercion of YAML values and raw ``key=value`` strings
+    onto dataclass field types. A string is parsed by the field's type
+    alone (YAML 1.1's null and bool words where the type admits them), so
+    an override parses the same with or without PyYAML installed."""
     if value is None:
         return None
     origin = getattr(typ, "__origin__", None)
     if origin in (list, tuple, Sequence):
         inner = typ.__args__[0] if getattr(typ, "__args__", None) else None
         if isinstance(value, str):
-            # raw CLI strings: parse as YAML so "[4, 2]" lands as a list
-            # (iterating the string would yield its characters)
-            import yaml
-            value = yaml.safe_load(value)
+            # raw CLI strings: parse "[4, 2]" as a list (iterating the
+            # string would yield its characters)
+            try:
+                import yaml
+                value = yaml.safe_load(value)
+            except ImportError:
+                value = json.loads(value)
         if not isinstance(value, (list, tuple)):
             value = [value]
         seq = [(_coerce(v, inner) if inner else v) for v in value]
         return tuple(seq) if origin is tuple else seq
+    members = (typing.get_args(typ)
+               if typing.get_origin(typ) in (Union, types.UnionType) else None)
+    if members is not None and isinstance(value, str):
+        if type(None) in members and value.strip() in _YAML_NULL:
+            return None
+        if bool in members and value.strip() in _YAML_BOOL:
+            return _YAML_BOOL[value.strip()]
+        for member in members:
+            if member in (int, float, str):
+                try:
+                    return member(value)
+                except ValueError:
+                    continue
+        return value
     if typ is bool:
         if isinstance(value, str):
             return value.strip().lower() in ("1", "true", "yes", "on")
@@ -44,8 +74,6 @@ def _coerce(value: Any, typ: Any) -> Any:
 
 
 def _resolve_type(cls: type, name: str) -> Any:
-    import typing
-
     return typing.get_type_hints(cls).get(name, Any)
 
 
@@ -93,7 +121,7 @@ class AttackConfig:
     K: int = 1                     # reference config K=1 (always 1-NN)
     BATCH_SIZE: int = 64           # reference kNN batch (drop_remainder only)
     distance: str = "l2-lpips"     # 'l2' | 'l2-lpips'
-    lpips_net: str = "vgg"         # only 'vgg' is ported
+    lpips_net: str = "vgg"         # 'vgg' | 'alex' | 'squeeze' | 'resnet'
     lpips_weights: str | None = None  # LPIPS npz (JAX save_lpips_params schema)
     hyperparameter_search: bool = False
     params: str | None = None
@@ -149,7 +177,7 @@ class ReconstructionConfig:
     z_dim: int = 100               # must match the checkpoint (train.py:30)
     d: int = 64
     distance: str = "l2"           # 'l2' | 'l2-lpips' (same metric family as fbb)
-    lpips_net: str = "vgg"
+    lpips_net: str = "vgg"         # 'vgg' | 'alex' | 'squeeze' | 'resnet'
     lpips_weights: str | None = None
     batch: int = 256
     save_root: str = "recon_attack"
@@ -185,6 +213,27 @@ class FIDConfig:
     batch_size: int = 50           # z_fid.py:68
     weights: str | None = None     # InceptionV3 weights npz (JAX schema)
     sqrtm: str = "newton-schulz"   # 'newton-schulz' | 'eigh' | 'scipy'
+
+
+@dataclass
+class ScoresConfig:
+    """Perceptual-metric evaluation against human judgments — the
+    DistModel scoring surface (``dist_model.py:253-330``) the reference
+    exposes only as library calls. Dataset is the original LPIPS layout:
+    ``data_dir/{ref,p0,p1}/*.png + judge/*.npy`` for 2AFC,
+    ``data_dir/{p0,p1}/*.png + same/*.npy`` for JND; or a single .npz
+    with those arrays (keys ref/p0/p1/judge or p0/p1/same)."""
+
+    data_dir: str = ""             # directory layout or a .npz path
+    mode: str = "2afc"             # '2afc' | 'jnd'
+    model: str = "net-lin"         # 'net-lin' | 'net' | 'l2' | 'ssim'
+    net: str = "vgg"               # backbone for net-lin/net
+    colorspace: str = "Lab"        # for l2/ssim (dist_model.py:39)
+    weights: str | None = None     # lpips params npz (surrogate otherwise)
+    resolution: int = 64
+    batch_size: int = 256
+    limit: int | None = None       # cap on triplets/pairs (smoke runs)
+    out_json: str | None = None
 
 
 @dataclass

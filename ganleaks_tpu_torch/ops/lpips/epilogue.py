@@ -2,7 +2,7 @@
 ``csrc/tap_epilogue.cu`` and its plain PyTorch version.
 
 Replaces ``ganleaks_tpu/ops/lpips/epilogue_pallas.py::tap_epilogue``. For
-one raw VGG tap of shape (N, P, C) or (N, H, W, C) — read through its
+one raw LPIPS tap of shape (N, P, C) or (N, H, W, C) — read through its
 strides, so the tower's channels-last ``permute`` views go in without a
 copy — it computes per (image, position)
 
@@ -72,9 +72,12 @@ def channel_sumsq(x: torch.Tensor) -> torch.Tensor:
 
 
 def tap_phi(fl: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
-    """``x / (sqrt(sum_c x^2) + eps) * scale`` in float32, channels last."""
+    """``x / (sqrt(sum_c x^2) + eps) * scale`` in float32, channels last.
+    The root is taken in float64 and rounded once, which is the correctly
+    rounded float32 root: torch's vectorised float32 ``sqrt`` on the CPU
+    is sometimes one unit in the last place off it."""
     x = fl.float()
-    norm = torch.sqrt(channel_sumsq(x)).unsqueeze(-1)
+    norm = torch.sqrt(channel_sumsq(x).double()).float().unsqueeze(-1)
     return x / (norm + EPS_NORM) * scale
 
 

@@ -1,14 +1,16 @@
 """LPIPS (net-lin) perceptual distance in PyTorch (port of
-``ganleaks_tpu.ops.lpips.lpips``).
+``ganleaks_tpu.ops.lpips.lpips``), on any of the four towers of
+``backbones`` (vgg, alex, squeeze, resnet).
 
 * inputs in [-1, 1], shifted/scaled per channel by the v0.1 constants
   (``networks_basic.py:115-116,135-136``);
 * backbone taps unit-normalised per pixel over channels with eps OUTSIDE
   the sqrt (``util/util.py:70-73``);
 * squared differences weighted by the non-negative lin heads, spatially
-  averaged, summed over the five layers (``networks_basic.py:158-181``).
+  averaged, summed over the taps (``networks_basic.py:158-181``).
 
-:func:`lpips_pair` is the pairwise form; :func:`lpips_embed` the factorised
+:func:`lpips_pair` is the pairwise form and :func:`pnet_pair` the
+uncalibrated cosine ('net') distance; :func:`lpips_embed` the factorised
 form ``weight * LPIPS(x, y) == ||phi(x) - phi(y)||^2`` with
 ``phi_l = f_l * sqrt(weight * w_l / (H_l * W_l))`` that turns the attack
 into one nearest-neighbour search. :func:`lpips_embed_parts` returns the
@@ -19,8 +21,9 @@ featuriser that runs each tap through the tap epilogue kernel
 
 Weights: :func:`init_lpips_params` seeds a surrogate backbone from a
 ``torch.Generator`` (same init distribution as the JAX surrogate, other
-bits); :func:`default_lpips_params` adds the real v0.1 lin heads shipped in
-``weights/vgg_lin.npz``; :func:`save_lpips_params` /
+bits); :func:`default_lpips_params` adds the real v0.1 lin heads where
+the repository has them (only ``weights/vgg_lin.npz``: the other towers
+keep uniform heads); :func:`save_lpips_params` /
 :func:`load_lpips_params` read and write the JAX package's npz schema, so
 one file drives both packages.
 """
@@ -33,8 +36,9 @@ import numpy as np
 import torch
 from torch import nn
 
+from ganleaks_tpu_torch.device import resolve_device
 from ganleaks_tpu_torch.ops.distance import images_unit_range
-from ganleaks_tpu_torch.ops.lpips.backbones import (VGG16, backbone_channels,
+from ganleaks_tpu_torch.ops.lpips.backbones import (Tower, backbone_channels,
                                                     tap_shapes)
 from ganleaks_tpu_torch.ops.lpips.epilogue import tap_epilogue, tap_phi
 
@@ -54,15 +58,16 @@ def normalize_tensor(feat: torch.Tensor, eps: float = _EPS_NORM
 
 
 class LPIPS(nn.Module):
-    """VGG16 feature tower plus the five lin heads (buffers ``lin0`` ..
-    ``lin4``). ``features`` takes NHWC images in [-1, 1] (or uint8 bytes)
-    and returns the five NHWC taps."""
+    """A feature tower (``backbones.Tower(net)``) plus one lin head per tap
+    (buffers ``lin0``, ``lin1``, ...: five, seven for squeeze).
+    ``features`` takes NHWC images in [-1, 1] (or uint8 bytes) and returns
+    the NHWC taps."""
 
     def __init__(self, net: str = "vgg"):
         super().__init__()
         chns = backbone_channels(net)
         self.net = net
-        self.tower = VGG16()
+        self.tower = Tower(net)
         self.register_buffer("shift", torch.tensor(LPIPS_SHIFT))
         self.register_buffer("scale", torch.tensor(LPIPS_SCALE))
         for i, c in enumerate(chns):
@@ -170,21 +175,40 @@ def default_lpips_params(net: str = "vgg", seed: int = 0) -> LPIPS:
 # evaluation
 # ---------------------------------------------------------------------------
 
-def lpips_pair(model: LPIPS, x: torch.Tensor, y: torch.Tensor
-               ) -> torch.Tensor:
-    """LPIPS(x, y) for NHWC batches in [-1, 1], broadcast on the leading
-    axis (``networks_basic.py:134-181``)."""
+def _pair_features(model: LPIPS, x: torch.Tensor, y: torch.Tensor):
+    """Taps of ``x`` and ``y`` broadcast on the leading axis."""
     if x.shape[0] != y.shape[0]:
         n = max(x.shape[0], y.shape[0])
         x = x.expand((n,) + tuple(x.shape[1:]))
         y = y.expand((n,) + tuple(y.shape[1:]))
-    fx = model.features(x)
-    fy = model.features(y)
+    return model.features(x), model.features(y)
+
+
+def lpips_pair(model: LPIPS, x: torch.Tensor, y: torch.Tensor
+               ) -> torch.Tensor:
+    """LPIPS(x, y) for NHWC batches in [-1, 1], broadcast on the leading
+    axis (``networks_basic.py:134-181``)."""
+    fx, fy = _pair_features(model, x, y)
     val = 0.0
     for fl_x, fl_y, w in zip(fx, fy, model.lins):
         diff = torch.square(normalize_tensor(fl_x) - normalize_tensor(fl_y))
         lin = torch.sum(diff * w.to(diff.dtype), dim=-1)
         val = val + torch.mean(lin, dim=(1, 2))
+    return val
+
+
+def pnet_pair(model: LPIPS, x: torch.Tensor, y: torch.Tensor
+              ) -> torch.Tensor:
+    """Uncalibrated 'net' distance (``networks_basic.PNet``,
+    ``networks_basic.py:21-73``): the sum over taps of
+    ``1 - mean_{h,w} cos_sim(f_x, f_y)``, DistModel's ``model='net'``
+    branch (``dist_model.py:77-79``)."""
+    fx, fy = _pair_features(model, x, y)
+    val = 0.0
+    for fl_x, fl_y in zip(fx, fy):
+        cos = torch.sum(normalize_tensor(fl_x) * normalize_tensor(fl_y),
+                        dim=-1)
+        val = val + (1.0 - torch.mean(cos, dim=(1, 2)))
     return val
 
 
@@ -218,6 +242,39 @@ def lpips_embed_fn(model: LPIPS, weight: float = 0.2,
         return lpips_embed(model, x, weight=weight, dtype=dtype,
                            compute_dtype=compute_dtype)
     return embed
+
+
+class PerceptualLoss:
+    """The reference's facade (``lpips_pytorch/__init__.py:9-32``):
+    ``forward(pred, target, normalize)``, where ``normalize=True`` takes
+    inputs in [0, 1] and maps them to [-1, 1] first. The model lives on
+    ``device`` (``cuda`` unless the caller passes ``device="cpu"``), and
+    ``forward`` moves its inputs there."""
+
+    def __init__(self, net: str = "vgg", weights: str | None = None,
+                 seed: int = 0, device: str | torch.device | None = None):
+        self.device = resolve_device(device)
+        self.model = (load_lpips_params(weights) if weights
+                      else default_lpips_params(net, seed)
+                      ).eval().to(self.device)
+
+    def forward(self, pred: torch.Tensor, target: torch.Tensor,
+                normalize: bool = False) -> torch.Tensor:
+        pred = pred.to(self.device)
+        target = target.to(self.device)
+        if normalize:
+            pred = 2 * pred - 1
+            target = 2 * target - 1
+        return lpips_pair(self.model, target, pred)
+
+    __call__ = forward
+
+
+def embed_dim(model: LPIPS, resolution: int) -> int:
+    """Width of :func:`lpips_embed` at a square input resolution, from the
+    tap shapes (no forward pass)."""
+    return sum(h * w * c for h, w, c
+               in tap_shapes(model.net, (resolution, resolution, 3)))
 
 
 # ---------------------------------------------------------------------------

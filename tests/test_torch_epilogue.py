@@ -85,7 +85,7 @@ def test_tap_epilogue_matches_jax_interpret(rng, p, c, mode):
     np.testing.assert_allclose(rn.numpy(), np.asarray(rn_j), rtol=2e-6)
 
 
-@pytest.mark.parametrize("c", [64, 128, 256, 512, 1024])
+@pytest.mark.parametrize("c", [64, 128, 192, 256, 384, 512, 1024])
 def test_channel_sum_order_is_xlas(rng, c):
     """The fixed channel-sum order equals XLA's CPU reduction bit for
     bit: the reason the parts match the JAX package exactly."""

@@ -210,16 +210,59 @@ def test_fid_reconstruction_tabular_without_optional_libraries(tmp_path):
     assert res.stdout.strip().endswith("ok")
 
 
+def test_lpips_towers_and_scores_without_optional_libraries(tmp_path):
+    """The non-VGG towers through a taps attack and the scores CLI's npz
+    route (its ``key=value`` overrides parsed without PyYAML) run with JAX,
+    PyYAML, Pillow, matplotlib, sklearn, scipy, pandas and msgpack all
+    unimportable. (The 2AFC trainer is left out: ``torch.optim`` probes
+    for pandas itself, which this blocker refuses rather than reports
+    missing.)"""
+    rng = np.random.default_rng(0)
+    imgs = rng.uniform(-1, 1, (4, 32, 32, 3)).astype(np.float32)
+    np.savez(tmp_path / "t.npz", ref=imgs, p0=imgs[::-1], p1=imgs,
+             judge=np.array([0.0, 1.0, 0.5, 1.0]))
+    code = textwrap.dedent(f"""
+        import numpy as np
+        import torch
+        from ganleaks_tpu_torch.attack.fbb import attack_arrays
+        from ganleaks_tpu_torch.cli.lpips_scores import main
+        from ganleaks_tpu_torch.config import AttackConfig
+        torch.set_num_threads(1)  # the suite runs in several processes
+        rng = np.random.default_rng(0)
+        syn = rng.integers(0, 256, (6, 32, 32, 3), np.uint8)
+        pos = syn[:2].copy()
+        neg = rng.integers(0, 256, (2, 32, 32, 3), np.uint8)
+        for net in ("alex", "squeeze", "resnet"):
+            cfg = AttackConfig(engine="taps-int8", lpips_net=net,
+                               resolution=32, query_block=2, syn_block=4,
+                               save_plots=False)
+            out = attack_arrays(cfg, syn, pos, neg, device="cpu")
+            assert out["pos_nn_idx"].tolist() == [0, 1], (net, out)
+        d = {str(tmp_path)!r}
+        res = main([f"data_dir={{d}}/t.npz", "mode=2afc", "model=net",
+                    "net=squeeze", "batch_size=3", "limit=4"],
+                   device="cpu")
+        assert res["n"] == 4 and 0.0 <= res["score"] <= 1.0, res
+        print("ok")
+    """)
+    res = _run_isolated(code)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip().endswith("ok")
+
+
 def test_new_entry_points_refuse_without_gpu(monkeypatch, tmp_path):
     from ganleaks_tpu_torch.attack.reconstruction import (
         fbb_tabular, run_reconstruction_attack)
     from ganleaks_tpu_torch.attack.tabular import run_tabular_attack
     from ganleaks_tpu_torch.cli import fbb_tabular as cli_tabular
     from ganleaks_tpu_torch.cli import fid as cli_fid
+    from ganleaks_tpu_torch.cli import lpips_scores as cli_scores
     from ganleaks_tpu_torch.cli import reconstruction as cli_recon
     from ganleaks_tpu_torch.config import (ReconstructionConfig,
                                            TabularAttackConfig)
     from ganleaks_tpu_torch.ops import fid
+    from ganleaks_tpu_torch.ops.lpips.lpips import PerceptualLoss
+    from ganleaks_tpu_torch.ops.lpips.scoring import make_pair_dist_fn
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     monkeypatch.chdir(tmp_path)
@@ -239,11 +282,15 @@ def test_new_entry_points_refuse_without_gpu(monkeypatch, tmp_path):
         lambda: cli_fid.main([stats, stats]),
         lambda: cli_recon.main([]),
         lambda: cli_tabular.main([]),
+        lambda: cli_scores.main([f"data_dir={stats}"]),
+        lambda: make_pair_dist_fn("net", net="alex"),
+        lambda: PerceptualLoss(net="alex"),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="device='cpu'"):
             call()
-    # the host-only square root needs no device
+    # the host-only square root and distances need no device
+    assert make_pair_dist_fn("l2")(imgs, imgs).shape == (2,)
     assert fid.frechet_distance(np.zeros(2), np.eye(2), np.zeros(2),
                                 np.eye(2), method="scipy") == \
         pytest.approx(0.0, abs=1e-9)

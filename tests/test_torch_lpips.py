@@ -165,5 +165,9 @@ def test_default_params_surrogate_and_real_heads():
     for got, want in zip(m0.lins, jl.reference_lin_weights()):
         np.testing.assert_array_equal(got.numpy(), want.reshape(-1))
     assert [int(w.numel()) for w in m0.lins] == [64, 128, 256, 512, 512]
+    # the other towers have no real heads in the repository: uniform 1/C
+    alex = tl.default_lpips_params("alex", seed=0)
+    assert [float(w[0]) for w in alex.lins] == [
+        np.float32(1.0 / c) for c in (64, 192, 384, 256, 256)]
     with pytest.raises(ValueError):
-        tl.LPIPS("alex")
+        tl.LPIPS("vgg19")

@@ -13,6 +13,7 @@ byte-identical closest-pair PNGs.
 """
 
 import os
+import sys
 
 import numpy as np
 import pytest
@@ -22,6 +23,7 @@ from ganleaks_tpu.attack.fbb import run_attack as j_run_attack
 from ganleaks_tpu.cli.common import parse_config as j_parse_config
 from ganleaks_tpu.config import AttackConfig as JAttackConfig
 from ganleaks_tpu.config import EvalConfig as JEvalConfig
+from ganleaks_tpu.config import ScoresConfig as JScoresConfig
 from ganleaks_tpu.io.images import save_png
 from ganleaks_tpu.ops.lpips import default_lpips_params, save_lpips_params
 from ganleaks_tpu_torch.attack.eval_roc import evaluate
@@ -29,7 +31,7 @@ from ganleaks_tpu_torch.attack.fbb import (attack_arrays,
                                            resolve_auto_engine, run_attack)
 from ganleaks_tpu_torch.cli import eval_roc as cli_eval_roc
 from ganleaks_tpu_torch.cli.common import parse_config
-from ganleaks_tpu_torch.config import AttackConfig, EvalConfig
+from ganleaks_tpu_torch.config import AttackConfig, EvalConfig, ScoresConfig
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -189,6 +191,28 @@ def test_cli_config_matches_jax():
     assert got.engine == "pallas" and got.distance == "l2-lpips"
     with pytest.raises(KeyError):
         parse_config(AttackConfig, ["no_such_key=1"])
+
+
+@pytest.mark.parametrize("cls,jcls,argv", [
+    (AttackConfig, JAttackConfig,
+     ["save_plots=no", "syn_data_path=null", "host_stream=false",
+      "decode_cache=auto", "query_cache_gb=1e-4", "query_block=64",
+      "lpips_net=squeeze"]),
+    (AttackConfig, JAttackConfig,
+     ["save_plots=TRUE", "syn_data_path=~", "host_stream=On",
+      "decode_cache=true", "query_cache_gb=2", "exp_name=run7"]),
+    (ScoresConfig, JScoresConfig,
+     ["limit=5", "weights=null", "net=alex", "batch_size=3",
+      "out_json=s.json"]),
+    (ScoresConfig, JScoresConfig, ["limit=~", "mode=jnd", "model=net"]),
+])
+def test_cli_overrides_parse_without_pyyaml(monkeypatch, cls, jcls, argv):
+    """``key=value`` overrides are parsed by their field's type alone: the
+    same fields with PyYAML importable or not, and the JAX package's."""
+    want = vars(j_parse_config(jcls, argv))
+    assert vars(parse_config(cls, argv)) == want
+    monkeypatch.setitem(sys.modules, "yaml", None)  # import yaml raises
+    assert vars(parse_config(cls, argv)) == want
 
 
 def test_eval_cli(tmp_path, capsys):
