@@ -90,7 +90,22 @@ Phases, each printing JSON lines:
    4,652 non-members, the 10% hold-out of 46,520 patients) with 'pallas'
    (K1 on the FFMA tile, launches counted) and 'gemm': every loss and
    index against float64 distances; K1 at that shape against its plain
-   version, and timed.
+   version, and timed;
+10. north_star: ``attack_arrays`` at the reference study's shape — 10,000
+   members, 10,000 non-members and 100,000 synthetic images at 64 px,
+   uint8, drawn on the card (members' noisy copies planted) — with the
+   device-memory planner: 'auto' (taps-int8 on a bf16 tower, 1,024-row
+   blocks) must plan one synthetic sweep (K2 launched for 120,000 images'
+   blocks exactly), 'taps' on a bf16 tower (K1 on the wgmma tile) too;
+   'auto' with the planner off (two sweeps of the 8 GiB cache) and 'auto'
+   with the process capped below the planned run's peak
+   (``set_per_process_memory_fraction``: the one-sweep cache allocation
+   raises, the search halves its chunk and resumes) must give the planned
+   run's indices and losses exactly; 512 sampled queries of the bf16 runs
+   are held against float64 (each loss within the certificate's bound of
+   its returned image's distance, no image of a 4,096-image sample closer
+   by more than the two bounds), and the bf16 tower's error on them is
+   printed beside the certificate's eta.
 
 Phases 7 and 8 run no hand-written kernel (their convolutions and products
 are the library's, as in the JAX package they are XLA's); their launch
@@ -150,6 +165,12 @@ TRAIN_BATCH = 50   # the reference trainer's batch of 64-px patches
 TRAIN_STEPS = 3
 TRAIN_LR = 1e-4
 TRAIN_ATOL = TRAIN_LR / 100  # 1% of one Adam step (|update| ~ lr)
+NS_POS = 10000     # the north star: 10,000 + 10,000 queries
+NS_SYN = 100000    # x 100,000 synthetic images (the reference study's)
+NS_BLOCK = 1024    # 'auto' blocks: the halved cache of the forced-OOM run
+                   # fits beside them at the same blocks
+NS_SAMPLE = 512    # queries held against float64
+NS_SUBSET = 4096   # synthetic images each sampled query is checked against
 
 
 def emit(obj: dict) -> None:
@@ -1630,6 +1651,260 @@ def phase_tabular(torch, tmp: str) -> dict:
     return {"runs": runs, "held": held, "timing": timing}
 
 
+# ---------------------------------------------------------------------------
+# phase 10: the north star — 20,000 x 100,000 at 64 px
+# ---------------------------------------------------------------------------
+
+def north_star_images(torch, gen, n: int):
+    """``make_images``' distribution drawn on the card: an 8x8 random
+    layout upsampled to RES, plus pixel noise (uint8 NHWC, on the card)."""
+    base = torch.randint(0, 256, (n, 8, 8, 3), generator=gen, device=DEVICE,
+                         dtype=torch.int16)
+    up = base.repeat_interleave(RES // 8, 1).repeat_interleave(RES // 8, 2)
+    noise = torch.randint(-24, 25, up.shape, generator=gen, device=DEVICE,
+                          dtype=torch.int16)
+    return (up + noise).clamp_(0, 255).to(torch.uint8)
+
+
+def north_star_data(torch) -> dict:
+    """10,000 members, 10,000 non-members and 100,000 synthetic images
+    with the members' noisy copies planted (as ``attack_data``), drawn on
+    the card from SEED and brought to the host as a user's arrays."""
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 10)
+    pos = north_star_images(torch, gen, NS_POS)
+    neg = north_star_images(torch, gen, NS_POS)
+    syn = north_star_images(torch, gen, NS_SYN)
+    slots = torch.randperm(NS_SYN, generator=gen, device=DEVICE)[:NS_POS]
+    noise = torch.randint(-8, 9, pos.shape, generator=gen, device=DEVICE,
+                          dtype=torch.int16)
+    syn[slots] = (pos.to(torch.int16) + noise).clamp_(0, 255).to(torch.uint8)
+    out = {"pos": pos.cpu().numpy(), "neg": neg.cpu().numpy(),
+           "syn": syn.cpu().numpy()}
+    del pos, neg, syn, noise
+    torch.cuda.empty_cache()
+    out["data_s"] = time.perf_counter() - t0
+    return out
+
+
+def north_star_run(torch, data: dict, label: str, cfg, want: dict,
+                   sweep_cache: dict | None = None) -> dict:
+    """``attack_arrays`` once on the north-star sets (with
+    ``sweep_cache``, as ``run_attack`` passes it to each subdir of a
+    hyperparameter search); checks the kernels of ``want`` (name -> exact
+    launches, or True for some) launched and no other, and prints the
+    run's seconds, rate, memory, plan and launches."""
+    from ganleaks_tpu_torch.attack.fbb import attack_arrays
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    out = attack_arrays(cfg, data["syn"], data["pos"], data["neg"],
+                        device=DEVICE, sweep_cache=sweep_cache)
+    e2e = time.perf_counter() - t0
+    launches = read_launches()
+    for name, n in launches.items():
+        w = want.get(name, 0)
+        check(n > 0 if w is True else n == w,
+              f"north star {label}: {name} launched {n} times, want {w}")
+    idx = np.concatenate([out["pos_nn_idx"], out["neg_nn_idx"]])
+    loss = np.concatenate([out["pos_loss"], out["neg_loss"]])
+    check(loss.shape == (2 * NS_POS,) and bool(np.isfinite(loss).all()),
+          f"north star {label}: not {2 * NS_POS} finite losses")
+    # 1.47 GB of sets fit beside every plan here: copied to the card once
+    check(out["sets_on_device"],
+          f"north star {label}: the image sets stayed in host memory")
+    plan = out["plan"]
+    r = {"out": out, "idx": idx, "loss": loss, "launches": launches,
+         "peak_bytes": torch.cuda.max_memory_allocated(), "e2e": e2e,
+         "cfg": cfg}
+    emit({"phase": "north_star", "run": label, "engine": cfg.engine,
+          "auto_plan": cfg.auto_plan, "n_q": 2 * NS_POS, "n_syn": NS_SYN,
+          "featurize_s": out["featurize_s"], "fold_s": out["fold_s"],
+          "lpips_init_s": out["lpips_init_s"],
+          "host_copy_s": out["host_copy_s"],
+          "sets_on_device": out["sets_on_device"], "end_to_end_s": e2e,
+          "query_pairs_per_sec": out["query_pairs_per_sec"],
+          "peak_mem_gb": r["peak_bytes"] / 1e9,
+          "plan": {"cache_gib": plan["cache_bytes"] / 2 ** 30,
+                   "s_block": plan["s_block"], "q_block": plan["q_block"],
+                   "sweeps": plan["sweeps"],
+                   "query_reused": plan["query_reused"]},
+          "oom_resumes": out["oom_resumes"], "kernel_launches": launches})
+    return r
+
+
+def f64_embeddings(torch, embed, images: np.ndarray, chunk: int = 256):
+    """float64 embeddings of ``images`` through ``embed`` on the card."""
+    with torch.inference_mode():
+        return torch.cat([embed(torch.from_numpy(images[lo:lo + chunk])
+                                .to(DEVICE)).double()
+                          for lo in range(0, len(images), chunk)])
+
+
+def north_star_hold(torch, data: dict, runs: dict) -> dict:
+    """The runs on the bf16 tower against float64 on NS_SAMPLE sampled
+    queries: each loss within the certificate's bound of the float64
+    distance to its returned image, and no image of an NS_SUBSET-image
+    sample closer than that by more than the two pairs' bounds. Then the
+    bf16 tower's own error on those queries and the 'auto' run's returned
+    images: the largest |d_bf16 - d_f32| / (rq + rs) and the largest
+    ||phi_bf16(x) - phi(x)|| / ||phi(x)||, beside the certificate's eta."""
+    from dataclasses import replace
+
+    from ganleaks_tpu_torch.attack.fbb import build_embed_fn
+    from ganleaks_tpu_torch.config import AttackConfig
+    from ganleaks_tpu_torch.ops.knn import _default_cert_eta
+    rng = np.random.default_rng(SEED + 11)
+    queries = np.concatenate([data["pos"], data["neg"]])
+    sample = np.sort(rng.choice(len(queries), NS_SAMPLE, replace=False))
+    subset = np.sort(rng.choice(NS_SYN, NS_SUBSET, replace=False))
+    base = AttackConfig(distance="l2-lpips", resolution=RES,
+                        dtype="float32")
+    embed = build_embed_fn(base, DEVICE)
+    eq = f64_embeddings(torch, embed, queries[sample])
+    rq = (eq ** 2).sum(1)
+    rq_h = rq.cpu().numpy()
+    eta = _default_cert_eta(True)
+    res = {}
+    for label, r in runs.items():
+        ret = r["idx"][sample]
+        er = f64_embeddings(torch, embed, data["syn"][ret])
+        d_ret = ((eq - er) ** 2).sum(1).cpu().numpy()
+        rs_ret = (er ** 2).sum(1).cpu().numpy()
+        del er
+        cfg = r["cfg"]
+        if cfg.engine == "auto":  # what attack_arrays resolved it to
+            cfg = replace(cfg, engine="taps-int8", **BF16)
+        eps_ret, abs_err = cert_error_bound(torch, cfg, rq_h, rs_ret,
+                                            cfg.engine == "taps-int8")
+
+        def eps(rs: np.ndarray) -> np.ndarray:
+            s = np.sqrt(rq_h)[:, None] + np.sqrt(rs)[None, :]
+            a = eta * s + 2.0 * abs_err
+            return a * (2.0 * s + a)
+
+        loss = r["loss"][sample]
+        check(bool((np.abs(loss - d_ret) <= eps_ret).all()),
+              f"north star {label}: sampled losses outside the "
+              f"certificate's bound of float64")
+        worst = np.inf
+        for lo in range(0, NS_SUBSET, 256):
+            es = f64_embeddings(torch, embed, data["syn"][subset[lo:lo + 256]])
+            rs = (es ** 2).sum(1)
+            d = (rq[:, None] + rs[None, :] - 2.0 * eq @ es.T).cpu().numpy()
+            slack = d - (d_ret - eps_ret)[:, None] + eps(rs.cpu().numpy())
+            worst = min(worst, float(slack.min()))
+            del es
+        check(worst >= 0.0, f"north star {label}: a subset image is closer "
+                            f"than the returned one by more than the bound")
+        res[label] = {"max_loss_err_over_bound": float(
+            (np.abs(loss - d_ret) / eps_ret).max()),
+            "subset_min_slack": worst, "int8_abs_err": abs_err}
+        if label == "auto":
+            d_f32, rs_auto, ret_auto = d_ret, rs_ret, ret
+    lo_embed = build_embed_fn(replace(base, **BF16), DEVICE)
+    lq = f64_embeddings(torch, lo_embed, queries[sample])
+    lr = f64_embeddings(torch, lo_embed, data["syn"][ret_auto])
+    d_lo = ((lq - lr) ** 2).sum(1).cpu().numpy()
+    er = f64_embeddings(torch, embed, data["syn"][ret_auto])
+    rel = torch.cat([((lq - eq) ** 2).sum(1) / rq,
+                     ((lr - er) ** 2).sum(1) / (er ** 2).sum(1)]).sqrt()
+    tower = {"max_abs_d_bf16_minus_f32_over_norms": float(
+        (np.abs(d_lo - d_f32) / (rq_h + rs_auto)).max()),
+        "max_rel_embedding_err": float(rel.max()), "cert_eta": eta}
+    check(np.isfinite(tower["max_rel_embedding_err"]),
+          "north star: bf16 tower error not finite")
+    emit({"phase": "north_star_check", "sample": NS_SAMPLE,
+          "subset": NS_SUBSET, "runs": res, "bf16_tower": tower})
+    return tower
+
+
+def phase_north_star(torch) -> dict:
+    """Phase 10: the attack at the reference study's 20,000 x 100,000 on
+    the planner's one-sweep schedule, against fixed configs and a forced
+    out-of-memory resume."""
+    from dataclasses import replace
+
+    from ganleaks_tpu_torch.config import AttackConfig
+    data = north_star_data(torch)
+    emit({"phase": "north_star_data", "n_pos": NS_POS, "n_neg": NS_POS,
+          "n_syn": NS_SYN, "data_s": data["data_s"]})
+    base = AttackConfig(distance="l2-lpips", resolution=RES,
+                        query_block=NS_BLOCK, syn_block=NS_BLOCK,
+                        save_plots=False)
+    n_q = 2 * NS_POS
+    q_blocks = -(-n_q // NS_BLOCK)
+    s_blocks = -(-NS_SYN // NS_BLOCK)
+    taps = 5  # VGG16's taps: one K2 launch each per featurised block
+    runs = {}
+    # 'auto' (taps-int8, bf16 tower) planned: one sweep, so K2 runs for
+    # 120,000 images' worth of blocks, not the 220,000 of the 8 GiB
+    # request's two sweeps
+    sweep: dict = {}
+    a = runs["auto"] = north_star_run(
+        torch, data, "auto", replace(base, engine="auto"),
+        {"tap_epilogue": taps * (q_blocks + s_blocks)}, sweep_cache=sweep)
+    check(a["out"]["plan"]["sweeps"] == 1 and a["out"]["oom_resumes"] == 0,
+          f"north star auto: plan {a['out']['plan']}, not one sweep")
+    # the next subdir of a hyperparameter search: the held query cache is
+    # planned as budget and reused, so K2 runs for the synthetic set only
+    r = north_star_run(torch, data, "auto_reused",
+                       replace(base, engine="auto"),
+                       {"tap_epilogue": taps * s_blocks}, sweep_cache=sweep)
+    check(r["out"]["plan"]["query_reused"]
+          and r["out"]["plan"]["sweeps"] == 1,
+          f"north star auto_reused: plan {r['out']['plan']}")
+    check(bool((r["idx"] == a["idx"]).all() and (r["loss"] == a["loss"])
+               .all()), "north star: the reused run's results differ from "
+                        "the planned run's")
+    sweep.clear()
+    del r
+    blk = 2048
+    b = runs["taps_bf16"] = north_star_run(
+        torch, data, "taps_bf16",
+        replace(base, engine="taps", query_block=blk, syn_block=blk, **BF16),
+        {"tap_epilogue": taps * (-(-n_q // blk) + -(-NS_SYN // blk)),
+         "knn_argmin.wgmma": True})
+    check(b["out"]["plan"]["sweeps"] == 1,
+          f"north star taps_bf16: plan {b['out']['plan']}, not one sweep")
+    # the same blocks without the planner: the 8 GiB cache takes two
+    # sweeps; int8 products are exact, so the results are identical
+    c = north_star_run(torch, data, "auto_no_plan",
+                       replace(base, engine="auto", auto_plan=False),
+                       {"tap_epilogue": taps * (q_blocks + 2 * s_blocks)})
+    check(c["out"]["plan"]["sweeps"] == 2, f"north star auto_no_plan: plan "
+                                           f"{c['out']['plan']}")
+    check(bool((c["idx"] == a["idx"]).all() and (c["loss"] == a["loss"])
+               .all()), "north star: the unplanned run's results differ "
+                        "from the planned run's")
+    # forced OOM: cap the process below the planned run's peak by a third
+    # of its cache — the one-sweep cache allocation fails, the halved
+    # chunk fits at the same blocks
+    cache = a["out"]["plan"]["cache_bytes"]
+    total = torch.cuda.get_device_properties(0).total_memory
+    allowed = a["peak_bytes"] - cache // 3
+    torch.cuda.empty_cache()
+    torch.cuda.set_per_process_memory_fraction(allowed / total)
+    try:
+        d = north_star_run(torch, data, "auto_forced_oom",
+                           replace(base, engine="auto"),
+                           {"tap_epilogue": True})
+    finally:
+        torch.cuda.set_per_process_memory_fraction(1.0)
+    emit({"phase": "north_star_oom", "allowed_gb": allowed / 1e9,
+          "planned_peak_gb": a["peak_bytes"] / 1e9,
+          "halvings": d["out"]["oom_resumes"]})
+    check(d["out"]["oom_resumes"] >= 1,
+          "north star: the capped run raised no OOM to resume from")
+    check(bool((d["idx"] == a["idx"]).all() and (d["loss"] == a["loss"])
+               .all()), "north star: the resumed run's results differ from "
+                        "the planned run's")
+    tower = north_star_hold(torch, data, {"auto": a, "taps_bf16": b})
+    return {"launches": {"auto": a["launches"],
+                         "taps_bf16": b["launches"]}, "tower": tower}
+
+
 def main() -> int:
     try:
         import torch
@@ -1702,15 +1977,18 @@ def main() -> int:
         lap("reconstruction")
         tab = phase_tabular(torch, tmp)
         lap("tabular")
+    north = phase_north_star(torch)
+    lap("north_star")
     emit({"phase": "seconds", "build_s": build_s, **phase_s})
 
     # launches: each kernel's count in the run of the path it serves — K1
     # on the FFMA tile in the float32 engine='pallas' run, K1 on the wgmma
-    # tile in the bf16 'taps' run (the recipe 'auto' degrades to), K3 on
-    # the wgmma tile in the two-pass run on that engine (pass 1 on bf16
-    # embeddings), K3 on the FFMA tile in the float32 top-k search, K2 in
-    # the engine='auto' run (taps-int8 on a bf16 tower: the main path on
-    # the card); the timed rows are those paths' shapes and types
+    # tile in phase 10's bf16 'taps' run at 20,000 x 100,000 (the recipe
+    # 'auto' degrades to), K3 on the wgmma tile in the two-pass run on
+    # that engine (pass 1 on bf16 embeddings), K3 on the FFMA tile in the
+    # float32 top-k search, K2 in phase 10's engine='auto' run (taps-int8
+    # on a bf16 tower: the main path on the card at the north star); the
+    # timed rows are phase 6's block shapes and types
     k1_src = ("ganleaks_tpu_torch/csrc/knn_argmin.cu",
               "ganleaks_tpu/ops/knn_pallas.py:269")
     k3_src = ("ganleaks_tpu_torch/csrc/knn_topk.cu",
@@ -1721,7 +1999,7 @@ def main() -> int:
              tab["held"]["max_abs_err"]),
          t_k1["float32"]),
         ("knn_argmin.wgmma", *k1_src,
-         launches["taps_bf16"]["knn_argmin.wgmma"],
+         north["launches"]["taps_bf16"]["knn_argmin.wgmma"],
          max(k1_err["bfloat16"], t_k1["bfloat16"]["max_abs_err"]),
          t_k1["bfloat16"]),
         ("knn_topk.ffma", *k3_src, launches["topk_f32"]["knn_topk.ffma"],
@@ -1733,7 +2011,7 @@ def main() -> int:
          t_k3["bfloat16"]),
         ("tap_epilogue", "ganleaks_tpu_torch/csrc/tap_epilogue.cu",
          "ganleaks_tpu/ops/lpips/epilogue_pallas.py:114",
-         launches["auto"]["tap_epilogue"],
+         north["launches"]["auto"]["tap_epilogue"],
          max(k2_err, t_k2["bf16_int8"]["max_abs_err"]), t_k2["bf16_int8"]),
     ]
     print(smi, flush=True)

@@ -29,6 +29,7 @@ Only the single-device layout is ported so far; multi-GPU layouts raise
 from __future__ import annotations
 
 import os
+import time
 from dataclasses import replace
 
 import numpy as np
@@ -46,7 +47,9 @@ from ganleaks_tpu_torch.ops.knn import (PARTS_ENGINES, PhaseTimer,
                                         knn_argmin_streamed,
                                         knn_argmin_streamed_parts,
                                         knn_argmin_two_pass,
+                                        stream_need_bytes,
                                         truncate_to_batches)
+from ganleaks_tpu_torch.ops.stream_plan import GIB, device_capacity
 from ganleaks_tpu_torch.utils.logging import MetricsLogger, Throughput
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -139,18 +142,92 @@ def _check_ported(cfg: AttackConfig) -> None:
             "multi-GPU attack layouts are not ported yet (ROADMAP M12)")
 
 
+def _embeds(cfg: AttackConfig, device: torch.device, structured: bool,
+            sweep_cache: dict | None) -> tuple:
+    """(embed, embed_lo, embed_hi): the featurisers the configured search
+    reads — ``embed`` flat or parts, or the two-pass pair — built once per
+    sweep when ``sweep_cache`` holds them under the same configuration. A
+    new featuriser drops every held query cache: the reuse fingerprints
+    hash the raw query images, not their embeddings."""
+    key = (cfg.engine, cfg.dtype, cfg.lpips_compute_dtype, cfg.two_pass,
+           cfg.distance, cfg.lpips_net, cfg.lpips_weights, str(device))
+    if sweep_cache is not None and sweep_cache.get("embed_key") == key:
+        return sweep_cache["embeds"]
+    embed = embed_lo = embed_hi = None
+    if cfg.two_pass:
+        # pass 1 on the bf16 tower and bf16 (or int8) embeddings, the
+        # re-rank and the certificate fallback on the float32 ones
+        embed_lo = build_embed_fn(
+            replace(cfg, dtype="bfloat16", lpips_compute_dtype="bfloat16"),
+            device, structured=structured)
+        embed_hi = build_embed_fn(
+            replace(cfg, dtype="float32", lpips_compute_dtype=None), device)
+    else:
+        embed = build_embed_fn(cfg, device, structured=structured)
+    if sweep_cache is not None:
+        for k in ("query_reuse", "query_reuse_lo", "query_reuse_hi"):
+            sweep_cache.pop(k, None)
+        sweep_cache.update(embed_key=key,
+                           embeds=(embed, embed_lo, embed_hi))
+    return embed, embed_lo, embed_hi
+
+
+def _stage_sets(cfg: AttackConfig, embed, queries: np.ndarray,
+                syn: np.ndarray, device: torch.device) -> tuple:
+    """``(queries, syn, on_device)``: the image sets where the search reads
+    them. On the card they are copied once when ``host_stream`` is False,
+    or when it is 'auto' and they fit beside what the search plans
+    (``ops/knn.stream_need_bytes``: one sweep's query cache, or the
+    requested one without the planner); otherwise (``host_stream`` True,
+    or 'auto' where they do not fit) they stay in host memory and the
+    search ships one block at a time. On the CPU the arrays themselves."""
+    hs = cfg.host_stream
+    if isinstance(hs, str):
+        if hs.strip().lower() != "auto":
+            raise ValueError(f"host_stream must be true/false/'auto', "
+                             f"got {hs!r}")
+        hs = None
+    if device.type != "cuda" or hs:
+        return queries, syn, False
+    if hs is None:
+        need = stream_need_bytes(
+            embed, queries, engine=cfg.engine, q_block=cfg.query_block,
+            s_block=cfg.syn_block,
+            query_cache_bytes=int(cfg.query_cache_gb * GIB),
+            auto_plan=cfg.auto_plan, device=device)
+        sets, cap = queries.nbytes + syn.nbytes, device_capacity(device)
+        if sets + need > cap:
+            print(f"[fbb] the image sets ({sets / GIB:.2f} GiB) do not fit "
+                  f"beside the search's {need / GIB:.2f} GiB (of "
+                  f"{cap / GIB:.2f}): streaming blocks from host memory")
+            return queries, syn, False
+    return (torch.from_numpy(np.ascontiguousarray(queries)).to(device),
+            torch.from_numpy(np.ascontiguousarray(syn)).to(device), True)
+
+
 def attack_arrays(cfg: AttackConfig, syn, pos, neg,
                   device: torch.device | str | None = None,
-                  logger: MetricsLogger | None = None) -> dict:
+                  logger: MetricsLogger | None = None,
+                  sweep_cache: dict | None = None) -> dict:
     """Run the attack on in-memory NHWC image arrays (uint8 bytes or
     [-1, 1] floats). Returns losses and true NN indices for both query
-    sets, the query-pair rate and the device seconds spent featurising and
-    folding (and, with ``two_pass``, the number of certificate
-    fallbacks).
+    sets, the query-pair rate, the device seconds spent featurising and
+    folding, the host seconds of the set-up (``lpips_init_s``: building
+    the featurisers; ``host_copy_s``: joining the query sets and, where
+    they fit, copying both sets to the device once, ``sets_on_device``;
+    :func:`_stage_sets`), the search's OOM resumes and its plan (with
+    ``two_pass`` also the number of certificate fallbacks).
 
     Both query sets go through ONE synthetic sweep (concatenated on the
     query axis, split after): featurising the generated set dominates and
-    would otherwise run twice (``fbb.py:156-171``)."""
+    would otherwise run twice (``fbb.py:156-171``).
+
+    ``sweep_cache`` (a dict ``run_attack`` passes to every subdir of a
+    hyperparameter search, ``fbb.py:113-123``) carries what the subdirs
+    share: the featurisers and the featurised query caches
+    (``ops/knn`` ``query_reuse``; separate holders for the two-pass pass
+    1 and re-rank). The caller passes the same pos/neg every call; the
+    searches check shapes and a content fingerprint."""
     device = resolve_device(device)
     logger = logger or MetricsLogger(echo=False)
     if cfg.engine == "auto":
@@ -164,43 +241,66 @@ def attack_arrays(cfg: AttackConfig, syn, pos, neg,
 
     meter = Throughput()
     timer = PhaseTimer(device)
-    queries = np.concatenate([np.asarray(pos), np.asarray(neg)], axis=0)
+
+    def sync() -> None:
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+
+    t0 = time.perf_counter()
+    embed, embed_lo, embed_hi = _embeds(cfg, device, structured,
+                                        sweep_cache)
+    sync()
+    t1 = time.perf_counter()
+    n_q = len(pos) + len(neg)
+    queries, syn_d, on_device = _stage_sets(
+        cfg, embed or embed_lo,
+        np.concatenate([np.asarray(pos), np.asarray(neg)], axis=0),
+        np.asarray(syn), device)
+    sync()
+    t2 = time.perf_counter()
+    holder = (lambda name: None if sweep_cache is None
+              else sweep_cache.setdefault(name, {}))
+    info: dict = {}
     common = dict(q_block=cfg.query_block, s_block=cfg.syn_block,
                   query_cache_bytes=int(cfg.query_cache_gb * (1 << 30)),
-                  device=device, timer=timer)
+                  device=device, timer=timer, auto_plan=cfg.auto_plan,
+                  info=info)
     n_fallback = None
     if cfg.two_pass:
-        # pass 1 on the bf16 tower and bf16 (or int8) embeddings, the
-        # re-rank and the certificate fallback on the float32 ones
-        embed_lo = build_embed_fn(
-            replace(cfg, dtype="bfloat16", lpips_compute_dtype="bfloat16"),
-            device, structured=structured)
-        embed_hi = build_embed_fn(
-            replace(cfg, dtype="float32", lpips_compute_dtype=None), device)
         d, i, _cert, n_fallback = knn_argmin_two_pass(
-            embed_lo, embed_hi, queries, syn, k=cfg.two_pass_k,
-            engine=cfg.engine, return_cert=True, **common)
+            embed_lo, embed_hi, queries, syn_d, k=cfg.two_pass_k,
+            engine=cfg.engine, return_cert=True,
+            query_reuse=holder("query_reuse_lo"),
+            rerank_reuse=holder("query_reuse_hi"), **common)
     elif structured:
         d, i = knn_argmin_streamed_parts(
-            build_embed_fn(cfg, device, structured=True), queries, syn,
-            quantize=cfg.engine == "taps-int8", **common)
+            embed, queries, syn_d, quantize=cfg.engine == "taps-int8",
+            query_reuse=holder("query_reuse"), **common)
     else:
-        d, i = knn_argmin_streamed(build_embed_fn(cfg, device), queries,
-                                   syn, engine=cfg.engine, **common)
+        d, i = knn_argmin_streamed(embed, queries, syn_d, engine=cfg.engine,
+                                   query_reuse=holder("query_reuse"),
+                                   **common)
     loss = d.cpu().numpy().astype(np.float64)  # waits for the device
     nn = i.cpu().numpy()
-    meter.add(len(queries) * len(syn))
+    meter.add(n_q * len(syn))
     secs = timer.seconds()
+    search = info.get("pass1", info)
+    plan = {k: search[k] for k in ("cache_bytes", "s_block", "q_block",
+                                   "sweeps", "query_reused")}
     n_pos = len(pos)
     out = {"pos_loss": loss[:n_pos], "pos_nn_idx": nn[:n_pos],
            "neg_loss": loss[n_pos:], "neg_nn_idx": nn[n_pos:],
            "query_pairs_per_sec": meter.rate(),
            "featurize_s": secs.get("featurize", 0.0),
-           "fold_s": secs.get("fold", 0.0)}
-    record = {"query_pairs_per_sec": out["query_pairs_per_sec"],
-              "featurize_s": out["featurize_s"], "fold_s": out["fold_s"],
-              "n_syn": len(syn), "n_pos": n_pos, "n_neg": len(neg),
-              "engine": cfg.engine, "device": str(device)}
+           "fold_s": secs.get("fold", 0.0),
+           "lpips_init_s": t1 - t0, "host_copy_s": t2 - t1,
+           "oom_resumes": info["oom_resumes"], "plan": plan,
+           "sets_on_device": on_device}
+    record = {k: out[k] for k in ("query_pairs_per_sec", "featurize_s",
+                                  "fold_s", "lpips_init_s", "host_copy_s",
+                                  "oom_resumes", "sets_on_device")}
+    record.update(plan=plan, n_syn=len(syn), n_pos=n_pos, n_neg=len(neg),
+                  engine=cfg.engine, device=str(device))
     if n_fallback is not None:
         out["two_pass_fallbacks"] = record["two_pass_fallbacks"] = n_fallback
     logger.log(record)
@@ -240,8 +340,11 @@ def _load_images(cfg: AttackConfig, path: str, limit: int | None = None
 def run_attack(cfg: AttackConfig,
                device: torch.device | str | None = None) -> list[dict]:
     """Full driver, including the hyperparameter-search directory sweep
-    (``fbb.py:111-179``): one attack per synthetic subdir, query sets
-    loaded once."""
+    (``fbb.py:111-179``): one attack per synthetic subdir, the query sets
+    loaded once and, across several subdirs, featurised once
+    (``attack_arrays``' ``sweep_cache``). Each result and its
+    ``metrics.jsonl`` also carry ``ingest_s``, the seconds spent loading
+    that subdir's images (and, for the first, the query sets)."""
     device = resolve_device(device)
     _check_ported(cfg)
     if cfg.hyperparameter_search:
@@ -255,6 +358,7 @@ def run_attack(cfg: AttackConfig,
         subdirs = [cfg.syn_data_path]
 
     results = []
+    sweep_cache: dict | None = {} if len(subdirs) > 1 else None
     pos = neg = None
     for subdir in subdirs:
         sub_cfg = replace(
@@ -272,15 +376,19 @@ def run_attack(cfg: AttackConfig,
             logger.log({"engine_resolved": sub_cfg.engine,
                         "dtype": sub_cfg.dtype})
 
+        t0 = time.perf_counter()
         syn = _load_images(sub_cfg, subdir)
         if pos is None:  # query sets are subdir-invariant: load once
             pos = _load_images(sub_cfg, sub_cfg.pos_data_dir,
                                limit=sub_cfg.data_num)
             neg = _load_images(sub_cfg, sub_cfg.neg_data_dir,
                                limit=sub_cfg.data_num)
+        ingest_s = time.perf_counter() - t0
+        logger.log({"ingest_s": ingest_s})
 
         out = attack_arrays(sub_cfg, syn, pos, neg, device=device,
-                            logger=logger)
+                            logger=logger, sweep_cache=sweep_cache)
+        out["ingest_s"] = ingest_s
 
         seq_pos = np.arange(len(out["pos_loss"])).reshape(-1, 1)
         save_files(save_dir,

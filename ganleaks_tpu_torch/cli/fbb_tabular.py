@@ -8,7 +8,7 @@ writing the fbb artifact layout so ``cli.eval_roc`` runs unchanged:
         result_load_dir=fbb_attack/fbb_tabular_debug
 
 ``engine=pallas`` selects the fused CUDA distance+argmin kernel.
-``main(argv, device="cpu")`` runs on the CPU.
+``--device cpu`` (or ``main(argv, device="cpu")``) runs on the CPU.
 """
 
 from ganleaks_tpu_torch.attack.tabular import run_tabular_attack
@@ -17,8 +17,9 @@ from ganleaks_tpu_torch.config import TabularAttackConfig
 
 
 def main(argv=None, device=None) -> None:
-    cfg = parse_config(TabularAttackConfig, argv,
-                       "full-black-box MI attack on tabular records (GPU)")
+    cfg, device = parse_config(
+        TabularAttackConfig, argv,
+        "full-black-box MI attack on tabular records (GPU)", device)
     out = run_tabular_attack(cfg, device)
     print(f"saved {out['save_dir']}  "
           f"({out['query_pairs_per_sec']:.3g} query-pairs/sec)")

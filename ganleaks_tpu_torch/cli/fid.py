@@ -6,13 +6,16 @@ Each path is an image directory, an image npz or an npz of ``mu``/``sigma``.
 ``--weights`` takes the InceptionV3 npz of the JAX package's schema (what
 ``ganleaks_tpu.tools.convert_inception`` writes from torchvision's
 weights); without it the tower is the seeded surrogate and the FID is a
-relative metric only. ``main(argv, device="cpu")`` runs on the CPU.
+relative metric only. ``--device cpu`` (or ``main(argv, device="cpu")``)
+runs on the CPU.
 """
 
 from __future__ import annotations
 
 import argparse
 
+from ganleaks_tpu_torch.cli.common import add_device_argument
+from ganleaks_tpu_torch.device import resolve_device
 from ganleaks_tpu_torch.ops.fid import (SQRTM_METHODS, fid_from_paths,
                                         init_inception_params)
 
@@ -29,7 +32,10 @@ def main(argv=None, device=None) -> None:
     ap.add_argument("--n_chips", type=int, default=1,
                     help="devices to shard the featurisation over; only 1 "
                          "is ported")
+    add_device_argument(ap)
     args = ap.parse_args(argv)
+    # refuse before building the tower when the card is missing
+    device = resolve_device(device or args.device)
     if args.n_chips > 1:
         raise NotImplementedError(
             "multi-GPU featurisation is not ported yet (ROADMAP M12)")

@@ -10,8 +10,8 @@
 Accepts one .npz holding the arrays (numpy only) or the original LPIPS
 dataset directory layout (PNGs through Pillow, loaded lazily; see
 ``config.ScoresConfig``). 'net-lin' and 'net' run on the GPU;
-``main(argv, device="cpu")`` runs them on the CPU. 'l2' and 'ssim' run on
-the host.
+``--device cpu`` (or ``main(argv, device="cpu")``) runs them on the CPU.
+'l2' and 'ssim' run on the host.
 """
 
 from __future__ import annotations
@@ -24,7 +24,7 @@ import numpy as np
 from ganleaks_tpu_torch.cli.common import parse_config
 from ganleaks_tpu_torch.config import ScoresConfig
 from ganleaks_tpu_torch.ops.lpips.scoring import (make_pair_dist_fn,
-                                                  score_2afc, score_jnd)
+                                           score_2afc, score_jnd)
 
 
 def _load_arrays(cfg: ScoresConfig, names: tuple) -> dict:
@@ -34,14 +34,14 @@ def _load_arrays(cfg: ScoresConfig, names: tuple) -> dict:
             out = {n: z[n] for n in names}
     else:
         from ganleaks_tpu_torch.io.images import (get_filepaths_from_dir,
-                                                  load_image_dir)
+                                           load_image_dir)
         out = {}
         for n in names[:-1]:
             out[n] = load_image_dir(os.path.join(cfg.data_dir, n),
                                     resolution=cfg.resolution,
                                     limit=cfg.limit)
         labels = get_filepaths_from_dir(os.path.join(cfg.data_dir,
-                                                     names[-1]), "npy")
+                                              names[-1]), "npy")
         if cfg.limit:
             labels = labels[:cfg.limit]
         out[names[-1]] = np.asarray([np.load(p).reshape(()) for p in labels],
@@ -53,8 +53,9 @@ def _load_arrays(cfg: ScoresConfig, names: tuple) -> dict:
 
 
 def main(argv=None, device=None) -> dict:
-    cfg = parse_config(ScoresConfig, argv,
-                       "2AFC/JND perceptual-metric scores")
+    cfg, device = parse_config(ScoresConfig, argv,
+                               "2AFC/JND perceptual-metric scores",
+                               device)
     dist = make_pair_dist_fn(cfg.model, net=cfg.net,
                              colorspace=cfg.colorspace, weights=cfg.weights,
                              device=device)

@@ -5,7 +5,7 @@ run unchanged).
     python -m ganleaks_tpu_torch.cli.reconstruction --local_config recon.yaml \
         netE=runs/vaegan/netE.msgpack netG=runs/vaegan/netG.msgpack
 
-``main(argv, device="cpu")`` runs on the CPU.
+``--device cpu`` (or ``main(argv, device="cpu")``) runs on the CPU.
 """
 
 from ganleaks_tpu_torch.attack.reconstruction import run_reconstruction_attack
@@ -14,8 +14,9 @@ from ganleaks_tpu_torch.config import ReconstructionConfig
 
 
 def main(argv=None, device=None) -> None:
-    cfg = parse_config(ReconstructionConfig, argv,
-                       "encoder-seeded reconstruction MI attack (GPU)")
+    cfg, device = parse_config(
+        ReconstructionConfig, argv,
+        "encoder-seeded reconstruction MI attack (GPU)", device)
     out = run_reconstruction_attack(cfg, device)
     print(f"saved {out['save_dir']}  "
           f"({out['queries_per_sec']:.3g} queries/sec)")

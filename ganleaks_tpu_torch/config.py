@@ -109,7 +109,8 @@ def load_config(cls: Type[T], yaml_path: str | None = None,
 @dataclass
 class AttackConfig:
     """fbb attack configuration (reference ``attack_models/fbb.py:18-38``);
-    field for field the JAX package's ``AttackConfig``."""
+    field for field the JAX package's ``AttackConfig``, plus
+    ``auto_plan``."""
 
     exp_name: str = "debug"
     syn_data_path: str | None = None
@@ -140,13 +141,23 @@ class AttackConfig:
     two_pass_k: int = 4            # pass-1 candidates per query
     query_block: int = 2048        # queries featurised per block
     syn_block: int = 8192          # synthetic rows featurised per block
-    query_cache_gb: float = 8.0    # device bytes for the query-embedding
-                                   # cache; sets the number of synthetic
-                                   # sweeps
+    query_cache_gb: float = 8.0    # requested device GiB for the
+                                   # query-embedding cache, which sets the
+                                   # number of synthetic sweeps; on a card
+                                   # the planner (ops/stream_plan) raises
+                                   # it to one sweep where that fits and
+                                   # caps it where it cannot fit
+    auto_plan: bool = True         # the device-memory planner; False keeps
+                                   # query_cache_gb and the blocks exactly
+                                   # as given (fixed-config experiments;
+                                   # the JAX package's GANLEAKS_NO_AUTO_PLAN)
     uint8_storage: bool = True     # keep image sets as uint8 bytes
-    host_stream: bool | str = "auto"  # the port always ships image blocks
-                                   # from host memory; kept for config
-                                   # compatibility
+    host_stream: bool | str = "auto"  # where the image sets live during
+                                   # the search: True in host memory (one
+                                   # block shipped at a time), False on
+                                   # the card (copied once), 'auto' on the
+                                   # card where they fit beside the
+                                   # search's planned memory, else host
     decode_cache: bool | str = "auto"  # JAX-only PNG decode cache; kept for
                                    # config compatibility
     drop_remainder: bool = False   # replicate fbb.py:77 remainder drop

@@ -101,6 +101,7 @@ def make_embed_fn(distance: str, lpips_embed: Callable | None = None,
             x = images_unit_range(x)
             return torch.cat([pixel_embedding(x).to(dtype),
                               lpips_embed(x).to(dtype)], dim=1)
+        embed.tower = getattr(lpips_embed, "tower", None)
         return embed
     raise ValueError(f"unknown distance {distance!r}")
 
@@ -151,6 +152,8 @@ def make_embed_parts_fn(distance: str, lpips_parts: Callable | None = None,
     def embed(x: torch.Tensor) -> list[torch.Tensor]:
         x = images_unit_range(x)
         return [pixel_embedding(x).to(dtype)] + lpips_parts(x)
+
+    embed.tower = getattr(lpips_parts, "tower", None)
 
     if hasattr(lpips_parts, "part_bound_fn"):
         embed.part_bound_fn = lambda shape: (

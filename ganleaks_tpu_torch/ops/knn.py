@@ -22,14 +22,18 @@ over flat embeddings and over tap-structured parts.
   part's static dequantisation factor.
 * Every streamed search shares one loop (``_stream_search``): the query
   embeddings are cached on the device in chunks of ``query_cache_bytes``
-  and the synthetic set is featurised once per chunk.
-
-Left out of this port so far (ROADMAP): the OOM halving resume,
-cross-call query reuse and the device-memory planner.
+  and the synthetic set is featurised once per chunk. On the card the
+  device-memory planner (``ops/stream_plan``) first turns the request into
+  the cheapest schedule that fits (one sweep where it can); a
+  ``torch.cuda.OutOfMemoryError`` halves only the dimension that failed
+  and the search resumes without recomputing finished blocks; and
+  ``query_reuse`` carries a one-chunk query cache across calls over the
+  same query set (the fbb hyperparameter sweep).
 """
 
 from __future__ import annotations
 
+import hashlib
 import time
 from typing import Callable
 
@@ -38,6 +42,9 @@ import torch
 
 from ganleaks_tpu_torch.ops.knn_fused import (knn_argmin_fused,
                                               knn_topk_fused, sq_norms)
+from ganleaks_tpu_torch.ops.stream_plan import (FOLD_BYTES_PER_PAIR,
+                                                activation_bytes_per_row,
+                                                plan_bytes, plan_stream)
 
 ENGINES = ("gemm", "pallas", "exact")
 PARTS_ENGINES = ("taps", "taps-int8")
@@ -174,11 +181,54 @@ def _block_fn(emb_norms: Callable, device: torch.device,
     return block_norms
 
 
+def _alloc_cache(padded: int, k_dim: int, cdtype: torch.dtype,
+                 device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
+    """A chunk's query cache (``padded`` x ``k_dim`` of ``cdtype``) and its
+    float32 norms: the allocation an over-ambitious cache fails at."""
+    return (torch.empty((padded, k_dim), dtype=cdtype, device=device),
+            torch.empty(padded, dtype=torch.float32, device=device))
+
+
+def _release(device: torch.device, holders) -> None:
+    """Before a retry: drop the held reuse caches, then hand the caching
+    allocator's free blocks back so the retry can take them whole."""
+    for h in holders:
+        if h:
+            h.clear()
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+
+
+def _fingerprint(queries, signature: tuple) -> tuple:
+    """The key a held query cache is reused under: n_q, the embedding's
+    signature (part shapes and dtypes, cache dtype) and a hash of the
+    first row, the last row and 64 rows strided over the set — a set with
+    a swapped middle row, or a reversed one, does not match."""
+    n_q = len(queries)
+    rows = sorted({0, n_q - 1, *range(0, n_q, max(1, n_q // 64))})
+    sample = queries[np.asarray(rows)]
+    if isinstance(sample, torch.Tensor):
+        sample = sample.cpu().numpy()
+    digest = hashlib.sha256(np.ascontiguousarray(sample).tobytes())
+    return (n_q, signature, digest.hexdigest())
+
+
+def _halved(info: dict, dim: str, size: int, msg: str) -> None:
+    """Record one OOM resume: the dimension halved and the size it
+    reached."""
+    info["oom_resumes"] += 1
+    info["halvings"].append({"dim": dim, "to": size})
+    print(f"[knn] {msg}")
+
+
 def _stream_search(block_norms: Callable, k_dim: int, cdtype: torch.dtype,
                    queries, syn, *, q_block: int, s_block: int,
                    query_cache_bytes: int, device: torch.device,
                    timer: PhaseTimer, init_state: Callable, fold: Callable,
-                   take: Callable) -> tuple:
+                   take: Callable, plan: dict | None = None,
+                   query_reuse: dict | None = None,
+                   reuse_signature: tuple = (), reuse_siblings: tuple = (),
+                   info: dict | None = None) -> tuple:
     """The loop of every streamed search (flat or parts, argmin or
     top-k): featurise the queries chunk by chunk into a (rows, ``k_dim``)
     cache of ``cdtype`` with float32 norms ``rq``, sweep the synthetic set
@@ -188,41 +238,223 @@ def _stream_search(block_norms: Callable, k_dim: int, cdtype: torch.dtype,
 
     Hooks: ``init_state(padded_rows) -> state``;
     ``fold(state, cache, rq, s_emb, rs, col0, n_valid) -> state`` (timed as
-    'fold'); ``take(state, n_rows) -> tuple of per-query outputs``, which
-    are concatenated over the chunks."""
+    'fold'; it builds a new state, so a fold that fails leaves the old
+    one intact); ``take(state, n_rows) -> tuple of per-query outputs``,
+    which are concatenated over the chunks.
+
+    ``plan``: the charges of ``ops/stream_plan.plan_stream``
+    (``act_bytes_per_row``, ``fold_bytes_per_pair``,
+    ``state_bytes_per_row``); the planner sets ``query_cache_bytes``,
+    ``s_block`` and ``q_block`` first. None keeps them as given.
+
+    OOM resume (``torch.cuda.OutOfMemoryError`` only; every other error
+    propagates). The caching allocator raises at the allocation that does
+    not fit, before any work of the failed block is queued, so a resume
+    keeps everything finished:
+    * the cache allocation fails: halve ``chunk_rows`` (more sweeps); at
+      one ``q_block`` per chunk, halve ``q_block``;
+    * a query block fails: halve ``q_block`` and go on at the same row,
+      keeping the rows already in the cache; writes are capped at the
+      cache's end, since a halved block need not divide the rest;
+    * a synthetic block (its featurisation or its fold) fails: halve
+      ``s_block`` and go on at the same row with the running state; below
+      one row, halve ``chunk_rows`` and restart the chunk;
+    * at the smallest block the error is raised again.
+    Each retry first drops the held reuse caches (``query_reuse`` and
+    ``reuse_siblings``) and empties the allocator's cache. The JAX
+    package's guards against failures that surface later (poisoned
+    outputs found at a sync point, a runtime that stays broken after an
+    OOM, a window of undrained blocks) have no counterpart: on CUDA an OOM
+    surfaces at allocation, and the one stream reuses freed blocks in
+    order.
+
+    ``query_reuse`` (a dict the caller keeps): when every query row fits
+    one chunk, the verified cache is held there under
+    :func:`_fingerprint` (with ``reuse_signature``), and a later call over
+    the same queries skips their featurisation. The planner counts a held
+    cache of the same queries as budget (it is allocated, so the card does
+    not report it free); one held for other queries is freed first.
+
+    ``info`` (a dict) receives ``oom_resumes``, ``halvings`` (dimension
+    and size reached, in order), the planned and the final blocks, the
+    largest cache it held (``cache_bytes``), the number of synthetic
+    ``sweeps`` and ``query_reused``."""
     n_q, n_s = len(queries), len(syn)
     if n_s == 0:
         raise ValueError("empty synthetic set")
+    info = {} if info is None else info
+    info.update(oom_resumes=0, halvings=[])
     q_block = max(1, min(q_block, n_q))
     s_block = max(1, min(s_block, n_s))
     row_bytes = k_dim * torch.empty((), dtype=cdtype).element_size()
+    fp = (_fingerprint(queries, (reuse_signature, str(cdtype), k_dim))
+          if query_reuse is not None else None)
+    if query_reuse and query_reuse.get("fp") != fp:
+        query_reuse.clear()  # another set's cache: free it before planning
+    if plan is not None:
+        # a held cache of these queries is already allocated, so the card
+        # no longer counts it as free: credit it back to the budget
+        held = (query_reuse["cache"].nbytes + query_reuse["rq"].nbytes
+                if query_reuse else 0)
+        query_cache_bytes, s_block, q_block = plan_stream(
+            n_q, row_bytes, q_block=q_block, s_block=s_block,
+            cache_bytes=query_cache_bytes, device=device, credit_bytes=held,
+            **plan)
     # chunk_rows rounds DOWN to a q_block multiple, so full featurize
     # blocks tile each chunk and padding only appears at n_q
     chunk_rows = max(q_block,
                      int(query_cache_bytes // row_bytes) // q_block * q_block)
-    outs = []
+    info.update(planned_cache_bytes=int(query_cache_bytes),
+                planned_s_block=s_block, planned_q_block=q_block)
+    holders = (query_reuse,) + tuple(reuse_siblings)
+    s_block0 = s_block
+    outs, sweeps, reused_any, cache_rows = [], 0, False, 0
+    qs0 = 0
     with torch.inference_mode():
-        for qs0 in range(0, n_q, chunk_rows):
+        while qs0 < n_q:
             end = min(n_q, qs0 + chunk_rows)
             n_rows = end - qs0
             padded = n_rows + (-n_rows) % q_block
-            cache = torch.empty((padded, k_dim), dtype=cdtype, device=device)
-            rq = torch.empty(padded, dtype=torch.float32, device=device)
-            for qs in range(qs0, end, q_block):
-                e, r, _ = block_norms(queries, qs, q_block)
-                cache[qs - qs0:qs - qs0 + q_block] = e
-                rq[qs - qs0:qs - qs0 + q_block] = r
-                del e
+            one_chunk = qs0 == 0 and end == n_q
+            reused = (query_reuse is not None and one_chunk
+                      and query_reuse.get("fp") == fp)
+            if query_reuse and not one_chunk:
+                # a held cache never engages on a multi-chunk schedule:
+                # drop it instead of pinning it through the search
+                query_reuse.clear()
+            if reused:
+                padded = query_reuse["padded"]
+                cache, rq = query_reuse["cache"], query_reuse["rq"]
+                reused_any = True
+            else:
+                try:
+                    cache, rq = _alloc_cache(padded, k_dim, cdtype, device)
+                except torch.cuda.OutOfMemoryError:
+                    cache = rq = None
+                    if chunk_rows > q_block:
+                        chunk_rows = max(q_block, (chunk_rows // 2)
+                                         // q_block * q_block)
+                        dim, size = "chunk_rows", chunk_rows
+                    elif q_block > 1:
+                        # one q_block of rows itself does not fit
+                        q_block = chunk_rows = q_block // 2
+                        dim, size = "q_block", q_block
+                    else:
+                        raise
+                    _release(device, holders)
+                    _halved(info, dim, size, f"query cache allocation OOM; "
+                            f"{dim}={size} (more synthetic sweeps)")
+                    continue
+                qs = qs0
+                while qs < end:
+                    try:
+                        e, r, _ = block_norms(queries, qs, q_block)
+                    except torch.cuda.OutOfMemoryError:
+                        if q_block <= 1:
+                            raise
+                        q_block //= 2
+                        _release(device, holders)
+                        _halved(info, "q_block", q_block,
+                                f"query featurize OOM; q_block={q_block} "
+                                f"(resuming at row {qs})")
+                        continue
+                    n = min(e.shape[0], padded - (qs - qs0))
+                    cache[qs - qs0:qs - qs0 + n] = e[:n]
+                    rq[qs - qs0:qs - qs0 + n] = r[:n]
+                    qs += n
+                    del e, r
+                if query_reuse is not None and one_chunk:
+                    query_reuse.clear()
+                    query_reuse.update(fp=fp, padded=padded, cache=cache,
+                                       rq=rq)
+            cache_rows = max(cache_rows, padded)
             state = init_state(padded)
-            for ss in range(0, n_s, s_block):
-                s_emb, rs, n_valid = block_norms(syn, ss, s_block)
-                tok = timer.start("fold")
-                state = fold(state, cache, rq, s_emb, rs, ss, n_valid)
-                timer.stop(tok)
+            ss, restart = 0, False
+            while ss < n_s:
+                try:
+                    s_emb, rs, n_valid = block_norms(syn, ss, s_block)
+                    tok = timer.start("fold")
+                    state = fold(state, cache, rq, s_emb, rs, ss, n_valid)
+                    timer.stop(tok)
+                except torch.cuda.OutOfMemoryError:
+                    s_emb = rs = None
+                    if s_block > 1:
+                        s_block //= 2
+                        _release(device, reuse_siblings)
+                        _halved(info, "s_block", s_block,
+                                f"synthetic stream OOM; s_block={s_block} "
+                                f"(resuming at row {ss})")
+                        continue
+                    # even one row does not fit next to the cache: the
+                    # pressure is the resident cache, so shrink it and
+                    # redo this chunk (a chunk of one q_block cannot
+                    # shrink further)
+                    if chunk_rows <= q_block or padded <= q_block:
+                        raise
+                    chunk_rows = max(q_block,
+                                     (chunk_rows // 2) // q_block * q_block)
+                    s_block = s_block0
+                    restart = True
+                    break
+                ss += n_valid
                 del s_emb, rs
+            if restart:
+                del cache, rq, state
+                _release(device, holders)
+                _halved(info, "chunk_rows", chunk_rows,
+                        f"synthetic stream OOM at s_block=1; "
+                        f"chunk_rows={chunk_rows} (restarting the chunk)")
+                continue
+            sweeps += 1
             outs.append(take(state, n_rows))
-            del cache, rq
+            del cache, rq, state
+            qs0 = end
+    info.update(q_block=q_block, s_block=s_block, chunk_rows=chunk_rows,
+                cache_bytes=cache_rows * row_bytes, sweeps=sweeps,
+                query_reused=reused_any)
     return tuple(torch.cat(cols) for cols in zip(*outs))
+
+
+def _plan_charges(embed_fn: Callable, queries, fold_kind: str,
+                  state_bytes_per_row: int) -> dict:
+    """The planner's charges for a search of ``queries`` through
+    ``embed_fn`` (its ``tower`` key; image rows NHWC) folded by
+    ``fold_kind`` (``stream_plan.FOLD_BYTES_PER_PAIR``)."""
+    shape = tuple(queries.shape[1:])
+    if len(shape) == 3:
+        act = activation_bytes_per_row(getattr(embed_fn, "tower", None),
+                                       shape)
+    else:  # rows (tabular): the embedding in float32, twice
+        act = int(np.prod(shape)) * 4 * 2
+    return {"act_bytes_per_row": act,
+            "fold_bytes_per_pair": FOLD_BYTES_PER_PAIR[fold_kind],
+            "state_bytes_per_row": state_bytes_per_row}
+
+
+def stream_need_bytes(embed_fn: Callable, queries, *, engine: str,
+                      q_block: int, s_block: int, query_cache_bytes: int,
+                      auto_plan: bool, device: torch.device) -> int:
+    """Device bytes the streamed search of ``queries`` through
+    ``embed_fn`` (flat, or parts for the 'taps' engines) plans beside its
+    image sets, as the planner charges them: every query row cached (one
+    sweep), or the requested cache with ``auto_plan=False``, plus the
+    stream's blocks and activations. One query is featurised to learn the
+    row width."""
+    probe = _probe(embed_fn, queries, device)
+    if engine in PARTS_ENGINES:
+        size = 1 if engine == "taps-int8" else probe[0].element_size()
+        row_bytes = sum(int(p[0].numel()) for p in probe) * size
+    else:
+        row_bytes = probe.shape[1] * probe.element_size()
+    n_q = len(queries)
+    q_block = max(1, min(q_block, n_q))
+    rows = n_q + (-n_q) % q_block
+    if not auto_plan:
+        rows = min(rows, max(q_block, query_cache_bytes // row_bytes))
+    fold = ("int8" if engine == "taps-int8"
+            else "fused" if engine in ("pallas", "taps") else "gemm")
+    return plan_bytes(rows, row_bytes, s_block=s_block, q_block=q_block,
+                      **_plan_charges(embed_fn, queries, fold, 8))
 
 
 def _probe(embed_fn: Callable, queries, device: torch.device):
@@ -271,15 +503,21 @@ def knn_argmin_streamed(embed_fn: Callable[[torch.Tensor], torch.Tensor],
                         q_block: int = 2048, s_block: int = 2048,
                         query_cache_bytes: int = 8 << 30,
                         device: torch.device | str = "cpu",
-                        timer: PhaseTimer | None = None
+                        timer: PhaseTimer | None = None,
+                        auto_plan: bool = True,
+                        query_reuse: dict | None = None,
+                        reuse_siblings: tuple = (),
+                        info: dict | None = None
                         ) -> tuple[torch.Tensor, torch.Tensor]:
     """1-NN where embeddings are produced block by block — for feature
     spaces too large to materialise (LPIPS at 64x64 is 512,000 dims per
     image).
 
-    ``queries``/``syn``: image arrays (numpy or torch, axis 0 = samples),
-    shipped to ``device`` one block at a time (``_stream_search``). Query
-    norms are float32, taken from the embedding before the cache write."""
+    ``queries``/``syn``: image arrays (numpy, or torch on the host or on
+    ``device``, axis 0 = samples), taken onto ``device`` one block at a
+    time (``_stream_search``, which also documents ``auto_plan``'s
+    planner, the OOM resume, ``query_reuse`` and ``info``). Query norms
+    are float32, taken from the embedding before the cache write."""
     _check_engine(engine)
     device = torch.device(device)
     if engine == "pallas":
@@ -297,11 +535,16 @@ def knn_argmin_streamed(embed_fn: Callable[[torch.Tensor], torch.Tensor],
             return _fold_block(state[0], state[1], cache, rq, s_emb, ss,
                                n_valid, engine, rs)
     init_state, take = _argmin_state_hooks(device)
+    plan = (_plan_charges(embed_fn, queries,
+                          "fused" if engine == "pallas" else "gemm", 8)
+            if auto_plan else None)
     return _stream_search(
         _flat_block_fn(embed_fn, device, timer), probe.shape[1], probe.dtype,
         queries, syn, q_block=q_block, s_block=s_block,
         query_cache_bytes=query_cache_bytes, device=device, timer=timer,
-        init_state=init_state, fold=fold, take=take)
+        init_state=init_state, fold=fold, take=take, plan=plan,
+        query_reuse=query_reuse, reuse_signature=("flat",),
+        reuse_siblings=reuse_siblings, info=info)
 
 
 # ---------------------------------------------------------------------------
@@ -403,7 +646,11 @@ def knn_topk_streamed(embed_fn: Callable[[torch.Tensor], torch.Tensor],
                       query_cache_bytes: int = 8 << 30,
                       with_info: bool = False,
                       device: torch.device | str = "cpu",
-                      timer: PhaseTimer | None = None) -> tuple:
+                      timer: PhaseTimer | None = None,
+                      auto_plan: bool = True,
+                      query_reuse: dict | None = None,
+                      reuse_siblings: tuple = (),
+                      info: dict | None = None) -> tuple:
     """Per-query k smallest distances (float32 (N_q, k)) and their indices
     (int32, -1 past N_s), streamed like :func:`knn_argmin_streamed`.
     ``engine='pallas'`` folds every block through the fused top-k kernel
@@ -428,11 +675,16 @@ def knn_topk_streamed(embed_fn: Callable[[torch.Tensor], torch.Tensor],
                                     n_valid, k, engine, rs)
     init_state, fold, take = _topk_state_hooks(fold_one, k, with_info,
                                                device)
+    plan = (_plan_charges(embed_fn, queries, "topk_fused"
+                          if engine == "pallas" else "topk_gemm", 8 * k + 4)
+            if auto_plan else None)
     return _stream_search(
         _flat_block_fn(embed_fn, device, timer), probe.shape[1], probe.dtype,
         queries, syn, q_block=q_block, s_block=s_block,
         query_cache_bytes=query_cache_bytes, device=device, timer=timer,
-        init_state=init_state, fold=fold, take=take)
+        init_state=init_state, fold=fold, take=take, plan=plan,
+        query_reuse=query_reuse, reuse_signature=("flat",),
+        reuse_siblings=reuse_siblings, info=info)
 
 
 # ---------------------------------------------------------------------------
@@ -571,9 +823,9 @@ def _fold_block_topk_parts_q(run_d, run_i, q, rq, s, rs, col0: int,
 
 def _parts_setup(embed_fn: Callable, queries, quantize: bool,
                  device: torch.device, timer: PhaseTimer):
-    """(block_norms, K, cache dtype, widths, dequantisation factors or None)
-    of a parts featuriser; the cache dtype is the parts' own (int8 with
-    ``quantize``)."""
+    """(block_norms, K, cache dtype, widths, dequantisation factors or
+    None, the query-reuse signature) of a parts featuriser; the cache
+    dtype is the parts' own (int8 with ``quantize``)."""
     factors = bounds = None
     if quantize:
         bounds = _part_bounds_for(embed_fn, queries, device)
@@ -583,7 +835,8 @@ def _parts_setup(embed_fn: Callable, queries, quantize: bool,
     cdtype = torch.int8 if quantize else probe[0].dtype
     parts_norms = _fused_parts_norms(embed_fn, cdtype, bounds)
     block_norms = _block_fn(lambda blk: parts_norms(blk)[:2], device, timer)
-    return block_norms, sum(widths), cdtype, widths, factors
+    signature = ("parts", widths, str(probe[0].dtype), bounds)
+    return block_norms, sum(widths), cdtype, widths, factors, signature
 
 
 def knn_argmin_streamed_parts(embed_fn: Callable, queries, syn, *,
@@ -591,7 +844,11 @@ def knn_argmin_streamed_parts(embed_fn: Callable, queries, syn, *,
                               query_cache_bytes: int = 8 << 30,
                               quantize: bool = False,
                               device: torch.device | str = "cpu",
-                              timer: PhaseTimer | None = None
+                              timer: PhaseTimer | None = None,
+                              auto_plan: bool = True,
+                              query_reuse: dict | None = None,
+                              reuse_siblings: tuple = (),
+                              info: dict | None = None
                               ) -> tuple[torch.Tensor, torch.Tensor]:
     """1-NN like :func:`knn_argmin_streamed` over a STRUCTURED embedding
     (``embed_fn`` returns a list of parts, ``ops/distance.
@@ -609,7 +866,7 @@ def knn_argmin_streamed_parts(embed_fn: Callable, queries, syn, *,
     if len(syn) == 0:
         raise ValueError("empty synthetic set")
     timer = timer or PhaseTimer(device)
-    block_norms, k_dim, cdtype, widths, factors = _parts_setup(
+    block_norms, k_dim, cdtype, widths, factors, sig = _parts_setup(
         embed_fn, queries, quantize, device, timer)
     if quantize:
         def fold(state, cache, rq, s_emb, rs, ss, n_valid):
@@ -618,10 +875,15 @@ def knn_argmin_streamed_parts(embed_fn: Callable, queries, syn, *,
     else:
         fold = _fold_fused
     init_state, take = _argmin_state_hooks(device)
+    plan = (_plan_charges(embed_fn, queries,
+                          "int8" if quantize else "fused", 8)
+            if auto_plan else None)
     return _stream_search(
         block_norms, k_dim, cdtype, queries, syn, q_block=q_block,
         s_block=s_block, query_cache_bytes=query_cache_bytes, device=device,
-        timer=timer, init_state=init_state, fold=fold, take=take)
+        timer=timer, init_state=init_state, fold=fold, take=take, plan=plan,
+        query_reuse=query_reuse, reuse_signature=sig,
+        reuse_siblings=reuse_siblings, info=info)
 
 
 def knn_topk_streamed_parts(embed_fn: Callable, queries, syn, *, k: int = 8,
@@ -629,7 +891,11 @@ def knn_topk_streamed_parts(embed_fn: Callable, queries, syn, *, k: int = 8,
                             query_cache_bytes: int = 8 << 30,
                             with_info: bool = False, quantize: bool = False,
                             device: torch.device | str = "cpu",
-                            timer: PhaseTimer | None = None) -> tuple:
+                            timer: PhaseTimer | None = None,
+                            auto_plan: bool = True,
+                            query_reuse: dict | None = None,
+                            reuse_siblings: tuple = (),
+                            info: dict | None = None) -> tuple:
     """Top-k analog of :func:`knn_argmin_streamed_parts`: pass 1 of the
     two-pass mode with ``engine='taps'`` (fused top-k kernel on the parts
     buffer) or ``'taps-int8'`` (``quantize=True``). ``with_info`` appends
@@ -640,7 +906,7 @@ def knn_topk_streamed_parts(embed_fn: Callable, queries, syn, *, k: int = 8,
     if len(syn) == 0:
         raise ValueError("empty synthetic set")
     timer = timer or PhaseTimer(device)
-    block_norms, k_dim, cdtype, widths, factors = _parts_setup(
+    block_norms, k_dim, cdtype, widths, factors, sig = _parts_setup(
         embed_fn, queries, quantize, device, timer)
     if quantize:
         def fold_one(run_d, run_i, cache, rq, s_emb, rs, ss, n_valid):
@@ -653,10 +919,15 @@ def knn_topk_streamed_parts(embed_fn: Callable, queries, syn, *, k: int = 8,
                                     n_valid, k)
     init_state, fold, take = _topk_state_hooks(fold_one, k, with_info,
                                                device)
+    plan = (_plan_charges(embed_fn, queries, "topk_int8" if quantize
+                          else "topk_fused", 8 * k + 4)
+            if auto_plan else None)
     return _stream_search(
         block_norms, k_dim, cdtype, queries, syn, q_block=q_block,
         s_block=s_block, query_cache_bytes=query_cache_bytes, device=device,
-        timer=timer, init_state=init_state, fold=fold, take=take)
+        timer=timer, init_state=init_state, fold=fold, take=take, plan=plan,
+        query_reuse=query_reuse, reuse_signature=sig,
+        reuse_siblings=reuse_siblings, info=info)
 
 
 # ---------------------------------------------------------------------------
@@ -696,23 +967,25 @@ def two_pass_certificate(d_exact: np.ndarray, topk_d: np.ndarray,
 
 def _default_cert_eta(demoted: bool) -> float:
     """2e-2 when pass 1 ran in reduced precision (bf16 tower error ~2e-3
-    measured by the JAX package, 10x margin); 1e-6 when it was float32
-    throughout (accumulation-order noise)."""
+    measured by the JAX package, 10x margin; on an H100, chip_smoke.py's
+    north-star phase measures the port's at ~2.5e-3); 1e-6 when it was
+    float32 throughout (accumulation-order noise)."""
     return 2e-2 if demoted else 1e-6
 
 
 def _rerank_candidates(embed_hi: Callable, queries, syn, cand: np.ndarray,
                        *, engine: str, q_block: int, s_block: int,
                        query_cache_bytes: int, device: torch.device,
-                       timer: PhaseTimer
+                       timer: PhaseTimer, **search
                        ) -> tuple[torch.Tensor, torch.Tensor]:
     """Exact re-rank restricted to the candidate union: the float32
     ``embed_hi`` search through the fused distance+argmin kernel ('pallas';
     its two-level float32 sum stays within ~4e-6 of float64 at
     K = 512,000 where cuBLAS's SGEMM drifts to ~1.3e-4, ROADMAP C), or the
     elementwise 'exact' engine when that was asked for. Only the few
-    candidate rows ship (a host-side gather); blocks and cache shrink,
-    since everything here is float32."""
+    candidate rows ship (a gather); blocks and cache shrink, since
+    everything here is float32. ``search``: the streamed search's
+    ``auto_plan``, reuse and ``info`` arguments."""
     sub = syn[np.asarray(cand)]
     d, i_sub = knn_argmin_streamed(
         embed_hi, queries, sub,
@@ -720,7 +993,7 @@ def _rerank_candidates(embed_hi: Callable, queries, syn, cand: np.ndarray,
         q_block=min(q_block, 1024),
         s_block=min(s_block, 1024, max(8, len(cand))),
         query_cache_bytes=min(query_cache_bytes, 2 << 30), device=device,
-        timer=timer)
+        timer=timer, **search)
     cand_t = torch.as_tensor(np.asarray(cand), dtype=torch.int32,
                              device=i_sub.device)
     return d, cand_t[i_sub.long()]
@@ -733,7 +1006,11 @@ def knn_argmin_two_pass(embed_lo: Callable, embed_hi: Callable, queries,
                         cert_eta: float | None = None,
                         return_cert: bool = False,
                         device: torch.device | str = "cpu",
-                        timer: PhaseTimer | None = None):
+                        timer: PhaseTimer | None = None,
+                        auto_plan: bool = True,
+                        query_reuse: dict | None = None,
+                        rerank_reuse: dict | None = None,
+                        info: dict | None = None):
     """Throughput mode with exact-index re-ranking and a runtime exactness
     certificate.
 
@@ -745,14 +1022,23 @@ def knn_argmin_two_pass(embed_lo: Callable, embed_hi: Callable, queries,
     query from pass-1 norms that its true nearest row was in the union;
     uncertified queries are re-searched against the FULL synthetic set in
     float32 (printing how many). ``return_cert=True`` appends
-    (certified mask, number of fallbacks)."""
+    (certified mask, number of fallbacks).
+
+    ``query_reuse`` / ``rerank_reuse`` hold pass 1's and the re-rank's
+    query caches across calls (``_stream_search``); an OOM recovery in
+    either search drops both, since the other one pins device memory the
+    recovery needs. ``info`` receives each search's record (``pass1``,
+    ``rerank``, ``fallback``) and their summed ``oom_resumes``."""
     device = torch.device(device)
     timer = timer or PhaseTimer(device)
     probe = _probe(embed_lo, queries, device)
     abs_err = 0.0
+    infos = {"pass1": {}, "rerank": {}}
     common = dict(k=k, q_block=q_block, s_block=s_block,
                   query_cache_bytes=query_cache_bytes, with_info=True,
-                  device=device, timer=timer)
+                  device=device, timer=timer, auto_plan=auto_plan,
+                  query_reuse=query_reuse, reuse_siblings=(rerank_reuse,),
+                  info=infos["pass1"])
     if engine in PARTS_ENGINES:
         quant = engine == "taps-int8"
         if quant:
@@ -771,7 +1057,11 @@ def knn_argmin_two_pass(embed_lo: Callable, embed_hi: Callable, queries,
     d, idx = _rerank_candidates(embed_hi, queries, syn, cand, engine=engine,
                                 q_block=q_block, s_block=s_block,
                                 query_cache_bytes=query_cache_bytes,
-                                device=device, timer=timer)
+                                device=device, timer=timer,
+                                auto_plan=auto_plan,
+                                query_reuse=rerank_reuse,
+                                reuse_siblings=(query_reuse,),
+                                info=infos["rerank"])
     # reduced precision anywhere in pass 1 selects the wide eta: a bf16
     # (or float16) embedding, or int8 parts (whose tower runs bf16)
     demoted = (torch.empty((), dtype=probe_dt).element_size() < 4
@@ -789,11 +1079,16 @@ def knn_argmin_two_pass(embed_lo: Callable, embed_hi: Callable, queries,
             engine="exact" if engine == "exact" else "pallas",
             q_block=min(q_block, 1024), s_block=min(s_block, 1024),
             query_cache_bytes=min(query_cache_bytes, 2 << 30),
-            device=device, timer=timer)
+            device=device, timer=timer, auto_plan=auto_plan,
+            reuse_siblings=(query_reuse, rerank_reuse),
+            info=infos.setdefault("fallback", {}))
         bad_t = torch.as_tensor(bad, device=d.device)
         d, idx = d.clone(), idx.clone()
         d[bad_t] = d_fix
         idx[bad_t] = i_fix
+    if info is not None:
+        info.update(infos, oom_resumes=sum(r["oom_resumes"]
+                                           for r in infos.values()))
     if return_cert:
         return d, idx, cert, int(bad.size)
     return d, idx

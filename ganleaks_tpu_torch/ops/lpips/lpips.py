@@ -237,11 +237,20 @@ def _tap_scale(w: torch.Tensor, weight: float, n_pos: int) -> torch.Tensor:
 def lpips_embed_fn(model: LPIPS, weight: float = 0.2,
                    dtype: torch.dtype = torch.float32,
                    compute_dtype: torch.dtype | None = None):
-    """Closure for ``ops/distance.make_embed_fn`` ('l2-lpips')."""
+    """Closure for ``ops/distance.make_embed_fn`` ('l2-lpips'), carrying
+    ``tower`` (:func:`tower_key`) for the stream planner."""
     def embed(x: torch.Tensor) -> torch.Tensor:
         return lpips_embed(model, x, weight=weight, dtype=dtype,
                            compute_dtype=compute_dtype)
+    embed.tower = tower_key(model, compute_dtype)
     return embed
+
+
+def tower_key(model: LPIPS, compute_dtype: torch.dtype | None) -> tuple:
+    """(net, dtype name) of the tower a featuriser runs: the key of the
+    stream planner's activation charge (``ops/stream_plan``)."""
+    dt = compute_dtype if compute_dtype is not None else torch.float32
+    return model.net, str(dt).replace("torch.", "")
 
 
 class PerceptualLoss:
@@ -365,7 +374,7 @@ def lpips_embed_parts_fn(model: LPIPS, weight: float = 0.2,
                          compute_dtype: torch.dtype | None = None):
     """Closure form of :func:`lpips_embed_parts` for
     ``ops/distance.make_embed_parts_fn``, carrying ``part_bound_fn``,
-    ``part_int_dot_bound_fn`` and ``make_fast_parts_norms``."""
+    ``part_int_dot_bound_fn``, ``make_fast_parts_norms`` and ``tower``."""
     def embed(x: torch.Tensor) -> list[torch.Tensor]:
         return lpips_embed_parts(model, x, weight=weight, dtype=dtype,
                                  compute_dtype=compute_dtype)
@@ -376,4 +385,5 @@ def lpips_embed_parts_fn(model: LPIPS, weight: float = 0.2,
     embed.make_fast_parts_norms = lambda cdtype, bounds=None: \
         lpips_fast_parts_norms(model, weight, dtype, compute_dtype, cdtype,
                                bounds)
+    embed.tower = tower_key(model, compute_dtype)
     return embed

@@ -24,9 +24,10 @@ Tolerances, and how they were chosen:
   tests/test_fid_split.py's bar, rtol 1e-3 plus atol 1e-3, on
   ill-conditioned statistics where float32 misses that bar.
 * end to end (4 + 4 images, batch 2, 'eigh'), and the image npz through
-  ``fid_from_paths`` (against the JAX package's 'scipy' value there): the
-  same bound, with the activation gap (1e-5 of the maximum) propagated
-  through the statistics.
+  ``fid_from_paths`` (against the float64 FID of the JAX package's
+  statistics of that file, ``_fid_float64``, which its 'scipy' route
+  approximates): the same bound, with the activation gap (1e-5 of the
+  maximum) propagated through the statistics.
 """
 
 import warnings
@@ -59,11 +60,33 @@ TRACE_TOL = 1e-5
 def one_torch_thread():
     """The suite runs in several processes at once; torch's CPU thread
     pool in each of them, on top of the others, slows every process many
-    times over. One thread per process for this module's convolutions."""
+    times over. One thread per process for this module's convolutions,
+    and for the BLAS under numpy and scipy (the 2048-wide square roots and
+    eigendecompositions), whose pool in every process is one thread per
+    core as well."""
+    from threadpoolctl import threadpool_limits
+
     before = torch.get_num_threads()
     torch.set_num_threads(1)
-    yield
+    with threadpool_limits(limits=1, user_api="blas"):
+        yield
     torch.set_num_threads(before)
+
+
+def _fid_float64(acts1, mu2, sigma2) -> float:
+    """The FID of ``acts1``'s statistics (``activation_statistics``: mean,
+    ``np.cov``) against (mu2, sigma2), in float64 without a 2048-wide
+    root: with S1 = A A^T (A the centred activations over sqrt(n - 1), n
+    columns), the nonzero eigenvalues of S1 S2 are those of the n x n
+    matrix A^T S2 A, so Tr sqrt(S1 S2) is the sum of their square roots
+    (exact for PSD S2)."""
+    a = np.asarray(acts1, np.float64)
+    mu1 = a.mean(0)
+    cen = (a - mu1).T / np.sqrt(len(a) - 1)
+    w = np.linalg.eigvalsh(cen.T @ np.asarray(sigma2, np.float64) @ cen)
+    diff = mu1 - np.asarray(mu2, np.float64)
+    return float(diff @ diff + (cen * cen).sum() + np.trace(sigma2)
+                 - 2.0 * np.sqrt(np.clip(w, 0.0, None)).sum())
 
 
 def _assert_fid_close(got, want, sigma1, sigma2):
@@ -349,8 +372,31 @@ def test_fid_end_to_end_matches_jax(port_model, image_sets, jax_acts):
     _assert_fid_close(got, want, s1, s2)
 
 
-def test_fid_from_paths_matches_jax(jax_variables, port_model, image_sets,
-                                    jax_acts, tmp_path):
+@pytest.fixture(scope="module")
+def image_npz_route(port_model, image_sets, jax_acts, tmp_path_factory):
+    """The port's ``fid_from_paths`` of an image npz (the first set as
+    uint8 bytes at native size) against a mu/sigma npz, through its
+    'scipy' and float64 'eigh' routes, with the port's activations of the
+    same bytes. The 'scipy' route takes one 2048-wide Schur root of a
+    rank-3 product, the costliest step of the module (~25 s on one
+    thread): it is taken once, here."""
+    tmp = tmp_path_factory.mktemp("fid_npz")
+    imgs = image_sets[0].astype(np.uint8)
+    pimg = str(tmp / "images.npz")
+    np.savez(pimg, images=imgs)
+    mu, sigma = jfid.activation_statistics(jax_acts[0])
+    pst = str(tmp / "ref_stats.npz")
+    np.savez(pst, mu=mu + 0.5, sigma=sigma)
+    fids = {method: tfid.fid_from_paths(port_model, pimg, pst, batch_size=2,
+                                        method=method, device="cpu")
+            for method in ("scipy", "eigh")}
+    acts_t = tfid.get_activations(port_model, imgs, batch_size=2,
+                                  device="cpu")
+    return {"fids": fids, "acts_t": acts_t, "mu": mu + 0.5, "sigma": sigma}
+
+
+def test_fid_from_paths_matches_jax(jax_variables, port_model, jax_acts,
+                                    image_npz_route, tmp_path):
     """A mu/sigma npz on both sides, then an image npz (uint8 bytes at
     native size) against a mu/sigma npz."""
     m1, s1, m2, s2 = _random_stats(np.random.default_rng(9), dim=64)
@@ -362,31 +408,26 @@ def test_fid_from_paths_matches_jax(jax_variables, port_model, image_sets,
                               device="cpu")
     _assert_fid_close(got, want, s1, s2)
 
-    imgs = image_sets[0].astype(np.uint8)
-    pimg = str(tmp_path / "images.npz")
-    np.savez(pimg, images=imgs)
-    acts_j = jax_acts[0]
-    acts_t = tfid.get_activations(port_model, imgs, batch_size=2,
-                                  device="cpu")
+    acts_j, acts_t = jax_acts[0], image_npz_route["acts_t"]
     np.testing.assert_allclose(acts_t, acts_j, rtol=0,
                                atol=ACT_RTOL * np.abs(acts_j).max())
-    mu, sigma = jfid.activation_statistics(acts_j)
-    pst = str(tmp_path / "ref_stats.npz")
-    np.savez(pst, mu=mu + 0.5, sigma=sigma)
-    # the JAX package's scipy root on the same file: four images give
-    # rank-3 statistics, where its float32 'eigh' is 0.28 off its own scipy
-    # value (the 2045 null eigenvalues' rounding, square-rooted); the
-    # port's float64 'eigh' is held to the scipy value instead
-    want = jfid.fid_from_paths(jax_variables, pimg, pst, batch_size=2,
-                               method="scipy")
+    mu2, sigma = image_npz_route["mu"], image_npz_route["sigma"]
+    # the JAX package's FID of the same file, exactly in float64: its
+    # image-npz route takes the statistics of acts_j (the same bytes at
+    # batch 2) against these. Four images give rank-3 statistics, where
+    # its float32 'eigh' is 0.28 off that value (the 2045 null
+    # eigenvalues' rounding, square-rooted) and its scipy route takes a
+    # 2048-wide Schur root of a singular product (a minute or more on a
+    # busy host) to approximate it; the port's 'scipy' and float64 'eigh'
+    # routes are held to the exact value
+    want = _fid_float64(acts_j, mu2, sigma)
     for method in ("scipy", "eigh"):
-        got = tfid.fid_from_paths(port_model, pimg, pst, batch_size=2,
-                                  method=method, device="cpu")
+        got = image_npz_route["fids"][method]
         assert np.isfinite(got) and got > 0
         _assert_fid_close(got, want, sigma, sigma)
     # and the npz route is the port's activations and statistics exactly
     assert got == tfid.frechet_distance(
-        *tfid.activation_statistics(acts_t), mu + 0.5, sigma, method="eigh",
+        *tfid.activation_statistics(acts_t), mu2, sigma, method="eigh",
         device="cpu")
 
 

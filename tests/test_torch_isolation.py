@@ -5,6 +5,7 @@ alone, and entry points refuse to run without a GPU unless asked for the
 CPU."""
 
 import ast
+import json
 import os
 import subprocess
 import sys
@@ -327,3 +328,58 @@ def test_resolve_device_sets_f32_numerics(monkeypatch):
     assert torch.backends.cudnn.allow_tf32 is False
     with pytest.raises(ValueError):
         resolve_device("meta")
+
+
+def test_bench_and_planner_stand_alone():
+    """``bench`` and ``ops/stream_plan`` import no JAX, no JAX package and
+    no optional library: the bench's quick run on the CPU works with all
+    of them unimportable (the static check above covers their module-level
+    imports)."""
+    code = textwrap.dedent("""
+        import json
+        import ganleaks_tpu_torch.ops.stream_plan
+        from ganleaks_tpu_torch import bench
+        bench.main(["--quick", "--n_q", "4", "--n_syn", "8"], device="cpu")
+        bad = [m for m in sys.modules if m.split(".")[0] in BLOCKED]
+        assert not bad, bad
+    """)
+    res = _run_isolated(code)
+    assert res.returncode == 0, res.stderr
+    rec = json.loads(res.stdout.strip().splitlines()[-1])
+    assert set(rec) == {"metric", "value", "unit", "vs_baseline"}
+
+
+def test_device_flags_refuse_without_gpu(monkeypatch, tmp_path):
+    """``bench.main`` and every CLI's ``--device`` default (cuda) refuse
+    without a GPU, whatever the machine has; ``--device cuda`` refuses
+    too and ``--device cpu`` runs."""
+    from ganleaks_tpu_torch import bench
+    from ganleaks_tpu_torch.cli import eval_roc as cli_eval_roc
+    from ganleaks_tpu_torch.cli import fbb as cli_fbb
+    from ganleaks_tpu_torch.cli import fbb_tabular as cli_tabular
+    from ganleaks_tpu_torch.cli import fid as cli_fid
+    from ganleaks_tpu_torch.cli import lpips_scores as cli_scores
+    from ganleaks_tpu_torch.cli import reconstruction as cli_recon
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.chdir(tmp_path)
+    np.savez(tmp_path / "s.npz", mu=np.zeros(2), sigma=np.eye(2))
+    stats = str(tmp_path / "s.npz")
+    run = tmp_path / "run"
+    run.mkdir()
+    np.save(run / "pos_loss.npy", np.array([[0.1], [0.2]]))
+    np.save(run / "neg_loss.npy", np.array([[0.4], [0.5]]))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        bench.main(["--quick"])
+    for call in (
+            lambda: cli_fbb.main([f"syn_data_path={tmp_path}"]),
+            lambda: cli_eval_roc.main([f"result_load_dir={run}"]),
+            lambda: cli_eval_roc.main(["--device", "cuda",
+                                       f"result_load_dir={run}"]),
+            lambda: cli_fid.main([stats, stats]),
+            lambda: cli_recon.main([]),
+            lambda: cli_tabular.main([]),
+            lambda: cli_scores.main([f"data_dir={stats}"])):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+    cli_eval_roc.main(["--device", "cpu", f"result_load_dir={run}"])

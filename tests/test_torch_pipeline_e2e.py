@@ -86,9 +86,13 @@ def _assert_runs_agree(rj, rt, lpips: bool):
             with open(os.path.join(rj["save_dir"], f), "rb") as a, \
                     open(os.path.join(rt["save_dir"], f), "rb") as b:
                 assert a.read() == b.read(), f
+    # the port's AttackConfig adds one field, the planner's switch
     with open(os.path.join(rj["save_dir"], "params.txt")) as a, \
             open(os.path.join(rt["save_dir"], "params.txt")) as b:
-        assert a.read().replace("e2e_jax", "e2e_port") == b.read()
+        got = b.read()
+        assert "\nauto_plan:True\n" in got
+        assert a.read().replace("e2e_jax", "e2e_port") \
+            == got.replace("\nauto_plan:True\n", "\n")
     auc_t = evaluate(EvalConfig(result_load_dir=rt["save_dir"]))["auc"]
     auc_j = j_evaluate(JEvalConfig(result_load_dir=rj["save_dir"]))["auc"]
     np.testing.assert_allclose(auc_t, auc_j, atol=1e-6)
@@ -185,9 +189,13 @@ def test_cli_config_matches_jax():
     argv = ["--local_config",
             os.path.join(REPO, "configs", "config_attack_fbb.yaml"),
             "engine=pallas", "query_cache_gb=4", "save_plots=false"]
-    got = parse_config(AttackConfig, argv)
+    got, device = parse_config(AttackConfig, argv)
+    assert device == "cuda"  # never chosen by what the machine has
+    assert parse_config(AttackConfig, ["--device", "cpu"] + argv)[1] == "cpu"
     want = j_parse_config(JAttackConfig, argv)
-    assert vars(got) == vars(want)
+    fields = dict(vars(got))
+    assert fields.pop("auto_plan") is True  # the port's planner switch
+    assert fields == vars(want)
     assert got.engine == "pallas" and got.distance == "l2-lpips"
     with pytest.raises(KeyError):
         parse_config(AttackConfig, ["no_such_key=1"])
@@ -208,11 +216,19 @@ def test_cli_config_matches_jax():
 ])
 def test_cli_overrides_parse_without_pyyaml(monkeypatch, cls, jcls, argv):
     """``key=value`` overrides are parsed by their field's type alone: the
-    same fields with PyYAML importable or not, and the JAX package's."""
+    same fields with PyYAML importable or not, and the JAX package's (the
+    port's AttackConfig adds ``auto_plan``, the planner's switch)."""
     want = vars(j_parse_config(jcls, argv))
-    assert vars(parse_config(cls, argv)) == want
+
+    def port_fields():
+        got = vars(parse_config(cls, argv)[0])
+        if cls is AttackConfig:
+            assert got.pop("auto_plan") is True
+        return got
+
+    assert port_fields() == want
     monkeypatch.setitem(sys.modules, "yaml", None)  # import yaml raises
-    assert vars(parse_config(cls, argv)) == want
+    assert port_fields() == want
 
 
 def test_eval_cli(tmp_path, capsys):
@@ -220,7 +236,7 @@ def test_eval_cli(tmp_path, capsys):
     os.makedirs(run)
     np.save(run / "pos_loss.npy", np.array([[0.1], [0.2], [0.3]]))
     np.save(run / "neg_loss.npy", np.array([[0.4], [0.5], [0.25]]))
-    cli_eval_roc.main([f"result_load_dir={run}"])
+    cli_eval_roc.main(["--device", "cpu", f"result_load_dir={run}"])
     assert "The AUC ROC value of fbb attack is: 0.889" \
         in capsys.readouterr().out
     assert os.path.exists(run / "roc.png")

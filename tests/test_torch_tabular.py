@@ -195,7 +195,7 @@ def test_cli_into_eval_roc_matches_jax(tmp_path, monkeypatch, capsys):
     cli_tabular.main(args + ["exp_name=port", "engine=pallas"], device="cpu")
     assert "query-pairs/sec" in capsys.readouterr().out
     port_dir = os.path.join(str(tmp_path), "fbb_attack", "port")
-    cli_eval_roc.main([f"result_load_dir={port_dir}"])
+    cli_eval_roc.main(["--device", "cpu", f"result_load_dir={port_dir}"])
     assert "AUC ROC" in capsys.readouterr().out
     kw = {a.split("=")[0]: a.split("=")[1] for a in args}
     j_out = j_run_tabular(JTabularAttackConfig(exp_name="jax", **kw))
