@@ -105,11 +105,39 @@ Phases, each printing JSON lines:
    are held against float64 (each loss within the certificate's bound of
    its returned image's distance, no image of a 4,096-image sample closer
    by more than the two bounds), and the bf16 tower's error on them is
-   printed beside the certificate's eta.
+   printed beside the certificate's eta;
+11. ingest: phase 10's sets written as three PNG directories (120,000
+   files) by the port's encoder (``io/native``; disk space checked
+   first), then ``run_attack`` ('auto', the planner on) from them: cold
+   (no decode cache yet: every image decoded and the cache written,
+   ``io/diskcache``), again from the warm cache, and with
+   ``host_stream=True`` and no disk cache (``io/stream.HostImageSet``:
+   the synthetic set decoded block by block as the search reads it, the
+   closest-pair plots on); each run's indices and losses equal phase
+   10's 'auto' run's on
+   the arrays exactly, with the same K2 launches; encode and decode
+   images/s, ``ingest_s``, end-to-end query-pairs/s and the peak host
+   RSS per run are printed;
+12. victims: DCGAN and WGAN-GP at full width (nz 100, ngf 64, ndf 64,
+   64 px): their first 3 steps at batch 8 (float64 on the host's cores
+   is the limit) on the CPU in float64 and on the card in float64 and
+   float32, from the same weights, batches, noise and eps, at lr 0 and at
+   the configs' lr (``victim_hold`` states each bound and why: the
+   card's float64 is the CPU's to 1e-9 and every parameter within 1e-6 lr;
+   its float32 within rtol 1e-4 on losses, 2e-2 on gradients and 1e-5 on
+   BatchNorm statistics, trained parameters within Adam's bound; a TF32
+   and a no-cuDNN control printed), then each through its entry points —
+   ``train`` one epoch at batch 128 on 1,024 seeded training PNGs (and
+   steps/s timed apart, synchronised, after a warm-up step),
+   ``generate`` its 2,040 images as the PNG + npz + noise triplet, 256
+   training PNGs planted in the PNG dump, ``run_attack`` ('auto') with
+   the training and 1,024 held-out PNGs as members and non-members, and
+   ``evaluate`` (AUROC, every planted member below every non-member);
+   then ``bench --metric gen`` (4,096 images, batch 512).
 
-Phases 7 and 8 run no hand-written kernel (their convolutions and products
-are the library's, as in the JAX package they are XLA's); their launch
-counts are read and printed all the same.
+Phases 7, 8 and 12's training and sampling run no hand-written kernel
+(their convolutions and products are the library's, as in the JAX package
+they are XLA's); their launch counts are read and printed all the same.
 
 Then, on lines of their own, the ``nvidia-smi`` name/power line and the
 ``{"kernels": [...]}`` summary, and last ``{"ok": true, "device": ...}``.
@@ -171,6 +199,23 @@ NS_BLOCK = 1024    # 'auto' blocks: the halved cache of the forced-OOM run
                    # fits beside them at the same blocks
 NS_SAMPLE = 512    # queries held against float64
 NS_SUBSET = 4096   # synthetic images each sampled query is checked against
+
+
+VICTIM_TRAIN = 1024    # training PNGs (and as many held-out non-members)
+VICTIM_BATCH = 128     # the configs' batch: 8 steps per epoch
+VICTIM_PLANT = 256     # training PNGs planted in each victim's PNG dump
+VICTIM_HOLD_STEPS = 3  # steps held against float64 on the CPU
+VICTIM_HOLD_BATCH = 8  # their batch (float64 on the host's cores)
+# the card's float32 against the CPU's float64 (victim_hold says why)
+VICTIM_LOSS_RTOL = 1e-4   # lr-0 steps: losses, relative (absolute < 1)
+VICTIM_GRAD_RTOL = 2e-2   # lr-0 steps: gradients, L2, relative
+VICTIM_STAT_RTOL = 1e-5   # lr-0 steps: BN statistics' change, L2, relative
+VICTIM_TRAJ_RTOL = {"dcgan": 1e-4, "wgangp": 5e-2}  # trained steps' losses
+VICTIM_UPDATE_RTOL = 0.5  # trained: updates, statistics' change, L2
+# the card's float64 against the CPU's float64
+VICTIM_F64_RTOL = 1e-9    # losses, gradients, updates, statistics
+VICTIM_F64_STEP = 1e-6    # every trained parameter, in units of lr
+VICTIM_TIMED_STEPS = 10   # train steps timed at batch 128 after a warm-up
 
 
 def emit(obj: dict) -> None:
@@ -1902,7 +1947,549 @@ def phase_north_star(torch) -> dict:
                         "the planned run's")
     tower = north_star_hold(torch, data, {"auto": a, "taps_bf16": b})
     return {"launches": {"auto": a["launches"],
-                         "taps_bf16": b["launches"]}, "tower": tower}
+                         "taps_bf16": b["launches"]}, "tower": tower,
+            "data": data, "auto": {k: a[k] for k in ("idx", "loss",
+                                                     "launches")}}
+
+
+# ---------------------------------------------------------------------------
+# phase 11: PNG ingest at the north star
+# ---------------------------------------------------------------------------
+
+class RssPeak:
+    """The process's peak resident set (GB) over a ``with`` block, read
+    from ``/proc/self/status`` every 20 ms by a thread."""
+
+    def __enter__(self):
+        import threading
+        self.peak = self._rss()
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._poll, daemon=True)
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join()
+        self.peak = max(self.peak, self._rss())
+
+    @staticmethod
+    def _rss() -> float:
+        with open("/proc/self/status") as f:
+            for line in f:
+                if line.startswith("VmRSS:"):
+                    return int(line.split()[1]) * 1024 / 1e9
+        return 0.0
+
+    def _poll(self) -> None:
+        while not self._stop.wait(0.02):
+            self.peak = max(self.peak, self._rss())
+
+
+def ingest_run(torch, label: str, cfg, auto: dict) -> dict:
+    """``run_attack`` once from the PNG directories; its indices and
+    losses must equal phase 10's 'auto' ``attack_arrays`` run on the same
+    arrays exactly, and K2 must launch as often as there."""
+    from ganleaks_tpu_torch.attack.fbb import run_attack
+    torch.cuda.empty_cache()
+    reset_launches()
+    with RssPeak() as rss:
+        t0 = time.perf_counter()
+        out = run_attack(cfg, device=DEVICE)[0]
+        e2e = time.perf_counter() - t0
+    launches = read_launches()
+    idx = np.concatenate([out["pos_nn_idx"], out["neg_nn_idx"]])
+    loss = np.concatenate([out["pos_loss"], out["neg_loss"]])
+    check(bool((idx == auto["idx"]).all() and (loss == auto["loss"]).all()),
+          f"ingest {label}: results differ from attack_arrays' on the "
+          f"same arrays")
+    check(launches == auto["launches"], f"ingest {label}: launches "
+                                        f"{launches}, phase 10 'auto' "
+                                        f"{auto['launches']}")
+    n_img = 2 * NS_POS + NS_SYN
+    rec = {"phase": "ingest", "run": label,
+           "decode_cache": cfg.decode_cache, "host_stream": cfg.host_stream,
+           "ingest_s": out["ingest_s"], "end_to_end_s": e2e,
+           "query_pairs_per_sec_e2e": 2 * NS_POS * NS_SYN / e2e,
+           "query_pairs_per_sec": out["query_pairs_per_sec"],
+           "featurize_s": out["featurize_s"], "fold_s": out["fold_s"],
+           "host_copy_s": out["host_copy_s"],
+           "sets_on_device": out["sets_on_device"],
+           "peak_host_rss_gb": rss.peak, "kernel_launches": launches}
+    # cold decodes every image (and writes the cache), warm reads the
+    # cache's memmap; streamed decodes the synthetic set inside the
+    # search, outside ingest_s
+    rate = {"cold": "decode_images_per_sec",
+            "warm": "cache_read_images_per_sec"}.get(label)
+    if rate:
+        rec[rate] = n_img / out["ingest_s"]
+    emit(rec)
+    return rec
+
+
+def phase_ingest(torch, data: dict, auto: dict, tmp: str) -> dict:
+    """Phase 11: phase 10's 10,000 + 10,000 queries and 100,000 synthetic
+    images encoded as PNG directories by the port's encoder, then the
+    'auto' attack from them through ``run_attack``: cold (no decode cache
+    yet: every image decoded, the cache written), warm (the cache read),
+    and with ``host_stream=True`` and no disk cache (``HostImageSet``: the
+    synthetic set decoded block by block as the search reads it)."""
+    import shutil
+    from dataclasses import replace
+
+    from ganleaks_tpu_torch.config import AttackConfig
+    from ganleaks_tpu_torch.io.native import save_png_batch_native
+    raw = sum(data[k].nbytes for k in ("pos", "neg", "syn"))
+    free = shutil.disk_usage(tmp).free
+    # PNGs of noisy images are about the raw size, the decode cache
+    # exactly; twice that again as margin
+    check(free > 4 * raw, f"ingest: {free / 1e9:.1f} GB free under {tmp}, "
+                          f"the PNG dirs and the decode cache need about "
+                          f"{2 * raw / 1e9:.1f}")
+    dirs = {}
+    t0 = time.perf_counter()
+    for name in ("pos", "neg", "syn"):
+        d = dirs[name] = os.path.join(tmp, name)
+        os.makedirs(d)
+        save_png_batch_native(data[name], [
+            os.path.join(d, f"image_{i:06d}.png")
+            for i in range(len(data[name]))])
+    enc_s = time.perf_counter() - t0
+    png_bytes = sum(os.path.getsize(os.path.join(d, f))
+                    for d in dirs.values() for f in os.listdir(d))
+    n_img = 2 * NS_POS + NS_SYN
+    emit({"phase": "ingest_encode", "images": n_img, "seconds": enc_s,
+          "encode_images_per_sec": n_img / enc_s,
+          "png_gb": png_bytes / 1e9, "raw_gb": raw / 1e9,
+          "disk_free_gb": free / 1e9})
+    base = AttackConfig(syn_data_path=dirs["syn"], pos_data_dir=dirs["pos"],
+                        neg_data_dir=dirs["neg"], data_num=NS_POS,
+                        distance="l2-lpips", resolution=RES, engine="auto",
+                        query_block=NS_BLOCK, syn_block=NS_BLOCK,
+                        save_root=os.path.join(tmp, "fbb"), save_plots=False)
+    # cold: no decode cache exists yet, so the sets are decoded and the
+    # cache written; warm: the next run reads it
+    runs = {label: ingest_run(torch, label, replace(
+        base, exp_name=label, decode_cache="auto"), auto)
+        for label in ("cold", "warm")}
+    runs["streamed"] = ingest_run(torch, "streamed", replace(
+        base, exp_name="streamed", decode_cache=False, host_stream=True,
+        save_plots=True), auto)
+    emit({"phase": "ingest_summary", "encode_s": enc_s,
+          **{f"{k}_ingest_s": r["ingest_s"] for k, r in runs.items()},
+          **{f"{k}_end_to_end_s": r["end_to_end_s"]
+             for k, r in runs.items()}})
+    return {"encode_s": enc_s, "runs": runs}
+
+
+# ---------------------------------------------------------------------------
+# phase 12: the first victims at full width
+# ---------------------------------------------------------------------------
+
+def victim_state_arrays(torch, state, grads: bool = False) -> dict:
+    """Every parameter and BatchNorm statistic of both nets (with
+    ``grads``: the parameters' gradients), float64 on the host, keyed
+    '<net>.<state-dict key>'."""
+    out = {}
+    for net, model in (("gen", state.gen), ("disc", state.disc)):
+        items = ([(k, p.grad) for k, p in model.named_parameters()]
+                 if grads else model.state_dict().items())
+        out.update({f"{net}.{k}": v.detach().cpu().numpy().astype(
+            np.float64) for k, v in items})
+    return out
+
+
+def rel_l2(card: dict, ref: dict, base: dict | None, keys) -> float:
+    """||card - ref|| / ||ref - base|| over ``keys`` (``base`` None: over
+    ||ref||)."""
+    diff = sum(float(((card[k] - ref[k]) ** 2).sum()) for k in keys)
+    norm = sum(float(((ref[k] - (0.0 if base is None else base[k])) ** 2)
+                     .sum()) for k in keys)
+    return (diff / norm) ** 0.5
+
+
+# (label, dtype, TF32 on, cuDNN on) of the card's runs of the held steps:
+# the trainers' numerics, the same modules in float64, and two controls
+# that show what the float32 bounds can see
+HOLD_VARIANTS = (("f32", "float32", False, True),
+                 ("f64", "float64", False, True),
+                 ("f32_tf32", "float32", True, True),
+                 ("f32_no_cudnn", "float32", False, False))
+
+
+def adam_ratio_bound(beta1: float, beta2: float, t: int) -> float:
+    """The most |m_hat / sqrt(v_hat)| can be at Adam's step ``t`` (eps
+    left out, which only shrinks it): Cauchy-Schwarz over the two moments'
+    weights, sqrt(sum_i a_i^2 / b_i)."""
+    a = [(1 - beta1) * beta1 ** (t - i) / (1 - beta1 ** t)
+         for i in range(1, t + 1)]
+    b = [(1 - beta2) * beta2 ** (t - i) / (1 - beta2 ** t)
+         for i in range(1, t + 1)]
+    return sum(x * x / y for x, y in zip(a, b)) ** 0.5
+
+
+class Numerics:
+    """TF32 and cuDNN set for a ``with`` block, restored after."""
+
+    def __init__(self, torch, tf32: bool, cudnn: bool):
+        self.b, self.want = torch.backends, (tf32, tf32, cudnn)
+
+    def _get(self):
+        b = self.b
+        return (b.cuda.matmul.allow_tf32, b.cudnn.allow_tf32,
+                b.cudnn.enabled)
+
+    def _set(self, v):
+        b = self.b
+        b.cuda.matmul.allow_tf32, b.cudnn.allow_tf32, b.cudnn.enabled = v
+
+    def __enter__(self):
+        self.before = self._get()
+        self._set(self.want)
+
+    def __exit__(self, *exc):
+        self._set(self.before)
+
+
+def victim_steps(torch, kind: str, cfg, steps, dev: str, dtype):
+    """The held steps of ``kind`` from ``build_state(cfg)`` on ``dev`` in
+    ``dtype``: per step its losses and (with lr 0, so every step starts
+    from the same parameters) the gradients of both nets and their
+    BatchNorm statistics; at the end every parameter and statistic."""
+    from ganleaks_tpu_torch.train import dcgan, wgangp
+    mod = dcgan if kind == "dcgan" else wgangp
+    state = mod.build_state(cfg, dev, dtype)
+    hist, grads, stats = [], [], []
+
+    def t(a):
+        return torch.from_numpy(a).to(dev, dtype)
+
+    t0 = time.perf_counter()
+    for st in steps:
+        if kind == "dcgan":
+            m = mod.dcgan_train_step(state, t(st["real"]),
+                                     noise=t(st["noise"][0]))
+        else:
+            m = mod.wgangp_train_step(
+                state, t(st["real"]), cfg.critic_iter, cfg.lambda_gp,
+                noise=[t(z) for z in st["noise"]],
+                eps=[t(e) for e in st["eps"]])
+        hist.append([float(v) for v in m.values()])
+        if cfg.lr == 0.0:
+            grads.append(victim_state_arrays(torch, state, grads=True))
+            stats.append(victim_state_arrays(torch, state))
+    secs = time.perf_counter() - t0
+    return {"losses": np.array(hist), "grads": grads, "stats": stats,
+            "final": victim_state_arrays(torch, state), "seconds": secs}
+
+
+def hold_errors(card: dict, ref: dict, init: dict, lr: float) -> dict:
+    """One card variant's lr-0 and trained runs against float64 on the
+    CPU: losses (relative, absolute below 1: a loss may cross 0); at lr 0
+    each net's gradients and the BatchNorm statistics' change (L2,
+    relative, the worst step); trained, each net's update (L2, relative),
+    the statistics' change, and the largest parameter difference in units
+    of lr."""
+    params = [k for k in init if "running" not in k
+              and "num_batches" not in k]
+    stat_keys = [k for k in init if "running" in k]
+    nets = ("gen.", "disc.")
+
+    def loss_err(mode):
+        c, r = card[mode]["losses"], ref[mode]["losses"]
+        return float((np.abs(c - r) / np.maximum(np.abs(r), 1.0)).max())
+
+    def stats_err(cs, rs):
+        return max((rel_l2(c, r, init, stat_keys) for c, r in zip(cs, rs)),
+                   default=0.0) if stat_keys else 0.0
+
+    c0, r0 = card["lr0"], ref["lr0"]
+    fc, fr = card["trained"]["final"], ref["trained"]["final"]
+    return {
+        "lr0_loss": loss_err("lr0"),
+        "lr0_grad": {net: max(rel_l2(gc, gr, None, [
+            k for k in params if k.startswith(net)])
+            for gc, gr in zip(c0["grads"], r0["grads"])) for net in nets},
+        "lr0_bn_stats": stats_err(c0["stats"], r0["stats"]),
+        "trained_loss": loss_err("trained"),
+        "trained_update": {net: rel_l2(fc, fr, init, [
+            k for k in params if k.startswith(net)]) for net in nets},
+        "trained_bn_stats": stats_err([fc], [fr]),
+        "trained_max_param_diff_lr": {net: max(
+            float(np.abs(fc[k] - fr[k]).max()) for k in params
+            if k.startswith(net)) / lr for net in nets}}
+
+
+def victim_hold(torch, kind: str) -> dict:
+    """VICTIM_HOLD_STEPS train steps of ``kind`` ('dcgan', or 'wgangp'
+    with critic_iter 5) at full width on the CPU in float64 and on the
+    card in each of HOLD_VARIANTS, from the same seeded weights with the
+    same batches, noise and eps, at lr 0 (each step from the same
+    parameters) and at the configured lr.
+
+    The batch is VICTIM_HOLD_BATCH, not the configs' 128: float64 on the
+    host's cores takes about 6.5 s for both victims' held steps at batch
+    8, so about 100 s per pass at 128.
+
+    * float64 on the card: the same function as on the CPU — losses,
+      gradients, statistics and updates within VICTIM_F64_RTOL, and every
+      trained parameter within VICTIM_F64_STEP of one Adam step (lr).
+    * float32 on the card (the trainers' numerics, TF32 off): at lr 0
+      losses within VICTIM_LOSS_RTOL, gradients within VICTIM_GRAD_RTOL
+      and the BatchNorm statistics within VICTIM_STAT_RTOL. Gradients of
+      ReLU nets jump where a pre-activation lies within rounding of the
+      kink, so float32 and float64 can take different branches: at batch
+      8 the WGAN-GP generator's gradient read 7.0e-3 off float64 on the
+      card and 2.8e-4 on the CPU in float32 at its second step, 4.5e-6
+      and 2.4e-6 at the first and third (H100). Trained: losses within
+      VICTIM_TRAJ_RTOL[kind]; each net's update and the statistics'
+      change within VICTIM_UPDATE_RTOL of float64's in L2 (a missing or
+      reversed update is 1 or 2); every parameter within two of Adam's
+      largest steps per Adam step its net took (``adam_ratio_bound``;
+      the critic takes critic_iter a train step) of float64's: the most
+      two runs can part when float32's rounding flips the sign of a
+      gradient below its noise, which in Adam's sign-like first steps
+      moves the weight by a whole step, so a tighter per-element bound
+      cannot hold in float32 (the generators' worst element reads 3.7 and
+      7.8 lr, against 6.4 and 8.0).
+    * the controls (TF32 on; convolutions off cuDNN) are printed, not
+      held."""
+    from dataclasses import replace
+
+    from ganleaks_tpu_torch.config import DCGANConfig, WGANGPConfig
+    from ganleaks_tpu_torch.io.native import LUT_CROP
+    from ganleaks_tpu_torch.train import dcgan, wgangp
+    cfg = (DCGANConfig(seed=SEED) if kind == "dcgan"
+           else WGANGPConfig(seed=SEED, critic_iter=5))
+    iters = 1 if kind == "dcgan" else cfg.critic_iter
+    rng = np.random.default_rng(SEED + 12)
+    steps = []
+    for _ in range(VICTIM_HOLD_STEPS):
+        steps.append({
+            "real": LUT_CROP[make_images(rng, VICTIM_HOLD_BATCH, RES)
+                             ].transpose(0, 3, 1, 2).copy(),
+            "noise": rng.standard_normal(
+                (iters, VICTIM_HOLD_BATCH, cfg.nz)).astype(np.float32),
+            "eps": rng.random((iters, VICTIM_HOLD_BATCH, 1, 1, 1)
+                              ).astype(np.float32)})
+    modes = {"lr0": replace(cfg, lr=0.0), "trained": cfg}
+    ref = {m: victim_steps(torch, kind, c, steps, "cpu", torch.float64)
+           for m, c in modes.items()}
+    init = victim_state_arrays(torch, (dcgan if kind == "dcgan" else wgangp)
+                               .build_state(cfg))
+    errs, card_s = {}, {}
+    for label, dtype, tf32, cudnn in HOLD_VARIANTS:
+        with Numerics(torch, tf32, cudnn):
+            card = {m: victim_steps(torch, kind, c, steps, DEVICE,
+                                    getattr(torch, dtype))
+                    for m, c in modes.items()}
+        errs[label] = hold_errors(card, ref, init, cfg.lr)
+        card_s[label] = card["trained"]["seconds"]
+        if label == "f32":
+            card_losses = card["trained"]["losses"].tolist()
+    # Adam steps each net took: the critic updates critic_iter times a step
+    step_bound = {net: 2 * sum(adam_ratio_bound(cfg.beta1, cfg.beta2, t)
+                               for t in range(1, n * VICTIM_HOLD_STEPS + 1))
+                  for net, n in (("gen.", 1), ("disc.", iters))}
+    moved = max(float(np.abs(ref["trained"]["final"][k] - init[k]).max())
+                for k in init if "running" not in k
+                and "num_batches" not in k)
+    rec = {"phase": "victim_hold", "victim": kind,
+           "batch": VICTIM_HOLD_BATCH, "steps": VICTIM_HOLD_STEPS,
+           "critic_iter": iters, "lr": cfg.lr,
+           "betas": [cfg.beta1, cfg.beta2],
+           "param_bound_lr": step_bound, "errors_vs_cpu_f64": errs,
+           "losses_card_f32": card_losses,
+           "losses_f64": ref["trained"]["losses"].tolist(),
+           "max_moved_f64": moved,
+           "card_s": card_s, "cpu_f64_s": ref["trained"]["seconds"]}
+    emit(rec)
+    f64, f32 = errs["f64"], errs["f32"]
+    f64_worst = max(f64["lr0_loss"], *f64["lr0_grad"].values(),
+                    f64["lr0_bn_stats"], f64["trained_loss"],
+                    *f64["trained_update"].values(),
+                    f64["trained_bn_stats"])
+    check(f64_worst <= VICTIM_F64_RTOL
+          and max(f64["trained_max_param_diff_lr"].values())
+          <= VICTIM_F64_STEP,
+          f"victim {kind}: float64 on the card is not the CPU's float64 "
+          f"function: {f64}")
+    check(f32["lr0_loss"] <= VICTIM_LOSS_RTOL,
+          f"victim {kind}: lr-0 losses off float64 by {f32['lr0_loss']:.3g}")
+    check(max(f32["lr0_grad"].values()) <= VICTIM_GRAD_RTOL,
+          f"victim {kind}: gradients {f32['lr0_grad']} off float64 (L2, "
+          f"relative)")
+    check(f32["lr0_bn_stats"] <= VICTIM_STAT_RTOL,
+          f"victim {kind}: BatchNorm statistics {f32['lr0_bn_stats']:.3g} "
+          f"off float64 (L2, relative)")
+    check(f32["trained_loss"] <= VICTIM_TRAJ_RTOL[kind],
+          f"victim {kind}: trained losses off float64 by "
+          f"{f32['trained_loss']:.3g} relative")
+    check(max(*f32["trained_update"].values(), f32["trained_bn_stats"])
+          <= VICTIM_UPDATE_RTOL,
+          f"victim {kind}: trained updates {f32['trained_update']} / "
+          f"statistics {f32['trained_bn_stats']:.3g} off float64's")
+    check(all(f32["trained_max_param_diff_lr"][net] <= step_bound[net]
+              for net in step_bound),
+          f"victim {kind}: a parameter {f32['trained_max_param_diff_lr']} "
+          f"lr off float64, over the {step_bound} lr two runs of Adam can "
+          f"part by")
+    check(moved > 0.5 * cfg.lr, f"victim {kind}: the steps barely moved "
+                                f"the weights ({moved:.3g})")
+    return rec
+
+
+def victim_step_rate(torch, kind: str, cfg) -> float:
+    """Train steps per second of ``kind`` on the card at the configs'
+    batch: VICTIM_TIMED_STEPS steps after a warm-up step, synchronised,
+    from a fresh state on one seeded batch (the entry point's wall time
+    also holds the decode, the set-up, the sample grid and the saves)."""
+    from ganleaks_tpu_torch.train import dcgan, wgangp
+    state = (dcgan if kind == "dcgan" else wgangp).build_state(cfg, DEVICE)
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    real = torch.rand(VICTIM_BATCH, 3, RES, RES, generator=gen,
+                      device=DEVICE) * 2 - 1
+
+    def step():
+        if kind == "dcgan":
+            dcgan.dcgan_train_step(state, real, generator=gen)
+        else:
+            wgangp.wgangp_train_step(state, real, cfg.critic_iter,
+                                     cfg.lambda_gp, generator=gen)
+
+    step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(VICTIM_TIMED_STEPS):
+        step()
+    torch.cuda.synchronize()
+    return VICTIM_TIMED_STEPS / (time.perf_counter() - t0)
+
+
+def victim_run(torch, kind: str, tmp: str, dirs: dict) -> dict:
+    """``kind`` through its entry points on the card: ``train`` from the
+    training PNG directory (one epoch at batch 128), ``generate`` its
+    ``num_generated`` images as the artifact triplet, VICTIM_PLANT
+    training PNGs planted in the PNG dump, ``run_attack`` ('auto') on the
+    dump with the training and held-out directories as members and
+    non-members, ``evaluate``."""
+    import shutil
+
+    from ganleaks_tpu_torch.attack.eval_roc import evaluate
+    from ganleaks_tpu_torch.attack.fbb import run_attack
+    from ganleaks_tpu_torch.config import (AttackConfig, DCGANConfig,
+                                           EvalConfig, WGANGPConfig)
+    from ganleaks_tpu_torch.io.native import decode_png
+    from ganleaks_tpu_torch.train import dcgan, wgangp
+    from ganleaks_tpu_torch.utils.logging import MetricsLogger
+    mod = dcgan if kind == "dcgan" else wgangp
+    common = dict(data_path=dirs["train"], batch_size=VICTIM_BATCH,
+                  num_epochs=1, seed=SEED, PATH=os.path.join(tmp, "model"),
+                  PATH_syn_data=os.path.join(tmp, "syn"))
+    cfg = (DCGANConfig(**common) if kind == "dcgan"
+           else WGANGPConfig(critic_iter=5, **common))
+    grids = os.path.join(tmp, f"grids_{kind}")
+    logger = MetricsLogger(os.path.join(tmp, f"{kind}.jsonl"), echo=False,
+                           image_dir=grids)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state = mod.train(cfg, logger=logger, device=DEVICE)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    logger.close()
+    with open(os.path.join(tmp, f"{kind}.jsonl")) as f:
+        rec = json.loads(f.readlines()[-1])
+    check(state.step == -(-VICTIM_TRAIN // VICTIM_BATCH)
+          and np.isfinite(rec["loss_gen"]),
+          f"victim {kind}: {state.step} steps, record {rec}")
+    grid = decode_png(os.path.join(grids, os.listdir(grids)[0]))
+    t0 = time.perf_counter()
+    out_dirs = mod.generate(cfg, state, run_dir="run", device=DEVICE)
+    gen_s = time.perf_counter() - t0
+    png = out_dirs["png_images"]
+    fake = np.load(os.path.join(out_dirs["npz_images"],
+                                f"{kind}_synthetic_data.npz"))["fake"]
+    noise = np.load(os.path.join(out_dirs["npz_noise"],
+                                 f"{kind}_noise.npz"))["noise"]
+    n_gen = cfg.num_generated
+    check(fake.shape == (n_gen, 3, RES, RES) and bool(np.isfinite(fake)
+                                                        .all())
+          and noise.shape == (n_gen, cfg.nz, 1, 1)
+          and len(os.listdir(png)) == n_gen,
+          f"victim {kind}: artifacts {fake.shape}, {noise.shape}, "
+          f"{len(os.listdir(png))} PNGs")
+    members = sorted(f for f in os.listdir(dirs["train"])
+                     if f.endswith(".png"))
+    for i, f in enumerate(members[:VICTIM_PLANT]):
+        shutil.copy(os.path.join(dirs["train"], f),
+                    os.path.join(png, f"image_{n_gen + i}.png"))
+    reset_launches()
+    t0 = time.perf_counter()
+    out = run_attack(AttackConfig(
+        syn_data_path=png, pos_data_dir=dirs["train"],
+        neg_data_dir=dirs["heldout"], data_num=VICTIM_TRAIN,
+        distance="l2-lpips", resolution=RES, engine="auto",
+        save_root=os.path.join(tmp, "fbb"), exp_name=kind), device=DEVICE)[0]
+    attack_s = time.perf_counter() - t0
+    launches = read_launches()
+    res = evaluate(EvalConfig(result_load_dir=out["save_dir"]))
+    rate = victim_step_rate(torch, kind, cfg)
+    caught = int((out["pos_loss"] < out["neg_loss"].min()).sum())
+    r = {"phase": "victim", "victim": kind, "train_images": VICTIM_TRAIN,
+         "batch": VICTIM_BATCH, "steps": state.step, "train_s": train_s,
+         "steps_per_sec": rate, "images_per_sec": rate * VICTIM_BATCH,
+         "losses": {k: rec[k] for k in rec if k.startswith("loss")},
+         "grid_shape": list(grid.shape), "generated": n_gen,
+         "generate_s": gen_s, "generate_images_per_sec": n_gen / gen_s,
+         "planted": VICTIM_PLANT, "attack_s": attack_s,
+         "ingest_s": out["ingest_s"],
+         "query_pairs_per_sec": out["query_pairs_per_sec"],
+         "members_below_all_nonmembers": caught, "auroc": res["auc"],
+         "kernel_launches": launches}
+    emit(r)
+    check(bool(np.isfinite(out["pos_loss"]).all()
+               and np.isfinite(out["neg_loss"]).all()),
+          f"victim {kind}: non-finite attack losses")
+    check(caught >= VICTIM_PLANT and res["auc"] > 0.5,
+          f"victim {kind}: the planted members were not found "
+          f"({caught} below every non-member, AUROC {res['auc']:.4f})")
+    check(launches["tap_epilogue"] > 0,
+          f"victim {kind}: 'auto' did not launch K2")
+    return r
+
+
+def phase_victims(torch, tmp: str) -> dict:
+    """Phase 12: DCGAN and WGAN-GP at full width (nz 100, ngf 64, ndf 64,
+    64 px, batch 128): the float64 hold of their first steps, then
+    training, sampling, the attack on the PNG dump, and ``bench --metric
+    gen``."""
+    import contextlib
+    import io
+
+    from ganleaks_tpu_torch import bench
+    from ganleaks_tpu_torch.io.native import save_png_batch_native
+    rng = np.random.default_rng(SEED + 13)
+    dirs = {}
+    t0 = time.perf_counter()
+    for name in ("train", "heldout"):
+        d = dirs[name] = os.path.join(tmp, name)
+        os.makedirs(d)
+        save_png_batch_native(make_images(rng, VICTIM_TRAIN, RES), [
+            os.path.join(d, f"{i:05d}.png") for i in range(VICTIM_TRAIN)])
+    emit({"phase": "victim_data", "images": 2 * VICTIM_TRAIN,
+          "seconds": time.perf_counter() - t0})
+    out = {}
+    for kind in ("dcgan", "wgangp"):
+        out[f"{kind}_hold"] = victim_hold(torch, kind)
+        out[kind] = victim_run(torch, kind, tmp, dirs)
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        check(bench.main(["--metric", "gen"], device=DEVICE) == 0,
+              "bench --metric gen failed")
+    line = json.loads(buf.getvalue().strip().splitlines()[-1])
+    emit({"phase": "bench_gen", **line})
+    out["gen_images_per_sec"] = line["value"]
+    return out
 
 
 def main() -> int:
@@ -1979,6 +2566,12 @@ def main() -> int:
         lap("tabular")
     north = phase_north_star(torch)
     lap("north_star")
+    with tempfile.TemporaryDirectory() as tmp:
+        phase_ingest(torch, north.pop("data"), north.pop("auto"), tmp)
+        lap("ingest")
+    with tempfile.TemporaryDirectory() as tmp:
+        phase_victims(torch, tmp)
+        lap("victims")
     emit({"phase": "seconds", "build_s": build_s, **phase_s})
 
     # launches: each kernel's count in the run of the path it serves — K1

@@ -23,10 +23,17 @@ distances and its ROC evaluation on an NVIDIA GPU:
 * ``attack/fbb`` writes the reference's artifacts and ``attack/eval_roc``
   scores them.
 
+Image sets are arrays, npz files or PNG directories: PNGs go through the
+port's own codec (``io/native``, ``csrc/png_codec.cpp`` built with g++),
+a decoded-pixel disk cache (``io/diskcache``) and, with ``host_stream``,
+block-by-block decoding during the search (``io/stream``).
+
 Beside the attack: FID (``ops/fid``), the reconstruction and tabular
-attacks (``attack/reconstruction``, ``attack/tabular``) and LPIPS's
+attacks (``attack/reconstruction``, ``attack/tabular``), LPIPS's
 scoring and lin-head training (``ops/lpips/scoring``,
-``ops/lpips/train2afc``, ``cli/lpips_scores``).
+``ops/lpips/train2afc``, ``cli/lpips_scores``), and the DCGAN and
+WGAN-GP victims (``models``, ``train``, ``cli/train_{dcgan,wgangp}``):
+trained on a PNG directory, sampled to the reference's artifact layout.
 
 The package imports torch, numpy and the standard library only. PyYAML,
 Pillow and matplotlib are imported inside the functions that need them.

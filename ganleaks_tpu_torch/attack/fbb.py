@@ -40,6 +40,8 @@ from ganleaks_tpu_torch.device import resolve_device
 from ganleaks_tpu_torch.io.artifacts import (check_folder, dump_params,
                                              save_files)
 from ganleaks_tpu_torch.io.images import to_uint8
+from ganleaks_tpu_torch.io.native import encode_png
+from ganleaks_tpu_torch.io.stream import HostImageSet
 from ganleaks_tpu_torch.ops.distance import (make_embed_fn,
                                              make_embed_parts_fn)
 from ganleaks_tpu_torch.ops.knn import (PARTS_ENGINES, PhaseTimer,
@@ -172,22 +174,30 @@ def _embeds(cfg: AttackConfig, device: torch.device, structured: bool,
     return embed, embed_lo, embed_hi
 
 
+def _host_stream(cfg: AttackConfig) -> bool | None:
+    """``cfg.host_stream`` as True, False or None ('auto')."""
+    hs = cfg.host_stream
+    if isinstance(hs, str):
+        if hs.strip().lower() != "auto":
+            raise ValueError(f"host_stream must be true/false/'auto', "
+                             f"got {hs!r}")
+        return None
+    return bool(hs)
+
+
 def _stage_sets(cfg: AttackConfig, embed, queries: np.ndarray,
-                syn: np.ndarray, device: torch.device) -> tuple:
+                syn, device: torch.device) -> tuple:
     """``(queries, syn, on_device)``: the image sets where the search reads
     them. On the card they are copied once when ``host_stream`` is False,
     or when it is 'auto' and they fit beside what the search plans
     (``ops/knn.stream_need_bytes``: one sweep's query cache, or the
     requested one without the planner); otherwise (``host_stream`` True,
     or 'auto' where they do not fit) they stay in host memory and the
-    search ships one block at a time. On the CPU the arrays themselves."""
-    hs = cfg.host_stream
-    if isinstance(hs, str):
-        if hs.strip().lower() != "auto":
-            raise ValueError(f"host_stream must be true/false/'auto', "
-                             f"got {hs!r}")
-        hs = None
-    if device.type != "cuda" or hs:
+    search ships one block at a time. A :class:`HostImageSet` (decoded
+    block by block as the search reads it) always stays in host memory.
+    On the CPU the arrays themselves."""
+    hs = _host_stream(cfg)
+    if device.type != "cuda" or hs or isinstance(syn, HostImageSet):
         return queries, syn, False
     if hs is None:
         need = stream_need_bytes(
@@ -209,8 +219,9 @@ def attack_arrays(cfg: AttackConfig, syn, pos, neg,
                   device: torch.device | str | None = None,
                   logger: MetricsLogger | None = None,
                   sweep_cache: dict | None = None) -> dict:
-    """Run the attack on in-memory NHWC image arrays (uint8 bytes or
-    [-1, 1] floats). Returns losses and true NN indices for both query
+    """Run the attack on NHWC image arrays (uint8 bytes or [-1, 1] floats;
+    ``syn`` may be a :class:`HostImageSet`, decoded as the search reads
+    it). Returns losses and true NN indices for both query
     sets, the query-pair rate, the device seconds spent featurising and
     folding, the host seconds of the set-up (``lpips_init_s``: building
     the featurisers; ``host_copy_s``: joining the query sets and, where
@@ -237,7 +248,9 @@ def attack_arrays(cfg: AttackConfig, syn, pos, neg,
     structured = cfg.engine in PARTS_ENGINES
 
     if cfg.drop_remainder:  # strict parity with fbb.py:77
-        syn = syn[:truncate_to_batches(len(syn), cfg.BATCH_SIZE)]
+        n_keep = truncate_to_batches(len(syn), cfg.BATCH_SIZE)
+        syn = (syn.limit(n_keep) if isinstance(syn, HostImageSet)
+               else syn[:n_keep])
 
     meter = Throughput()
     timer = PhaseTimer(device)
@@ -255,7 +268,7 @@ def attack_arrays(cfg: AttackConfig, syn, pos, neg,
     queries, syn_d, on_device = _stage_sets(
         cfg, embed or embed_lo,
         np.concatenate([np.asarray(pos), np.asarray(neg)], axis=0),
-        np.asarray(syn), device)
+        syn if isinstance(syn, HostImageSet) else np.asarray(syn), device)
     sync()
     t2 = time.perf_counter()
     holder = (lambda name: None if sweep_cache is None
@@ -310,31 +323,40 @@ def attack_arrays(cfg: AttackConfig, syn, pos, neg,
 def plot_closest_images(nn_idx: np.ndarray, queries: np.ndarray,
                         syn: np.ndarray, save_dir: str, class_type: str,
                         num: int = 20) -> None:
-    """Query|NN side-by-side PNGs (``fbb.py:91-106``). uint8 input goes
-    through the same float64 scale + floor chain as float input, so the
-    PNGs are byte-identical either way."""
-    import PIL.Image
-
+    """Query|NN side-by-side PNGs (``fbb.py:91-106``) through the port's
+    encoder. uint8 input goes through the same float64 scale + floor chain
+    as float input, so the pixels are identical either way."""
     num = min(num, len(queries))
     for i in range(num):
         pair = np.concatenate([queries[i], syn[int(nn_idx[i])]], axis=1)
         if pair.dtype == np.uint8:
             pair = (2.0 * (pair.astype(np.float64) / 255.0)
                     - 1.0).astype(np.float32)
-        PIL.Image.fromarray(to_uint8(pair, drange=(-1, 1))).save(
-            os.path.join(save_dir, f"{i}{class_type}.png"))
+        encode_png(to_uint8(pair, drange=(-1, 1)),
+                   os.path.join(save_dir, f"{i}{class_type}.png"))
 
 
-def _load_images(cfg: AttackConfig, path: str, limit: int | None = None
-                 ) -> np.ndarray:
+def _load_images(cfg: AttackConfig, path: str, limit: int | None = None,
+                 streamable: bool = False):
+    """One image set (``fbb.py:133-145``), resolved per path: an npz
+    (read as is), or a PNG directory — as a :class:`HostImageSet` for the
+    synthetic set (``streamable``) when ``host_stream`` is True, else
+    decoded at once behind the disk cache (``io/diskcache``,
+    ``decode_cache``). The JAX package's 'auto' streams wherever storage
+    is uint8; here 'auto' loads at once and lets ``_stage_sets`` put the
+    sets on the card where they fit (ROADMAP C)."""
     from ganleaks_tpu_torch.io.npz import (load_npz_images,
                                            resolve_input_format)
 
     dt = np.uint8 if cfg.uint8_storage else np.float32
     if resolve_input_format(path, cfg.input_format) == "npz":
         return load_npz_images(path, cfg.resolution, limit=limit, dtype=dt)
-    from ganleaks_tpu_torch.io.images import load_image_dir
-    return load_image_dir(path, cfg.resolution, limit=limit, dtype=dt)
+    if streamable and _host_stream(cfg):
+        return HostImageSet(path, cfg.resolution, limit=limit, dtype=dt,
+                            disk_cache=cfg.decode_cache)
+    from ganleaks_tpu_torch.io.diskcache import load_image_dir_cached
+    return load_image_dir_cached(path, cfg.resolution, limit=limit,
+                                 dtype=dt, policy=cfg.decode_cache)
 
 
 def run_attack(cfg: AttackConfig,
@@ -377,7 +399,7 @@ def run_attack(cfg: AttackConfig,
                         "dtype": sub_cfg.dtype})
 
         t0 = time.perf_counter()
-        syn = _load_images(sub_cfg, subdir)
+        syn = _load_images(sub_cfg, subdir, streamable=True)
         if pos is None:  # query sets are subdir-invariant: load once
             pos = _load_images(sub_cfg, sub_cfg.pos_data_dir,
                                limit=sub_cfg.data_num)

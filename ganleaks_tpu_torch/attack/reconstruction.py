@@ -147,7 +147,7 @@ def run_reconstruction_attack(cfg, device: torch.device | str | None = None
                    [losses.astype(np.float64).reshape(-1, 1),
                     np.arange(n_pos).reshape(-1, 1)])
         if cfg.save_plots:  # query | G(E(query)) pairs, fbb.py:91-106 style
-            import PIL.Image
+            from ganleaks_tpu_torch.io.native import encode_png
 
             with torch.inference_mode():
                 x = torch.from_numpy(np.asarray(queries[:20])).to(device)
@@ -156,8 +156,8 @@ def run_reconstruction_attack(cfg, device: torch.device | str | None = None
                 recon = recon.float().cpu().numpy()
             for i in range(min(20, len(queries))):
                 pair = np.concatenate([queries[i], recon[i]], axis=1)
-                PIL.Image.fromarray(to_uint8(pair, drange=(-1, 1))).save(
-                    os.path.join(save_dir, f"{i}{name}.png"))
+                encode_png(to_uint8(pair, drange=(-1, 1)),
+                           os.path.join(save_dir, f"{i}{name}.png"))
         out[f"{name}_loss"] = losses
     out["save_dir"] = save_dir
     out["queries_per_sec"] = (len(pos) + len(neg)) / max(secs, 1e-9)

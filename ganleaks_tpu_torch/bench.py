@@ -1,10 +1,12 @@
 """Headline benchmark of the port: the fbb l2-lpips attack's query-pairs/s
-end to end on one CUDA GPU (the port of root ``bench.py --metric knn``).
+end to end on one CUDA GPU (the port of root ``bench.py --metric knn``),
+or with ``--metric gen`` the DCGAN generator's sampling rate.
 
     python -m ganleaks_tpu_torch.bench             # the north star
     python -m ganleaks_tpu_torch.bench --quick     # a small smoke size
     python -m ganleaks_tpu_torch.bench --n_q 2000 --n_syn 20000
     python -m ganleaks_tpu_torch.bench --engine taps --two_pass
+    python -m ganleaks_tpu_torch.bench --metric gen
 
 Prints ONE JSON line on standard output,
 ``{"metric", "value", "unit", "vs_baseline"}``: query pairs (N_q x N_syn)
@@ -14,6 +16,12 @@ warm-up call on the same sets. ``vs_baseline`` is over the reference's
 torch-CPU rate (``BASELINE.md``). A JSON line on standard error gives the
 call's featurise / fold / set-up seconds, its plan and OOM resumes, and
 the peak device memory.
+
+``--metric gen`` (root ``bench.py:177-200``): a full-width DCGAN
+generator (nz 100, ngf 64, 64x64, seeded weights) in eval mode samples
+4,096 images in batches of 512 once as a warm-up, then once timed, ending
+on a device synchronise; the value is images/s, ``vs_baseline`` over the
+reference's 240 images/s on one CPU thread (``BASELINE.md``).
 
 The default is the north star: 20,000 queries (10,000 + 10,000) x
 100,000 synthetic images at 64x64, uint8 storage, engine taps-int8 on a
@@ -37,6 +45,8 @@ import torch
 # the reference's torch-CPU rate: LPIPS VGG16 + L2 over 64-image batches
 # on one core (BASELINE.md, "measured baseline")
 REFERENCE_CPU_PAIRS_PER_SEC = 15.0
+# the reference's DCGAN sampling on one CPU thread (BASELINE.md)
+REFERENCE_CPU_GEN_IMAGES_PER_SEC = 240.0
 RESOLUTION = 64
 
 
@@ -97,11 +107,37 @@ def run_bench(cfg, queries: np.ndarray, syn: np.ndarray,
     return out
 
 
+def run_gen_bench(device: torch.device, num: int = 4096, batch: int = 512,
+                  seed: int = 0) -> dict:
+    """Full-width DCGAN sampling: one warm-up pass, then one timed."""
+    from ganleaks_tpu_torch.config import DCGANConfig
+    from ganleaks_tpu_torch.train.dcgan import build_state
+    from ganleaks_tpu_torch.train.sample import sample_images
+
+    cfg = DCGANConfig(seed=seed)
+    gen = build_state(cfg, device).gen
+    rng = torch.Generator(device=device).manual_seed(seed + 2)
+
+    def run():
+        out = sample_images(gen, num, cfg.nz, batch, rng, device)
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        return out
+
+    run()
+    t0 = time.perf_counter()
+    _, img = run()
+    seconds = time.perf_counter() - t0
+    return {"images_per_sec": num / seconds, "seconds": seconds,
+            "num": num, "batch": batch, "finite": bool(img.isfinite().all())}
+
+
 def main(argv=None, device=None) -> int:
     from ganleaks_tpu_torch.config import AttackConfig
     from ganleaks_tpu_torch.device import resolve_device
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--metric", default="knn", choices=["knn", "gen"])
     ap.add_argument("--quick", action="store_true")
     ap.add_argument("--engine", default="taps-int8",
                     choices=["gemm", "pallas", "exact", "taps", "taps-int8"])
@@ -128,6 +164,21 @@ def main(argv=None, device=None) -> int:
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
     device = resolve_device(device)
+    card = (torch.cuda.get_device_name(device) if device.type == "cuda"
+            else "cpu")
+    if args.metric == "gen":
+        out = run_gen_bench(device, num=256 if args.quick else 4096,
+                            batch=64 if args.quick else 512, seed=args.seed)
+        print(json.dumps({"detail": out}), file=sys.stderr)
+        if not out["finite"]:
+            return 1
+        print(json.dumps({
+            "metric": f"DCGAN 64x64 generation images/sec ({card})",
+            "value": round(out["images_per_sec"], 1), "unit": "images/sec",
+            "vs_baseline": round(out["images_per_sec"]
+                                 / REFERENCE_CPU_GEN_IMAGES_PER_SEC, 1)}),
+            flush=True)
+        return 0
 
     n_q, n_syn, q_block, s_block, cache_gb, store = resolve_defaults(
         quick=args.quick, n_q=args.n_q, n_syn=args.n_syn,
@@ -147,8 +198,6 @@ def main(argv=None, device=None) -> int:
     out = run_bench(cfg, queries, syn, device)
 
     value = n_q * n_syn / out["seconds"]
-    card = (torch.cuda.get_device_name(device) if device.type == "cuda"
-            else "cpu")
     mode = f"{args.engine}+two-pass" if args.two_pass else args.engine
     print(json.dumps({
         "detail": {k: out.get(k) for k in (

@@ -1,12 +1,14 @@
-"""Typed configuration (copy of the attack, evaluation, FID and LPIPS
-scoring part of ``ganleaks_tpu.config``): one dataclass per entry point,
+"""Typed configuration (copy of the attack, evaluation, FID, LPIPS scoring
+and DCGAN / WGAN-GP training part of ``ganleaks_tpu.config``): one
+dataclass per entry point,
 a YAML loader (PyYAML imported only when a file or a raw string needs
 parsing) and ``key=value`` overrides whose unknown keys raise.
 
 The fields are the JAX package's, so existing YAML configs load unchanged.
 Fields that select a layout this port does not have yet (``n_chips > 1``,
-``multihost``) are accepted here and refused by
-``attack.fbb.attack_arrays`` with a pointer to the ROADMAP item.
+``multihost``, a trainer's ``mesh_shape`` other than ``(1,)``) are
+accepted here and refused by the entry point with a pointer to the
+ROADMAP item.
 """
 
 from __future__ import annotations
@@ -154,17 +156,20 @@ class AttackConfig:
     uint8_storage: bool = True     # keep image sets as uint8 bytes
     host_stream: bool | str = "auto"  # where the image sets live during
                                    # the search: True in host memory (one
-                                   # block shipped at a time), False on
+                                   # block shipped at a time; a PNG
+                                   # synthetic dir decoded as it is read,
+                                   # io/stream.HostImageSet), False on
                                    # the card (copied once), 'auto' on the
                                    # card where they fit beside the
                                    # search's planned memory, else host
-    decode_cache: bool | str = "auto"  # JAX-only PNG decode cache; kept for
-                                   # config compatibility
+    decode_cache: bool | str = "auto"  # decoded-PNG disk cache
+                                   # (io/diskcache): 'auto' beside the data,
+                                   # False/'off' none, a path pins the dir
     drop_remainder: bool = False   # replicate fbb.py:77 remainder drop
     n_chips: int = 1               # >1 not ported yet (ROADMAP)
     shard_layout: str = "sharded"  # 'sharded' | 'ring' (multi-GPU, later)
     multihost: bool = False        # not ported yet (ROADMAP)
-    save_plots: bool = True        # the 20 closest-pair PNGs (needs Pillow)
+    save_plots: bool = True        # the 20 closest-pair PNGs
     wandb: str | None = None
     seed: int = 0
 
@@ -260,3 +265,61 @@ class EvalConfig:
     # non-finite losses are refused unless the caller opts in; the result
     # then carries degenerate=True
     allow_nonfinite: bool = False
+
+
+# ---------------------------------------------------------------------------
+# victim model configs (reference: gan_models/*)
+# ---------------------------------------------------------------------------
+
+@dataclass
+class TrainCommon:
+    """Fields shared by every victim trainer (the repeated argparse block,
+    e.g. ``gan_models/dcgan/train_torch.py:23-50``)."""
+
+    data_path: str = "data/train"
+    image_size: int = 64
+    nc: int = 3
+    batch_size: int = 128
+    num_epochs: int = 5
+    seed: int = 0
+    save_model: bool = True
+    saved_model_name: str | None = None  # a run dir holding generator.pth
+    training: bool = True
+    generate: bool = True
+    PATH: str = "model_save"
+    PATH_syn_data: str = "syn_data"
+    wandb: str | None = None
+    # per-epoch generated-sample grids (reference: wandb image logging,
+    # train_torch.py:125-127); "auto" -> <PATH>/sample_grids, None disables
+    sample_grid_dir: str | None = "auto"
+    # data-parallel mesh over the batch axis: only (1,) is ported (ROADMAP
+    # M12); anything else raises
+    mesh_shape: tuple[int, ...] = (1,)
+
+
+@dataclass
+class DCGANConfig(TrainCommon):
+    """``gan_models/dcgan/train_torch.py:23-50`` + ``dcgan_config.yaml``."""
+
+    lr: float = 2e-4
+    nz: int = 100
+    ngf: int = 64
+    ndf: int = 64
+    beta1: float = 0.5
+    beta2: float = 0.999
+    num_generated: int = 2040
+
+
+@dataclass
+class WGANGPConfig(TrainCommon):
+    """``gan_models/wgangp/train.py:24-53``."""
+
+    lr: float = 4e-4
+    nz: int = 100
+    ngf: int = 64
+    ndf: int = 64
+    beta1: float = 0.0
+    beta2: float = 0.9
+    critic_iter: int = 5
+    lambda_gp: float = 10.0
+    num_generated: int = 2040

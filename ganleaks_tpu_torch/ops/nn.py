@@ -1,5 +1,6 @@
 """PyTorch layers with the numerics of the JAX package's torch-compatible
-blocks (port of the inference part of ``ganleaks_tpu.ops.nn``), NCHW.
+blocks (port of ``ganleaks_tpu.ops.nn`` for the VAE-GAN, DCGAN and
+WGAN-GP nets), NCHW.
 
 The JAX blocks re-create torch layers on NHWC; here most are the torch
 layers themselves under the JAX names, and what matters is how the JAX
@@ -12,13 +13,20 @@ parameters map onto them (``weights.load_jax_tree``):
   input channels) maps to the IOHW weight by ``transpose(2, 3, 0, 1)``;
 * ``DenseTorch``: ``nn.Linear``; kernel (in, out) -> weight (out, in);
 * ``ChannelsToLinear``: flatten in NCHW order, then a linear layer;
-* ``BatchNormTorch``: running statistics only (eps 1e-5), in float32;
+* ``BatchNormTorch``: at evaluation the running statistics (eps 1e-5) in
+  float32; in training the batch statistics, accumulating the unbiased
+  variance into the running ones (``F.batch_norm``, momentum 0.1);
+* ``InstanceNorm2d``: ``nn.InstanceNorm2d`` with the JAX block's default
+  ``affine=True`` (``wgangp/model.py:28``); scale/bias -> weight/bias;
+* ``normal_init_`` / ``initialize_weights``: the reference's N(0, 0.02)
+  draw of every conv and BatchNorm weight (``dcgan/model_torch.py:
+  124-127``) from an explicit ``torch.Generator``;
 * ``SNConvTranspose2d``: spectral norm as the VAE-GAN wrapper does it at
   evaluation (``vaegan/ops.py:23-75``);
 * ``SelfAttention``: SAGAN attention (``vaegan/ops.py:86-120``).
 
-Train-mode batch statistics, ``SNConv2d``, ``SNDense`` and the PGGAN
-blocks belong to training and are not ported yet (ROADMAP M10).
+``SNConv2d``, ``SNDense`` and the PGGAN blocks belong to the VAE-GAN and
+PGGAN trainers and are not ported yet (ROADMAP M10).
 """
 
 from __future__ import annotations
@@ -47,14 +55,18 @@ class ChannelsToLinear(nn.Module):
 
 
 class BatchNormTorch(nn.Module):
-    """torch ``BatchNorm2d``/``1d`` at evaluation over the channel axis
-    (dim 1): ``(x - mean) * rsqrt(var + eps) * scale + bias`` in float32,
-    cast back to the input dtype. Training mode raises: batch statistics
-    are not ported yet (ROADMAP M10)."""
+    """torch ``BatchNorm2d``/``1d`` over the channel axis (dim 1). At
+    evaluation ``(x - mean) * rsqrt(var + eps) * scale + bias`` from the
+    running statistics, in float32, cast back to the input dtype. In
+    training (``ganleaks_tpu.ops.nn._TorchBN``) the batch's mean and biased
+    variance normalise, and the unbiased variance enters the running
+    statistics with ``momentum``; torch reduces in its own order where the
+    JAX package takes E[x^2] - mean^2, so the two agree to rounding."""
 
-    def __init__(self, num_features: int, eps: float = 1e-5):
+    def __init__(self, num_features: int, eps: float = 1e-5,
+                 momentum: float = 0.1):
         super().__init__()
-        self.eps = eps
+        self.eps, self.momentum = eps, momentum
         self.weight = nn.Parameter(torch.ones(num_features))
         self.bias = nn.Parameter(torch.zeros(num_features))
         self.register_buffer("running_mean", torch.zeros(num_features))
@@ -62,15 +74,64 @@ class BatchNormTorch(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.training:
-            raise NotImplementedError(
-                "BatchNormTorch runs on running statistics only; call "
-                ".eval() (train-mode statistics: ROADMAP M10)")
+            return F.batch_norm(x, self.running_mean, self.running_var,
+                                self.weight, self.bias, training=True,
+                                momentum=self.momentum, eps=self.eps)
         shape = (1, -1) + (1,) * (x.dim() - 2)
         ct = torch.promote_types(x.dtype, torch.float32)
         y = ((x.to(ct) - self.running_mean.to(ct).view(shape))
              * torch.rsqrt(self.running_var.to(ct).view(shape) + self.eps))
         return (y * self.weight.to(ct).view(shape)
                 + self.bias.to(ct).view(shape)).to(x.dtype)
+
+
+class InstanceNorm2d(nn.InstanceNorm2d):
+    """``nn.InstanceNorm2d`` with ``affine=True`` by default, as the JAX
+    block (``wgangp/model.py:28``): per-sample, per-channel normalisation
+    over H, W with the biased variance, eps 1e-5, no running statistics."""
+
+    def __init__(self, num_features: int, eps: float = 1e-5,
+                 affine: bool = True):
+        super().__init__(num_features, eps=eps, affine=affine)
+
+
+def normal_init_(tensor: torch.Tensor, std: float = 0.02,
+                 generator: torch.Generator | None = None) -> torch.Tensor:
+    """Fill ``tensor`` from N(0, std) in place (``normal_init``)."""
+    with torch.no_grad():
+        return tensor.normal_(0.0, std, generator=generator)
+
+
+def torch_conv_default_init_(tensor: torch.Tensor, fan_in: int,
+                             generator: torch.Generator | None = None
+                             ) -> torch.Tensor:
+    """torch's default Conv/Linear draw, U(-1/sqrt(fan_in), 1/sqrt(fan_in)),
+    in place (``torch_conv_default_init``)."""
+    bound = 1.0 / fan_in ** 0.5
+    with torch.no_grad():
+        return tensor.uniform_(-bound, bound, generator=generator)
+
+
+def initialize_weights(model: nn.Module, generator: torch.Generator,
+                       std: float = 0.02) -> nn.Module:
+    """The reference's ``initialize_weights`` (``dcgan/model_torch.py:
+    124-127``, ``wgangp/model.py:61-64``): every Conv2d, ConvTranspose2d
+    and BatchNorm weight from N(0, std) — BatchNorm's scale included —
+    with BatchNorm biases zero and conv biases torch's default U(+-1 /
+    sqrt(fan_in)) (fan_in = weight.shape[1] * k * k: input channels for a
+    conv, output channels for a transposed one), all drawn from
+    ``generator`` in module order. InstanceNorm keeps its (1, 0)."""
+    for m in model.modules():
+        if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d)):
+            normal_init_(m.weight, std, generator)
+            if m.bias is not None:
+                fan_in = m.weight.shape[1] * m.weight[0, 0].numel()
+                torch_conv_default_init_(m.bias, fan_in, generator)
+        elif isinstance(m, BatchNormTorch):
+            normal_init_(m.weight, std, generator)
+            with torch.no_grad():
+                m.bias.zero_()
+    return model
 
 
 def l2normalize(v: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:

@@ -1,5 +1,7 @@
-"""Parameter files shared with the JAX package, read and written with numpy
-(and msgpack, imported where a ``.msgpack`` file is read).
+"""Parameter files: the JAX package's, read and written with numpy (and
+msgpack, imported where a ``.msgpack`` file is read), and the reference's
+torch state dicts (``generator.pth`` and the like), which the port's
+victims save and load under the reference's keys.
 
 * npz (``ganleaks_tpu.utils.checkpoint.save_params_npz``): one array per
   leaf of the nested parameter dict, keyed by its path joined with ``/``
@@ -106,3 +108,28 @@ def load_variables(path: str) -> dict:
     if path.endswith(".npz"):
         return load_params_npz(path)
     return load_params_msgpack(path)
+
+
+def save_state_dict(path: str, model) -> None:
+    """``torch.save(model.state_dict())`` (``train_torch.py:131-136``):
+    for the port's victims the reference's keys, so the reference loads
+    the file into its own model."""
+    import torch
+
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    torch.save(model.state_dict(), path)
+
+
+def load_state_dict(model, source):
+    """Load a state dict (a ``.pth`` path or a mapping of tensors) into
+    ``model`` by name, strictly: every key of the model must be there and
+    no other, except BatchNorm's ``num_batches_tracked``, which the
+    reference saves and the port's BatchNorm does not keep. Returns
+    ``model``."""
+    import torch
+
+    if isinstance(source, str):
+        source = torch.load(source, map_location="cpu", weights_only=True)
+    model.load_state_dict({k: v for k, v in source.items()
+                           if not k.endswith("num_batches_tracked")})
+    return model

@@ -13,10 +13,17 @@
   "batch_stats", "spectral"}`` that the JAX trainer saves and
   ``tools/convert_victim.py`` writes <-> the port's modules
   (:func:`load_jax_tree` / :func:`dump_jax_tree`).
+* DCGAN / WGAN-GP generator, discriminator and critic: the JAX trainers'
+  ``{"params", "batch_stats"}`` (``block{i}_conv``, ``block{i}/bn``,
+  ``block{i}_in``, ``to_img``, ``from_img``, ``head``) <-> the port's
+  modules, whose own keys are the reference's state-dict keys.
 
 Leaves are numpy (or any array-like); kernels are transposed HWIO -> OIHW
-(conv), HWIO -> IOHW (transposed conv, ``transpose(2, 3, 0, 1)``) and
-(in, out) -> (out, in) (dense).
+(conv), HWIO -> IOHW (transposed conv, ``transpose(2, 3, 0, 1)``: the JAX
+layer convolves with the spatially flipped kernel, which is the
+definition of the transposed convolution, so no flip is applied here) and
+(in, out) -> (out, in) (dense); BatchNorm and InstanceNorm scale/bias ->
+weight/bias, BatchNorm mean/var -> running_mean/running_var.
 """
 
 from __future__ import annotations
@@ -27,7 +34,8 @@ from torch import nn
 
 from ganleaks_tpu_torch.ops.inception import BasicConv2d, InceptionV3Pool3
 from ganleaks_tpu_torch.ops.lpips.lpips import LPIPS
-from ganleaks_tpu_torch.ops.nn import BatchNormTorch, SNConvTranspose2d
+from ganleaks_tpu_torch.ops.nn import (BatchNormTorch, InstanceNorm2d,
+                                       SNConvTranspose2d)
 
 
 def _copy(dst: torch.Tensor, src, name: str) -> None:
@@ -175,10 +183,15 @@ def load_jax_tree(module: nn.Module, params: dict,
             _copy(module.running_mean, batch_stats["bn"]["mean"], path)
             _copy(module.running_var, batch_stats["bn"]["var"], path)
             return
+        if isinstance(module, InstanceNorm2d):
+            _copy(module.weight, params["scale"], path)
+            _copy(module.bias, params["bias"], path)
+            return
         if isinstance(module, (SNConvTranspose2d, nn.ConvTranspose2d)):
             _copy(module.weight,
                   np.asarray(params["kernel"]).transpose(2, 3, 0, 1), path)
-            _copy(module.bias, params["bias"], path)
+            if module.bias is not None:
+                _copy(module.bias, params["bias"], path)
             if isinstance(module, SNConvTranspose2d):
                 _copy(module.u, spectral["u"], path)
                 _copy(module.v, spectral["v"], path)
@@ -186,7 +199,8 @@ def load_jax_tree(module: nn.Module, params: dict,
         if isinstance(module, nn.Conv2d):
             _copy(module.weight,
                   np.asarray(params["kernel"]).transpose(3, 2, 0, 1), path)
-            _copy(module.bias, params["bias"], path)
+            if module.bias is not None:
+                _copy(module.bias, params["bias"], path)
             return
         if isinstance(module, nn.Linear):
             _copy(module.weight, np.asarray(params["kernel"]).T, path)
@@ -214,16 +228,20 @@ def dump_jax_tree(module: nn.Module) -> dict:
                         "bias": _np(module.bias)}
         stats["bn"] = {"mean": _np(module.running_mean),
                        "var": _np(module.running_var)}
+    elif isinstance(module, InstanceNorm2d):
+        params.update(scale=_np(module.weight), bias=_np(module.bias))
     elif isinstance(module, (SNConvTranspose2d, nn.ConvTranspose2d)):
         params["kernel"] = np.ascontiguousarray(
             _np(module.weight).transpose(2, 3, 0, 1))
-        params["bias"] = _np(module.bias)
+        if module.bias is not None:
+            params["bias"] = _np(module.bias)
         if isinstance(module, SNConvTranspose2d):
             spectral.update(u=_np(module.u), v=_np(module.v))
     elif isinstance(module, nn.Conv2d):
         params["kernel"] = np.ascontiguousarray(
             _np(module.weight).transpose(2, 3, 1, 0))
-        params["bias"] = _np(module.bias)
+        if module.bias is not None:
+            params["bias"] = _np(module.bias)
     elif isinstance(module, nn.Linear):
         params["kernel"] = np.ascontiguousarray(_np(module.weight).T)
         params["bias"] = _np(module.bias)
@@ -269,3 +287,104 @@ def vaegan_from_jax_variables(kind: str, variables: dict,
     load_jax_tree(model, params, variables.get("batch_stats"),
                   variables.get("spectral"))
     return model.eval()
+
+
+# ---------------------------------------------------------------------------
+# DCGAN / WGAN-GP
+# ---------------------------------------------------------------------------
+
+def _gan_layers(model: nn.Module) -> list[tuple[str, nn.Module]]:
+    """(JAX variable name, layer) for every weighted layer of a port
+    ``Generator`` (``block{i}_conv``, ``block{i}`` BatchNorm, ``to_img``),
+    ``Discriminator`` (``from_img``, ``block{j}_conv``, ``block{j}``,
+    ``head``) or ``Critic`` (``block{j}_in`` for its InstanceNorms)."""
+    if hasattr(model, "gen"):
+        *blocks, to_img, _tanh = model.gen
+        out = []
+        for i, (conv, bn, _relu) in enumerate(blocks):
+            out += [(f"block{i}_conv", conv), (f"block{i}", bn)]
+        return out + [("to_img", to_img)]
+    from_img, _act, *blocks, head = model.disc
+    out = [("from_img", from_img)]
+    for j, (conv, norm, _act) in enumerate(blocks):
+        name = f"block{j}_in" if isinstance(norm, InstanceNorm2d) \
+            else f"block{j}"
+        out += [(f"block{j}_conv", conv), (name, norm)]
+    return out + [("head", head)]
+
+
+def gan_load_jax_variables(model: nn.Module, variables: dict) -> nn.Module:
+    """Copy the JAX trainer's ``{"params"[, "batch_stats"]}`` onto a port
+    DCGAN/WGAN-GP module (:func:`load_jax_tree` layer by layer)."""
+    params = variables["params"]
+    stats = variables.get("batch_stats") or {}
+    for name, layer in _gan_layers(model):
+        if name not in params:
+            raise KeyError(f"no {name!r} in the parameter tree")
+        load_jax_tree(layer, params[name], stats.get(name), path=name)
+    return model
+
+
+def gan_to_jax_variables(model: nn.Module) -> dict:
+    """The JAX trainer's ``{"params", "batch_stats"}`` (numpy leaves) of a
+    port DCGAN/WGAN-GP module; ``batch_stats`` is left out for the critic,
+    which has none."""
+    params: dict = {}
+    stats: dict = {}
+    for name, layer in _gan_layers(model):
+        sub = dump_jax_tree(layer)
+        params[name] = sub["params"]
+        if "batch_stats" in sub:
+            stats[name] = sub["batch_stats"]
+    return {"params": params, **({"batch_stats": stats} if stats else {})}
+
+
+def _dcgan_dims(kind: str, params: dict) -> dict:
+    """Constructor arguments read from the kernels' shapes (HWIO)."""
+    n_blocks = sum(k.startswith("block") and k.endswith("_conv")
+                   for k in params)
+    if kind == "generator":
+        cin = np.shape(params["to_img"]["kernel"])[2]
+        return {"nz": int(np.shape(params["block0_conv"]["kernel"])[2]),
+                "nc": int(np.shape(params["to_img"]["kernel"])[3]),
+                "ngf": int(cin) // 2, "image_size": 8 * 2 ** (n_blocks - 1)}
+    shape = np.shape(params["from_img"]["kernel"])
+    dims = {"ndf": int(shape[3]), "nc": int(shape[2])}
+    if kind == "discriminator":
+        dims["image_size"] = 8 * 2 ** n_blocks
+    elif kind != "critic":
+        raise ValueError(f"kind must be 'generator', 'discriminator' or "
+                         f"'critic', got {kind!r}")
+    return dims
+
+
+def dcgan_from_jax_variables(kind: str, variables: dict) -> nn.Module:
+    """The port's DCGAN ``Generator`` or ``Discriminator`` (``kind``), on
+    the CPU in eval mode, from the JAX trainer's variables; widths, latent
+    size and image size are read from the kernels."""
+    from ganleaks_tpu_torch.models.dcgan import Discriminator, Generator
+
+    if kind not in ("generator", "discriminator"):
+        raise ValueError(f"kind must be 'generator' or 'discriminator', "
+                         f"got {kind!r}")
+    cls = Generator if kind == "generator" else Discriminator
+    model = cls(**_dcgan_dims(kind, variables["params"]))
+    return gan_load_jax_variables(model, variables).eval()
+
+
+def wgangp_from_jax_variables(kind: str, variables: dict) -> nn.Module:
+    """The port's WGAN-GP ``Generator`` (DCGAN's) or ``Critic``
+    (``kind``), on the CPU in eval mode, from the JAX trainer's
+    variables."""
+    from ganleaks_tpu_torch.models.wgangp import Critic
+
+    if kind == "generator":
+        return dcgan_from_jax_variables(kind, variables)
+    if kind != "critic":
+        raise ValueError(f"kind must be 'generator' or 'critic', "
+                         f"got {kind!r}")
+    model = Critic(**_dcgan_dims(kind, variables["params"]))
+    return gan_load_jax_variables(model, variables).eval()
+
+
+dcgan_to_jax_variables = wgangp_to_jax_variables = gan_to_jax_variables

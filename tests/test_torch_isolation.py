@@ -383,3 +383,80 @@ def test_device_flags_refuse_without_gpu(monkeypatch, tmp_path):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             call()
     cli_eval_roc.main(["--device", "cpu", f"result_load_dir={run}"])
+
+
+def test_png_ingest_without_optional_libraries(tmp_path):
+    """PNG directories written and read by the port's codec: the attack
+    from PNG dirs with the decode cache and ``HostImageSet``, the
+    closest-pair plots, the training-image reader and the synthetic
+    artifact writer run with JAX, PyYAML, Pillow, matplotlib, sklearn,
+    scipy, pandas and msgpack all unimportable."""
+    code = textwrap.dedent(f"""
+        import os
+        import numpy as np
+        import torch
+        from ganleaks_tpu_torch.attack.fbb import run_attack
+        from ganleaks_tpu_torch.config import AttackConfig
+        from ganleaks_tpu_torch.io.artifacts import write_synthetic_artifacts
+        from ganleaks_tpu_torch.io.data import load_train_images
+        from ganleaks_tpu_torch.io.native import (decode_png,
+                                                  save_png_batch_native)
+        d = {str(tmp_path)!r}
+        os.chdir(d)
+        torch.set_num_threads(1)  # the suite runs in several processes
+        rng = np.random.default_rng(0)
+        sets = {{n: rng.integers(0, 256, (k, 32, 32, 3), np.uint8)
+                 for n, k in (("pos", 3), ("neg", 3), ("syn", 8))}}
+        sets["syn"][[2, 5, 7]] = sets["pos"]
+        for n, arr in sets.items():
+            os.makedirs(f"{{d}}/{{n}}")
+            save_png_batch_native(arr, [f"{{d}}/{{n}}/{{i}}.png"
+                                        for i in range(len(arr))])
+        for host_stream in (False, True):
+            cfg = AttackConfig(syn_data_path=d + "/syn",
+                               pos_data_dir=d + "/pos",
+                               neg_data_dir=d + "/neg", resolution=32,
+                               distance="l2", host_stream=host_stream,
+                               decode_cache="auto")
+            out = run_attack(cfg, device="cpu")[0]
+            assert out["pos_nn_idx"].tolist() == [2, 5, 7], out
+        assert decode_png(out["save_dir"] + "/0pos.png").shape == (32, 64, 3)
+        assert os.path.isdir(d + "/syn/.ganleaks_decoded")
+        x = load_train_images(d + "/pos", 32)
+        assert x.dtype == np.float32 and x.shape == (3, 32, 32, 3)
+        dirs = write_synthetic_artifacts(d + "/art", "dcgan",
+                                         (x + 1) / 2, np.zeros((3, 4)))
+        assert len(os.listdir(dirs["png_images"])) == 3
+        print("ok")
+    """)
+    res = _run_isolated(code)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip().endswith("ok")
+
+
+def test_victim_entry_points_refuse_without_gpu(monkeypatch, tmp_path):
+    """The trainers, the generators, their CLIs (whose ``--device``
+    defaults to cuda) and ``bench --metric gen`` refuse without a GPU."""
+    from ganleaks_tpu_torch import bench
+    from ganleaks_tpu_torch.cli import train_dcgan as cli_dcgan
+    from ganleaks_tpu_torch.cli import train_wgangp as cli_wgangp
+    from ganleaks_tpu_torch.config import DCGANConfig, WGANGPConfig
+    from ganleaks_tpu_torch.train import dcgan, wgangp
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.chdir(tmp_path)
+    imgs = np.zeros((4, 16, 16, 3), np.float32)
+    cfg = DCGANConfig(image_size=16, nz=4, ngf=4, ndf=4)
+    calls = [
+        lambda: dcgan.train(cfg, images=imgs),
+        lambda: dcgan.generate(cfg),
+        lambda: wgangp.train(WGANGPConfig(), images=imgs),
+        lambda: wgangp.generate(WGANGPConfig()),
+        lambda: cli_dcgan.main([f"data_path={tmp_path}"]),
+        lambda: cli_wgangp.main([f"data_path={tmp_path}"]),
+        lambda: cli_dcgan.main(["--device", "cuda", "training=false"]),
+        lambda: bench.main(["--metric", "gen", "--quick"]),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()

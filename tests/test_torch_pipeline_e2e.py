@@ -16,6 +16,7 @@ import os
 import sys
 
 import numpy as np
+import PIL.Image
 import pytest
 
 from ganleaks_tpu.attack.eval_roc import evaluate as j_evaluate
@@ -32,6 +33,7 @@ from ganleaks_tpu_torch.attack.fbb import (attack_arrays,
 from ganleaks_tpu_torch.cli import eval_roc as cli_eval_roc
 from ganleaks_tpu_torch.cli.common import parse_config
 from ganleaks_tpu_torch.config import AttackConfig, EvalConfig, ScoresConfig
+from ganleaks_tpu_torch.io.native import decode_png
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -82,10 +84,11 @@ def _assert_runs_agree(rj, rt, lpips: bool):
     assert sorted(os.listdir(rt["save_dir"])) \
         == sorted(os.listdir(rj["save_dir"]))
     for f in os.listdir(rj["save_dir"]):
-        if f.endswith(".png"):
-            with open(os.path.join(rj["save_dir"], f), "rb") as a, \
-                    open(os.path.join(rt["save_dir"], f), "rb") as b:
-                assert a.read() == b.read(), f
+        if f.endswith(".png"):  # the port's encoder: same pixels
+            np.testing.assert_array_equal(
+                decode_png(os.path.join(rt["save_dir"], f)),
+                np.asarray(PIL.Image.open(os.path.join(rj["save_dir"], f))),
+                err_msg=f)
     # the port's AttackConfig adds one field, the planner's switch
     with open(os.path.join(rj["save_dir"], "params.txt")) as a, \
             open(os.path.join(rt["save_dir"], "params.txt")) as b:

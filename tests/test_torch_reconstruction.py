@@ -165,8 +165,17 @@ def test_batchnorm_eval_matches_jax(shape):
     got = tmod(xt)
     got = _nhwc(got) if len(shape) == 4 else got.detach().numpy()
     np.testing.assert_allclose(got, want, rtol=0, atol=ATOL)
-    with pytest.raises(NotImplementedError, match="M10"):
-        tmod.train()(xt)
+    # train mode (ported with the DCGAN trainer): batch statistics, and
+    # the running ones updated as the JAX layer updates them
+    want, upd = jmod.apply(v, x, use_running_average=False,
+                           mutable=["batch_stats"])
+    got = tmod.train()(xt)
+    got = _nhwc(got) if len(shape) == 4 else got.detach().numpy()
+    np.testing.assert_allclose(got, np.asarray(want), rtol=0, atol=ATOL)
+    np.testing.assert_allclose(tmod.running_mean.numpy(),
+                               upd["batch_stats"]["bn"]["mean"], atol=ATOL)
+    np.testing.assert_allclose(tmod.running_var.numpy(),
+                               upd["batch_stats"]["bn"]["var"], atol=ATOL)
 
 
 def test_channels_to_linear_matches_jax():
