@@ -133,9 +133,31 @@ Phases, each printing JSON lines:
    training PNGs planted in the PNG dump, ``run_attack`` ('auto') with
    the training and 1,024 held-out PNGs as members and non-members, and
    ``evaluate`` (AUROC, every planted member below every non-member);
-   then ``bench --metric gen`` (4,096 images, batch 512).
+   then ``bench --metric gen`` (4,096 images, batch 512);
+13. victims2: VAE-GAN (d 64, z 100, 64 px, batch 64), medGAN (D = 1,071
+   codes, latent 128, batch 2,000) and PGGAN (nz 512, in_channels 512,
+   4 -> 64 px, batch 32, bfloat16) — their first 3 steps from the same
+   weights, batches and draws at lr 0 and at the configs' lr on the CPU
+   in float64 and on the card in float64 and float32 (VAE-GAN at batch
+   8, medGAN 256, PGGAN 8 at 8 px; ``v2_hold`` states each bound and
+   why), PGGAN's card float32 against its float64 at 64 px and its bf16
+   step against both; then each through its entry points: VAE-GAN
+   ``train`` on phase 12's 1,024 training PNGs for 2 epochs of 8
+   iterations (a checkpoint after each), the same run stopped after one
+   epoch and resumed (held against the uninterrupted one), ``sample``
+   2,048, ``run_reconstruction_attack`` with the trained ``netE`` /
+   ``netG`` on 256 training and 256 held-out PNGs; medGAN ``train`` from
+   a seeded 10,000 x 1,071 CSV with missing fields (2 pretrain and 2 GAN
+   epochs), ``generate`` 10,000 records, ``run_tabular_attack``
+   ('pallas': K1 launches counted); PGGAN's progressive ``train`` at
+   4 -> 64 px on the 256 training PNGs (8 batches a resolution, the
+   fade-in active), ``generate`` 2,040, 64 training PNGs planted,
+   ``run_attack`` ('auto': K2 launches counted; every planted member
+   below every non-member); each ``evaluate``d; and steps/s timed apart
+   (VAE-GAN iterations, medGAN steps, PGGAN at 64 px in bf16 and
+   float32).
 
-Phases 7, 8 and 12's training and sampling run no hand-written kernel
+Phases 7, 8, 12 and 13's training and sampling run no hand-written kernel
 (their convolutions and products are the library's, as in the JAX package
 they are XLA's); their launch counts are read and printed all the same.
 
@@ -216,6 +238,26 @@ VICTIM_UPDATE_RTOL = 0.5  # trained: updates, statistics' change, L2
 VICTIM_F64_RTOL = 1e-9    # losses, gradients, updates, statistics
 VICTIM_F64_STEP = 1e-6    # every trained parameter, in units of lr
 VICTIM_TIMED_STEPS = 10   # train steps timed at batch 128 after a warm-up
+# phase 13: VAE-GAN, medGAN and PGGAN at the reference's widths
+V2_HOLD_STEPS = 3
+V2_HOLD_BATCH = {"vaegan": 8, "medgan": 256, "pggan": 8}
+V2_PGGAN_CPU_STEPS = 1     # the CPU's float64 PGGAN steps at 8 px
+V2_PGGAN_TOP = 4           # 64 px: the card's own float64 / float32 / bf16
+V2_ALPHA = 0.5
+# the card's float64 parameters against the CPU's, in units of lr: Adam
+# divides a zero gradient's float64 rounding noise (~1e-14 on the biases
+# ahead of a train-mode BatchNorm) by its eps 1e-8, up to 1e-6 lr a step
+V2_F64_STEP = 1e-5
+# trained losses, float32 against float64: PGGAN's read 2.1-4.7% at
+# 64 px (Adam's sign-like steps part the trajectories)
+V2_TRAJ_RTOL = {"vaegan": 1e-2, "medgan": 1e-3, "pggan": 0.1}
+V2_BF16_LOSS = 0.08        # bf16 lr-0 losses, relative (absolute < 1)
+V2_BF16_TRAJ = 0.15        # bf16 trained losses (float32's drift 2%)
+V2_BF16_GRAD = 0.25        # bf16 lr-0 gradients, L2, relative
+V2_BF16_UPDATE = 1.0       # bf16 trained updates, L2, relative
+V2_TRAIN_PNGS = 256        # PGGAN's training set; the attacks' query sets
+V2_PLANT = 64              # PGGAN training PNGs planted in its dump
+TAB2_ROWS = 10000          # medGAN's seeded CSV: rows x TAB_D codes
 
 
 def emit(obj: dict) -> None:
@@ -2489,6 +2531,596 @@ def phase_victims(torch, tmp: str) -> dict:
     line = json.loads(buf.getvalue().strip().splitlines()[-1])
     emit({"phase": "bench_gen", **line})
     out["gen_images_per_sec"] = line["value"]
+    out["dirs"] = dirs
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 13: VAE-GAN, medGAN and PGGAN at the reference's widths
+# ---------------------------------------------------------------------------
+
+def v2_config(kind: str, **kw):
+    from ganleaks_tpu_torch.config import (MedGANConfig, PGGANConfig,
+                                           VAEGANConfig)
+    cls = {"vaegan": VAEGANConfig, "medgan": MedGANConfig,
+           "pggan": PGGANConfig}[kind]
+    return cls(seed=SEED, **kw)
+
+
+def v2_state(torch, kind: str, dev: str, dtype):
+    """``kind``'s seeded train state on ``dev`` in ``dtype``, its nets by
+    name, its optimisers and the Adam updates each net takes a step."""
+    from ganleaks_tpu_torch.train import medgan, pggan, vaegan
+    if kind == "vaegan":
+        st = vaegan.build_state(v2_config(kind), dev, dtype)
+        nets = st.nets()
+        opts = list(st.optimizers().values())
+        updates = {"enc": 1, "gen": 1, "disc": 2, "disc_l": 1}
+    elif kind == "medgan":
+        st = medgan.build_state(v2_config(kind), TAB_D, dev, dtype)
+        nets = {"gen": st.gen, "disc": st.disc, "ae": st.ae}
+        opts = [st.opt_gen, st.opt_disc, st.opt_ae_g]
+        updates = dict.fromkeys(nets, 1)
+    else:
+        st = pggan.build_state(v2_config(kind), dev, dtype, V2_PGGAN_TOP)
+        nets = {"gen": st.gen, "disc": st.disc}
+        opts = [st.opt_gen, st.opt_disc]
+        updates = dict.fromkeys(nets, 1)
+    return st, nets, opts, updates
+
+
+def v2_inputs(kind: str, res_steps: int = V2_PGGAN_CPU_STEPS) -> list:
+    # res_steps: PGGAN's resolution index
+    """V2_HOLD_STEPS steps' seeded batches and draws (numpy float32)."""
+    from ganleaks_tpu_torch.io.native import LUT_CROP
+    rng = np.random.default_rng(SEED + 14)
+    b = V2_HOLD_BATCH[kind]
+    cfg = v2_config(kind)
+
+    def images(res):
+        return LUT_CROP[make_images(rng, b, res)].transpose(0, 3, 1, 2).copy()
+
+    def normal(*shape):
+        return rng.standard_normal(shape).astype(np.float32)
+
+    out = []
+    for _ in range(V2_HOLD_STEPS):
+        if kind == "vaegan":
+            z = cfg.z_dim
+            out.append({"real": [images(RES) for _ in range(4)],
+                        "eps_dl": normal(b, z), "noise_dl": normal(b, z),
+                        "noise_d": [normal(b, z), normal(b, z)],
+                        "eps_g": normal(b, z)})
+        elif kind == "medgan":
+            out.append({"real": (rng.random((b, TAB_D)) < 0.05).astype(
+                np.float32), "noise": normal(b, cfg.latent_dim)})
+        else:
+            out.append({"real": images(4 * 2 ** res_steps),
+                        "noise": normal(b, cfg.nz),
+                        "eps": rng.random((b, 1, 1, 1)).astype(np.float32)})
+    return out
+
+
+def v2_arrays(torch, nets: dict, grads: bool = False) -> dict:
+    """Every parameter and buffer (with ``grads``: every parameter's
+    gradient), float64 on the host, keyed '<net>.<name>'."""
+    out = {}
+    for net, model in nets.items():
+        items = ([(k, p.grad) for k, p in model.named_parameters()]
+                 if grads else [*model.named_parameters(),
+                                *model.named_buffers()])
+        out.update({f"{net}.{k}": (np.zeros(1) if v is None else
+                                   v.detach().float().cpu().numpy()
+                                   .astype(np.float64)
+                                   if v.dtype == torch.bfloat16 else
+                                   v.detach().cpu().numpy().astype(
+                                       np.float64)) for k, v in items})
+    return out
+
+
+def v2_steps(torch, kind: str, inputs: list, dev: str, dtype, lr0: bool,
+             compute: str | None = None,
+             res_steps: int = V2_PGGAN_CPU_STEPS):
+    """The held steps of ``kind`` on ``dev`` with parameters in ``dtype``
+    (PGGAN's activations in ``compute``, default the parameters' dtype):
+    per step the losses and, at lr 0 (every step from the same
+    parameters), the gradients and buffers; at the end every parameter and
+    buffer."""
+    from ganleaks_tpu_torch.train import medgan, pggan, vaegan
+    st, nets, opts, _ = v2_state(torch, kind, dev, dtype)
+    if lr0:
+        for opt in opts:
+            for group in opt.param_groups:
+                group["lr"] = 0.0
+    cdt = compute or str(dtype).split(".")[-1]
+    tdt = getattr(torch, cdt) if kind == "pggan" else dtype
+
+    def t(a, d=dtype):
+        return torch.from_numpy(a).to(dev, d)
+
+    hist, grads, bufs = [], [], []
+    t0 = time.perf_counter()
+    for inp in inputs:
+        if kind == "vaegan":
+            m = vaegan.vaegan_train_step(
+                st, *[t(r) for r in inp["real"]], draws={
+                    "eps_dl": t(inp["eps_dl"]), "noise_dl": t(inp["noise_dl"]),
+                    "noise_d": [t(z) for z in inp["noise_d"]],
+                    "eps_g": t(inp["eps_g"])})
+        elif kind == "medgan":
+            m = medgan.medgan_train_step(st, t(inp["real"]),
+                                         noise=t(inp["noise"]))
+        else:
+            m = pggan.pggan_train_step(
+                st, t(inp["real"]), V2_ALPHA, res_steps, compute_dtype=cdt,
+                noise=t(inp["noise"], tdt), eps=t(inp["eps"], tdt))
+        hist.append([float(v) for v in m.values()])
+        if lr0:
+            grads.append(v2_arrays(torch, nets, grads=True))
+            bufs.append({k: v for k, v in v2_arrays(torch, nets).items()
+                         if k in v2_buffer_keys(nets)})
+    if dev != "cpu":
+        torch.cuda.synchronize()
+    return {"losses": np.array(hist), "grads": grads, "bufs": bufs,
+            "final": v2_arrays(torch, nets),
+            "seconds": time.perf_counter() - t0}
+
+
+def v2_buffer_keys(nets: dict) -> set:
+    return {f"{net}.{k}" for net, m in nets.items()
+            for k, _ in m.named_buffers()}
+
+
+def v2_errors(card: dict, ref: dict, init: dict, nets: dict, lrs: dict
+              ) -> dict:
+    """One variant's lr-0 and trained runs against a reference run:
+    losses (relative, absolute below 1); at lr 0 each net's gradients and
+    the buffers' change (L2, relative, the worst step); trained, each
+    net's update and the buffers' change (L2, relative) and the largest
+    parameter difference in units of the net's lr."""
+    bufs = v2_buffer_keys(nets)
+    params = [k for k in init if k not in bufs]
+
+    def keys(net):
+        return [k for k in params if k.split(".")[0] == net]
+
+    def loss_err(mode):
+        c, r = card[mode]["losses"], ref[mode]["losses"]
+        return float((np.abs(c - r) / np.maximum(np.abs(r), 1.0)).max())
+
+    def buf_err(cs, rs):
+        moved = [k for k in bufs if any(
+            np.abs(r[k] - init[k]).max() > 0 for r in rs)]
+        return max((rel_l2(c, r, init, moved) for c, r in zip(cs, rs)),
+                   default=0.0) if moved else 0.0
+
+    c0, r0 = card["lr0"], ref["lr0"]
+    fc, fr = card["trained"]["final"], ref["trained"]["final"]
+    return {
+        "lr0_loss": loss_err("lr0"),
+        "lr0_grad": {n: max(rel_l2(gc, gr, None, keys(n))
+                            for gc, gr in zip(c0["grads"], r0["grads"]))
+                     for n in nets},
+        "lr0_buffers": buf_err(c0["bufs"], r0["bufs"]),
+        "trained_loss": loss_err("trained"),
+        "trained_update": {n: rel_l2(fc, fr, init, keys(n)) for n in nets},
+        "trained_buffers": buf_err([fc], [fr]),
+        "trained_max_param_diff_lr": {n: max(
+            float(np.abs(fc[k] - fr[k]).max()) for k in keys(n)) / lrs[n]
+            for n in nets}}
+
+
+def v2_lrs(kind: str, opts) -> dict:
+    return dict(zip({"vaegan": ("enc", "gen", "disc", "disc_l"),
+                     "medgan": ("gen", "disc", "ae"),
+                     "pggan": ("gen", "disc")}[kind],
+                    (o.param_groups[0]["lr"] for o in opts)))
+
+
+def v2_check_f64(kind: str, err: dict, what: str) -> None:
+    worst = max(err["lr0_loss"], *err["lr0_grad"].values(),
+                err["lr0_buffers"], err["trained_loss"],
+                *err["trained_update"].values(), err["trained_buffers"])
+    check(worst <= VICTIM_F64_RTOL and max(
+        err["trained_max_param_diff_lr"].values()) <= V2_F64_STEP,
+        f"{kind}: {what} is not the same function: {err}")
+
+
+def v2_check_f32(kind: str, err: dict, bound: dict, what: str) -> None:
+    """The float32 bars of ``victim_hold``, with ``kind``'s trajectory
+    bound."""
+    check(err["lr0_loss"] <= VICTIM_LOSS_RTOL,
+          f"{kind} {what}: lr-0 losses off by {err['lr0_loss']:.3g}")
+    check(max(err["lr0_grad"].values()) <= VICTIM_GRAD_RTOL,
+          f"{kind} {what}: gradients {err['lr0_grad']} (L2, relative)")
+    check(err["lr0_buffers"] <= VICTIM_STAT_RTOL,
+          f"{kind} {what}: buffers {err['lr0_buffers']:.3g} (L2, relative)")
+    check(err["trained_loss"] <= V2_TRAJ_RTOL[kind],
+          f"{kind} {what}: trained losses off by {err['trained_loss']:.3g}")
+    check(max(*err["trained_update"].values(), err["trained_buffers"])
+          <= VICTIM_UPDATE_RTOL,
+          f"{kind} {what}: updates {err['trained_update']} / buffers "
+          f"{err['trained_buffers']:.3g}")
+    check(all(err["trained_max_param_diff_lr"][n] <= bound[n]
+              for n in bound),
+          f"{kind} {what}: parameters {err['trained_max_param_diff_lr']} "
+          f"lr apart, over Adam's {bound}")
+
+
+def v2_hold(torch, kind: str) -> dict:
+    """V2_HOLD_STEPS train steps of ``kind`` at the reference's widths
+    from the same seeded weights, batches and draws, at lr 0 and at the
+    configs' lr: on the CPU in float64 (the reference), on the card in
+    float64 (the same function: losses, gradients, buffers and updates
+    within VICTIM_F64_RTOL, parameters within V2_F64_STEP lr) and in
+    float32 (``victim_hold``'s bars; trained losses within
+    V2_TRAJ_RTOL[kind]; every parameter within two of Adam's largest
+    steps per update its net took). Batches: VAE-GAN 8, medGAN 256, PGGAN
+    8 (float64 on the host's cores is the limit). PGGAN's CPU reference
+    runs at 8 px (steps 1, full channel width; 64 px would take minutes a
+    step there); at 64 px (steps 4) the card's float32 is held to its own
+    float64, and its bfloat16 step (parameters and activations cast,
+    losses and Adam in float32) to float64 within V2_BF16_LOSS (lr-0
+    losses), V2_BF16_GRAD (lr-0 gradients), V2_BF16_TRAJ (trained losses:
+    float32 itself drifts 2% from float64 in three steps at lr 1e-3, as
+    Adam's sign-like first steps flip on gradients under its rounding, and
+    bf16's gradients are 7-16% off) and V2_BF16_UPDATE (trained updates);
+    against float32 it is printed."""
+    inputs = v2_inputs(kind)
+    _, nets, opts, updates = v2_state(torch, kind, "cpu", torch.float64)
+    init = v2_arrays(torch, nets)
+    lrs = v2_lrs(kind, opts)
+    betas = opts[0].param_groups[0]["betas"]
+    # two runs can part by Adam's largest step each way per update, plus
+    # float32's rounding of weights up to ~4 (N(0, 1) WSConv kernels):
+    # 5e-4 lr a rounding at PGGAN's lr 1e-3
+    bound = {n: 2 * sum(adam_ratio_bound(betas[0], betas[1], t)
+                        for t in range(1, k * V2_HOLD_STEPS + 1)) + 0.01
+             for n, k in updates.items()}
+
+    def runs(dev, dtype, inp=inputs, **kw):
+        return {m: v2_steps(torch, kind, inp, dev, dtype, m == "lr0", **kw)
+                for m in ("lr0", "trained")}
+
+    ref = runs("cpu", torch.float64)
+    card = {"f64": runs(DEVICE, torch.float64),
+            "f32": runs(DEVICE, torch.float32)}
+    errs = {k: v2_errors(c, ref, init, nets, lrs) for k, c in card.items()}
+    rec = {"phase": "victim2_hold", "victim": kind,
+           "batch": V2_HOLD_BATCH[kind], "steps": V2_HOLD_STEPS, "lrs": lrs,
+           "betas": list(betas), "param_bound_lr": bound,
+           "errors_vs_cpu_f64": errs,
+           "losses_f64": ref["trained"]["losses"].tolist(),
+           "losses_card_f32": card["f32"]["trained"]["losses"].tolist(),
+           "cpu_f64_s": ref["trained"]["seconds"],
+           "card_f32_s": card["f32"]["trained"]["seconds"]}
+    if kind == "pggan":
+        rec["cpu_resolution"] = 4 * 2 ** V2_PGGAN_CPU_STEPS
+        top = v2_inputs(kind, V2_PGGAN_TOP)
+        kw = {"inp": top, "res_steps": V2_PGGAN_TOP}
+        hi = {"f64": runs(DEVICE, torch.float64, **kw),
+              "f32": runs(DEVICE, torch.float32, **kw),
+              "bf16": runs(DEVICE, torch.float32, compute="bfloat16", **kw)}
+        rec["top_resolution"] = 4 * 2 ** V2_PGGAN_TOP
+        rec["top_errors"] = {
+            "f32_vs_f64": v2_errors(hi["f32"], hi["f64"], init, nets, lrs),
+            "bf16_vs_f64": v2_errors(hi["bf16"], hi["f64"], init, nets, lrs),
+            "bf16_vs_f32": v2_errors(hi["bf16"], hi["f32"], init, nets,
+                                     lrs)}
+        rec["top_losses"] = {k: v["trained"]["losses"].tolist()
+                             for k, v in hi.items()}
+    emit(rec)
+    v2_check_f64(kind, errs["f64"], "the card's float64")
+    v2_check_f32(kind, errs["f32"], bound, "the card's float32")
+    moved = max(float(np.abs(ref["trained"]["final"][k] - init[k]).max())
+                for k in init if k not in v2_buffer_keys(nets))
+    check(moved > 0.5 * min(lrs.values()),
+          f"{kind}: the steps barely moved the weights ({moved:.3g})")
+    if kind == "pggan":
+        top = rec["top_errors"]
+        v2_check_f32(kind, top["f32_vs_f64"], bound, "64 px float32")
+        e = top["bf16_vs_f64"]
+        check(e["lr0_loss"] <= V2_BF16_LOSS
+              and e["trained_loss"] <= V2_BF16_TRAJ
+              and max(e["lr0_grad"].values()) <= V2_BF16_GRAD
+              and max(e["trained_update"].values()) <= V2_BF16_UPDATE,
+              f"pggan bf16 at 64 px against float64: {e}")
+    return rec
+
+
+def v2_rate(torch, fn, warm: int = 1, reps: int = VICTIM_TIMED_STEPS
+            ) -> float:
+    """Calls of ``fn`` per second on the card, synchronised, after
+    ``warm`` untimed calls."""
+    for _ in range(warm):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return reps / (time.perf_counter() - t0)
+
+
+def v2_step_rates(torch) -> dict:
+    """Train steps per second at the configs' batches on one seeded batch
+    (iterations for VAE-GAN: four batches each); PGGAN at its top
+    resolution in bfloat16 and in float32."""
+    from ganleaks_tpu_torch.train import medgan, pggan, vaegan
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+
+    def images(b, res=RES):
+        return torch.rand(b, 3, res, res, generator=gen,
+                          device=DEVICE) * 2 - 1
+
+    out = {}
+    st, *_ = v2_state(torch, "vaegan", DEVICE, torch.float32)
+    b = v2_config("vaegan").batch_size
+    reals = [images(b) for _ in range(4)]
+    out["vaegan_iterations_per_sec"] = v2_rate(
+        torch, lambda: vaegan.vaegan_train_step(st, *reals, generator=gen))
+    st, *_ = v2_state(torch, "medgan", DEVICE, torch.float32)
+    rows = (torch.rand(v2_config("medgan").batch_size, TAB_D,
+                       generator=gen, device=DEVICE) < 0.05).float()
+    out["medgan_steps_per_sec"] = v2_rate(
+        torch, lambda: medgan.medgan_train_step(st, rows, generator=gen))
+    cfg = v2_config("pggan")
+    real = images(cfg.batch_sizes[-1], cfg.image_size)
+    for cdt in ("bfloat16", "float32"):
+        st, *_ = v2_state(torch, "pggan", DEVICE, torch.float32)
+        out[f"pggan_{cfg.image_size}px_{cdt}_steps_per_sec"] = v2_rate(
+            torch, lambda: pggan.pggan_train_step(
+                st, real, 1.0, V2_PGGAN_TOP, cfg.lambda_gp, cfg.drift, cdt,
+                generator=gen))
+    return out
+
+
+def v2_subset(src: str, dst: str, n: int) -> str:
+    """A directory holding links to the first ``n`` PNGs of ``src``."""
+    os.makedirs(dst)
+    for f in sorted(f for f in os.listdir(src) if f.endswith(".png"))[:n]:
+        os.link(os.path.join(src, f), os.path.join(dst, f))
+    return dst
+
+
+def v2_vaegan(torch, tmp: str, dirs: dict, queries: dict) -> dict:
+    """``train`` on the training PNGs for two epochs of eight iterations
+    (a checkpoint after each), the same run stopped after one epoch and
+    resumed, held against it within VICTIM_UPDATE_RTOL (cuDNN's backward
+    is not deterministic, and Adam's sign-like steps carry its rounding:
+    a second uninterrupted run is printed beside it); ``sample``; ``run_reconstruction_attack``
+    with the trained ``netE`` / ``netG`` on the query sets, ``evaluate``."""
+    from ganleaks_tpu_torch.attack.eval_roc import evaluate
+    from ganleaks_tpu_torch.attack.reconstruction import \
+        run_reconstruction_attack
+    from ganleaks_tpu_torch.config import EvalConfig, ReconstructionConfig
+    from ganleaks_tpu_torch.train import vaegan
+    from ganleaks_tpu_torch.utils.logging import MetricsLogger
+    cwd = os.getcwd()
+    os.chdir(tmp)
+    try:
+        kw = {"data_path": dirs["train"], "steps_per_epoch": 8,
+              "checkpoint_every": 1, "num_samples": 2048}
+        quiet = MetricsLogger(echo=False)
+        init = v2_arrays(torch, v2_state(torch, "vaegan", "cpu",
+                                         torch.float32)[1])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        full = vaegan.train(v2_config("vaegan", exp_name="full", nepoch=2,
+                                      **kw), logger=quiet, device=DEVICE)
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        again = vaegan.train(v2_config("vaegan", exp_name="again", nepoch=2,
+                                       **kw), logger=quiet, device=DEVICE)
+        vaegan.train(v2_config("vaegan", exp_name="resumed", nepoch=1, **kw),
+                     logger=quiet, device=DEVICE)
+        resumed = vaegan.train(v2_config("vaegan", exp_name="resumed",
+                                         nepoch=2, **kw),
+                               logger=quiet, device=DEVICE)
+        a = v2_arrays(torch, full.nets())
+        b = v2_arrays(torch, resumed.nets())
+        params = [k for k in init if k not in v2_buffer_keys(full.nets())]
+        resume_rel = rel_l2(b, a, init, params)
+        rerun_rel = rel_l2(v2_arrays(torch, again.nets()), a, init, params)
+        bit_exact = all(np.array_equal(a[k], b[k]) for k in a)
+        t0 = time.perf_counter()
+        vaegan.sample(v2_config("vaegan", exp_name="full", **kw), full,
+                      os.path.join(tmp, "vaegan_samples"), device=DEVICE)
+        sample_s = time.perf_counter() - t0
+        gen = np.load(os.path.join(tmp, "vaegan_samples", "generated.npz"))
+        noise, imgs = gen["noise"], gen["img_r01"]
+        run = os.path.join(tmp, "results", "full")
+        t0 = time.perf_counter()
+        cfg = v2_config("vaegan")
+        out = run_reconstruction_attack(ReconstructionConfig(
+            pos_data_dir=queries["train"], neg_data_dir=queries["heldout"],
+            netE=os.path.join(run, "netE.npz"),
+            netG=os.path.join(run, "netG.npz"), z_dim=cfg.z_dim, d=cfg.d,
+            reader="resize", distance="l2-lpips", batch=RECON_BATCH,
+            save_plots=False, exp_name="vaegan2"), DEVICE)
+        attack_s = time.perf_counter() - t0
+        res = evaluate(EvalConfig(result_load_dir=out["save_dir"]))
+    finally:
+        os.chdir(cwd)
+    r = {"phase": "victim2", "victim": "vaegan", "iterations": full.step,
+         "train_s": train_s, "resume_rel_l2": resume_rel,
+         "rerun_rel_l2": rerun_rel, "resume_bit_exact": bit_exact, "sampled": len(noise),
+         "sample_s": sample_s, "attack_s": attack_s, "auroc": res["auc"],
+         "queries": 2 * V2_TRAIN_PNGS}
+    emit(r)
+    check(full.step == resumed.step == 16 and resumed.epoch == 2,
+          f"vaegan: {full.step} / {resumed.step} iterations")
+    check(resume_rel <= VICTIM_UPDATE_RTOL,
+          f"vaegan: the resumed run is {resume_rel:.3g} (L2, relative to "
+          f"its update) off the uninterrupted one")
+    check(noise.shape == (2048, cfg.z_dim)
+          and imgs.shape == (2048, RES, RES, 3)
+          and bool(np.isfinite(imgs).all()),
+          f"vaegan samples {noise.shape} {imgs.shape}")
+    check(out["pos_loss"].shape == (V2_TRAIN_PNGS,)
+          and bool(np.isfinite(out["pos_loss"]).all()
+                   and np.isfinite(out["neg_loss"]).all()),
+          "vaegan: the reconstruction attack's losses")
+    return r
+
+
+def v2_csv(path: str, rng) -> None:
+    """TAB2_ROWS seeded binary records of TAB_D codes with a header row,
+    one field in a thousand missing (an empty field)."""
+    p = np.clip(rng.exponential(0.03, TAB_D), 0.001, 0.5)
+    rows = np.where(rng.random((TAB2_ROWS, TAB_D)) < p, b"1", b"0")
+    rows[rng.random(rows.shape) < 1e-3] = b""
+    with open(path, "wb") as f:
+        f.write(b",".join(f"c{i}".encode() for i in range(TAB_D)) + b"\n")
+        f.write(b"\n".join(b",".join(r) for r in rows) + b"\n")
+
+
+def v2_medgan(torch, tmp: str) -> dict:
+    """``train`` from a seeded CSV (two pretrain and two GAN epochs at
+    batch 2,000), ``generate`` 10,000 records, ``run_tabular_attack``
+    ('pallas': K1 on the FFMA tile, launches counted) with the CSV's own
+    split as members and non-members, ``evaluate``."""
+    from ganleaks_tpu_torch.attack.eval_roc import evaluate
+    from ganleaks_tpu_torch.attack.tabular import run_tabular_attack
+    from ganleaks_tpu_torch.config import EvalConfig, TabularAttackConfig
+    from ganleaks_tpu_torch.train import medgan
+    from ganleaks_tpu_torch.utils.logging import MetricsLogger
+    csv = os.path.join(tmp, "mimic.csv")
+    t0 = time.perf_counter()
+    v2_csv(csv, np.random.default_rng(SEED + 15))
+    csv_s = time.perf_counter() - t0
+    cfg = v2_config("medgan", DATASETPATH=csv, n_epochs=2,
+                    n_epochs_pretrain=2, generate_N=TAB2_ROWS,
+                    PATH=os.path.join(tmp, "medgan"))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state = medgan.train(cfg, logger=MetricsLogger(echo=False),
+                         device=DEVICE)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    syn = medgan.generate(cfg, state, device=DEVICE)
+    gen_s = time.perf_counter() - t0
+    reset_launches()
+    out = run_tabular_attack(TabularAttackConfig(
+        syn_data_path=os.path.join(cfg.PATH, "synthetic.npy"),
+        dataset_csv=csv, engine="pallas",
+        save_root=os.path.join(tmp, "fbb"), exp_name="medgan2"), DEVICE)
+    launches = read_launches()
+    res = evaluate(EvalConfig(result_load_dir=out["save_dir"]))
+    r = {"phase": "victim2", "victim": "medgan", "steps": state.step,
+         "csv_write_s": csv_s, "train_s": train_s, "generate_s": gen_s,
+         "synthetic": list(syn.shape), "ones_share": float(syn.mean()),
+         "auroc": res["auc"], "kernel_launches": launches}
+    emit(r)
+    check(syn.shape == (TAB2_ROWS, TAB_D)
+          and set(np.unique(syn)) <= {0.0, 1.0},
+          f"medgan synthetic {syn.shape}")
+    n_train = TAB2_ROWS - TAB2_ROWS // 10
+    check(state.step == 2 * (n_train // cfg.batch_size),
+          f"medgan: {state.step} GAN steps")
+    check(bool(np.isfinite(out["pos_loss"]).all())
+          and out["pos_nn_idx"].shape == (n_train,),
+          "medgan: the tabular attack's losses")
+    check(launches["knn_argmin.ffma"] > 0,
+          f"medgan: the tabular attack did not launch K1 ({launches})")
+    return r
+
+
+def v2_pggan(torch, tmp: str, queries: dict) -> dict:
+    """The progressive ``train`` at 4 -> 64 px (one epoch a resolution on
+    V2_TRAIN_PNGS training PNGs: 8 batches of 32, the fade-in active,
+    bfloat16, flips), ``generate`` 2,040 images, V2_PLANT training PNGs
+    planted in the PNG dump, ``run_attack`` ('auto': K2 launches
+    counted) with the training and held-out query sets, ``evaluate``."""
+    import shutil
+
+    from ganleaks_tpu_torch.attack.eval_roc import evaluate
+    from ganleaks_tpu_torch.attack.fbb import run_attack
+    from ganleaks_tpu_torch.config import AttackConfig, EvalConfig
+    from ganleaks_tpu_torch.train import pggan
+    from ganleaks_tpu_torch.utils.logging import MetricsLogger
+    cfg = v2_config("pggan", data_path=queries["train"], num_epochs=1,
+                    num_generated=2040, PATH=os.path.join(tmp, "model"),
+                    PATH_syn_data=os.path.join(tmp, "syn"),
+                    sample_grid_dir=os.path.join(tmp, "grids_pggan"))
+    logger = MetricsLogger(os.path.join(tmp, "pggan.jsonl"), echo=False,
+                           image_dir=cfg.sample_grid_dir)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state = pggan.train(cfg, logger=logger, device=DEVICE)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    logger.close()
+    with open(os.path.join(tmp, "pggan.jsonl")) as f:
+        recs = [json.loads(ln) for ln in f]
+    t0 = time.perf_counter()
+    dirs = pggan.generate(cfg, state, run_dir="run", device=DEVICE)
+    gen_s = time.perf_counter() - t0
+    png = dirs["png_images"]
+    fake = np.load(os.path.join(dirs["npz_images"],
+                                "pggan_synthetic_data.npz"))["fake"]
+    members = sorted(os.listdir(queries["train"]))
+    for i, f in enumerate(members[:V2_PLANT]):
+        shutil.copy(os.path.join(queries["train"], f),
+                    os.path.join(png, f"image_{2040 + i}.png"))
+    reset_launches()
+    t0 = time.perf_counter()
+    out = run_attack(AttackConfig(
+        syn_data_path=png, pos_data_dir=queries["train"],
+        neg_data_dir=queries["heldout"], data_num=V2_TRAIN_PNGS,
+        distance="l2-lpips", resolution=cfg.image_size, engine="auto",
+        save_root=os.path.join(tmp, "fbb"), exp_name="pggan2"),
+        device=DEVICE)[0]
+    attack_s = time.perf_counter() - t0
+    launches = read_launches()
+    res = evaluate(EvalConfig(result_load_dir=out["save_dir"]))
+    caught = int((out["pos_loss"] < out["neg_loss"].min()).sum())
+    r = {"phase": "victim2", "victim": "pggan", "steps": state.step,
+         "train_s": train_s, "resolutions": [x["resolution"] for x in recs],
+         "final_alpha": recs[-1]["alpha"],
+         "losses": {k: recs[-1][k] for k in ("loss_critic", "loss_gen")},
+         "grids": len(os.listdir(cfg.sample_grid_dir)),
+         "generate_s": gen_s, "generated": int(fake.shape[0]),
+         "attack_s": attack_s, "planted": V2_PLANT,
+         "members_below_all_nonmembers": caught, "auroc": res["auc"],
+         "kernel_launches": launches}
+    emit(r)
+    check(r["resolutions"] == [4 * 2 ** s for s in range(V2_PGGAN_TOP + 1)]
+          and state.step == (V2_PGGAN_TOP + 1)
+          * -(-V2_TRAIN_PNGS // cfg.batch_sizes[-1])
+          and all(np.isfinite(x["loss_critic"]) for x in recs),
+          f"pggan: {state.step} steps, records {recs}")
+    check(fake.shape == (2040, 3, cfg.image_size, cfg.image_size)
+          and bool(np.isfinite(fake).all()),
+          f"pggan artifacts {fake.shape}")
+    check(caught >= V2_PLANT and res["auc"] > 0.5,
+          f"pggan: {caught} members below every non-member")
+    check(launches["tap_epilogue"] > 0,
+          f"pggan: 'auto' did not launch K2 ({launches})")
+    return r
+
+
+def phase_victims2(torch, tmp: str, dirs: dict) -> dict:
+    """Phase 13: VAE-GAN (d 64, z 100, 64 px, batch 64), medGAN (D =
+    1,071 codes, latent 128, batch 2,000) and PGGAN (nz 512, in_channels
+    512, 4 -> 64 px, batch 32, bfloat16) — the hold of their first steps,
+    their entry points through to the attack each feeds, and step
+    rates."""
+    queries = {k: v2_subset(dirs[k], os.path.join(tmp, f"{k}_q"),
+                            V2_TRAIN_PNGS) for k in ("train", "heldout")}
+    out = {}
+    for kind in ("vaegan", "medgan", "pggan"):
+        t0 = time.perf_counter()
+        out[f"{kind}_hold"] = v2_hold(torch, kind)
+        out[f"{kind}_hold"]["seconds"] = time.perf_counter() - t0
+    out["vaegan"] = v2_vaegan(torch, tmp, dirs, queries)
+    out["medgan"] = v2_medgan(torch, tmp)
+    out["pggan"] = v2_pggan(torch, tmp, queries)
+    out["rates"] = v2_step_rates(torch)
+    emit({"phase": "victim2_rates", **out["rates"],
+          "hold_s": {k: out[f"{k}_hold"]["seconds"]
+                     for k in ("vaegan", "medgan", "pggan")}})
     return out
 
 
@@ -2570,8 +3202,10 @@ def main() -> int:
         phase_ingest(torch, north.pop("data"), north.pop("auto"), tmp)
         lap("ingest")
     with tempfile.TemporaryDirectory() as tmp:
-        phase_victims(torch, tmp)
+        victims = phase_victims(torch, tmp)
         lap("victims")
+        phase_victims2(torch, tmp, victims["dirs"])
+        lap("victims2")
     emit({"phase": "seconds", "build_s": build_s, **phase_s})
 
     # launches: each kernel's count in the run of the path it serves — K1

@@ -7,13 +7,12 @@ reference's CSV dataset with its exact 90/10 member/non-member split
 random_state=42)``, reproduced here in numpy) — runs
 :func:`attack.reconstruction.fbb_tabular`, and writes the fbb artifact
 layout (``fbb.py:42-67,162-171``) plus ``metrics.jsonl``, so
-``cli.eval_roc`` consumes the run unchanged. pandas is imported only for
-CSV input.
+``cli.eval_roc`` consumes the run unchanged. CSVs are read without
+pandas (``io/tables``).
 """
 
 from __future__ import annotations
 
-import math
 import os
 import time
 
@@ -25,6 +24,8 @@ from ganleaks_tpu_torch.config import TabularAttackConfig
 from ganleaks_tpu_torch.device import resolve_device
 from ganleaks_tpu_torch.io.artifacts import (check_folder, dump_params,
                                              save_files)
+from ganleaks_tpu_torch.io.tables import (load_csv_dataset, read_csv_filled,
+                                          split_indices)  # noqa: F401
 from ganleaks_tpu_torch.utils.logging import MetricsLogger
 
 
@@ -41,43 +42,13 @@ def load_rows(path: str) -> np.ndarray:
                                  f"found keys {keys}")
             rows = z[keys[0]]
     elif path.endswith(".csv"):
-        import pandas as pd
-
-        df = pd.read_csv(path, header=0)
-        rows = df.fillna(df.median()).values
+        rows = read_csv_filled(path)
     else:
         rows = np.load(path)
     rows = np.asarray(rows, np.float32)
     if rows.ndim != 2:
         rows = rows.reshape(rows.shape[0], -1)
     return rows
-
-
-def split_indices(n: int, test_size: float = 0.1, seed: int = 42
-                  ) -> tuple[np.ndarray, np.ndarray]:
-    """(train, test) row indices of sklearn's ``train_test_split(...,
-    test_size, random_state=seed)`` with shuffling: ``ceil(test_size *
-    n)`` test rows, ``perm = RandomState(seed).permutation(n)``, test
-    ``perm[:n_test]`` and train ``perm[n_test:]`` in that order."""
-    n_test = math.ceil(test_size * n)
-    if not 0 < n_test < n:
-        raise ValueError(f"a {test_size} split of {n} rows leaves an empty "
-                         f"side")
-    perm = np.random.RandomState(seed).permutation(n)
-    return perm[n_test:], perm[:n_test]
-
-
-def load_csv_dataset(path: str, train: bool = True) -> np.ndarray:
-    """The medGAN CSV (``medgan/model.py:107-130``): median fill, then the
-    90/10 split (:func:`split_indices`); the training rows are the member
-    pool, the held-out 10% the non-member pool."""
-    import pandas as pd
-
-    data = pd.read_csv(os.path.expanduser(path), header=0)
-    data = data.fillna(data.median())
-    train_idx, test_idx = split_indices(len(data))
-    chosen = data.iloc[train_idx if train else test_idx]
-    return chosen.reset_index(drop=True).values.astype(np.float32)
 
 
 def _query_rows(cfg: TabularAttackConfig) -> tuple[np.ndarray, np.ndarray]:

@@ -1,0 +1,34 @@
+"""medGAN victim training CLI on the GPU (reference entry point:
+``gan_models/medgan/train.py``).
+
+    python -m ganleaks_tpu_torch.cli.train_medgan \
+        DATASETPATH=data/mimic.csv n_epochs=1000
+
+Trains on the CSV's 90% split (read without pandas), saves the three nets
+under ``<PATH>/medgan/<timestamp>/`` and writes ``<PATH>/synthetic.npy``,
+the tabular attack's synthetic rows. The reference asserts that training
+and generation are exclusive (``train.py:123,249``); like the JAX
+package, this trains and then generates in one run. ``--device cpu`` (or
+``main(argv, device="cpu")``) runs on the CPU.
+"""
+
+import os
+
+from ganleaks_tpu_torch.cli.common import parse_config
+from ganleaks_tpu_torch.config import MedGANConfig
+from ganleaks_tpu_torch.device import resolve_device
+from ganleaks_tpu_torch.train import medgan
+
+
+def main(argv=None, device=None) -> None:
+    cfg, device = parse_config(MedGANConfig, argv,
+                               "medGAN victim training (GPU)", device)
+    device = resolve_device(device)
+    state = medgan.train(cfg, device=device) if cfg.training else None
+    if cfg.generate and state is not None:
+        medgan.generate(cfg, state, device=device)
+        print(f"synthetic data: {os.path.join(cfg.PATH, 'synthetic.npy')}")
+
+
+if __name__ == "__main__":
+    main()

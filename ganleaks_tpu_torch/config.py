@@ -1,6 +1,6 @@
 """Typed configuration (copy of the attack, evaluation, FID, LPIPS scoring
-and DCGAN / WGAN-GP training part of ``ganleaks_tpu.config``): one
-dataclass per entry point,
+and victim training part of ``ganleaks_tpu.config``: DCGAN, WGAN-GP,
+PGGAN, VAE-GAN, medGAN): one dataclass per entry point,
 a YAML loader (PyYAML imported only when a file or a raw string needs
 parsing) and ``key=value`` overrides whose unknown keys raise.
 
@@ -323,3 +323,57 @@ class WGANGPConfig(TrainCommon):
     critic_iter: int = 5
     lambda_gp: float = 10.0
     num_generated: int = 2040
+
+
+@dataclass
+class PGGANConfig(TrainCommon):
+    """``gan_models/pggan/train.py:24-48`` + ``pggan_config.yaml``."""
+
+    lr: float = 1e-3
+    nz: int = 512
+    in_channels: int = 512
+    start_img_size: int = 4
+    batch_sizes: tuple[int, ...] = (32, 32, 32, 32, 32)  # per resolution
+    num_epochs: int = 30   # per resolution (PROGRESSIVE_EPOCHS, train.py:78)
+    lambda_gp: float = 10.0
+    drift: float = 0.001          # 0.001 * E[critic(real)^2] (train.py:116)
+    num_generated: int = 10000
+    # the reference's fp16 autocast (train.py:107) is a bfloat16 step here:
+    # parameters and activations cast, losses and Adam in float32
+    compute_dtype: str = "bfloat16"
+    hflip: bool = True             # RandomHorizontalFlip(p=0.5), train.py:83
+
+
+@dataclass
+class VAEGANConfig(TrainCommon):
+    """``gan_models/vaegan/train.py:27-38``."""
+
+    exp_name: str = "vaegan_default"
+    batch_size: int = 64
+    z_dim: int = 100
+    d: int = 64
+    nepoch: int = 1000
+    steps_per_epoch: int = 78     # 5000 // batch_size (train.py:297)
+    num_samples: int = 20000      # sample.py:17
+    checkpoint_every: int = 10    # train.py:401
+
+
+@dataclass
+class MedGANConfig(TrainCommon):
+    """``gan_models/medgan/train.py:23-61``."""
+
+    DATASETPATH: str = "data/mini_MIMIC_III/mini_MIMIC_III.csv"
+    n_epochs: int = 1000
+    n_epochs_pretrain: int = 100
+    batch_size: int = 2000
+    lr: float = 1e-3
+    weight_decay: float = 1e-4
+    b1: float = 0.9
+    b2: float = 0.999
+    latent_dim: int = 128
+    hidden_gen: int = 128
+    hidden_disc1: int = 128
+    hidden_disc2: int = 256
+    binary: bool = True
+    minibatch_averaging: bool = True
+    generate_N: int = 100

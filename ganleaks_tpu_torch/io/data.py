@@ -7,7 +7,8 @@ on the card, so it is decoded once on the host (PNGs in one batch on the
 port's codec threads, ``io/native``) and kept there as one NCHW tensor; a
 batch is a gather by a shuffled index vector drawn from
 ``np.random.default_rng(seed)``, the JAX package's permutations, so the
-batch order is the same.
+batch order is the same. ``random_hflip`` mirrors a batch by a given or
+drawn mask (PGGAN's ``RandomHorizontalFlip``).
 """
 
 from __future__ import annotations
@@ -86,3 +87,16 @@ class DeviceDataset:
         for idx in epoch_batch_indices(self._rng, len(self), batch_size,
                                        drop_last):
             yield self.images[torch.from_numpy(idx).to(self.device)]
+
+
+def random_hflip(batch: torch.Tensor, flip: torch.Tensor | None = None,
+                 generator: torch.Generator | None = None) -> torch.Tensor:
+    """``RandomHorizontalFlip(p=0.5)`` (``gan_models/pggan/train.py:83``)
+    on an NCHW batch: image i is mirrored along W where ``flip[i]`` is
+    true; ``flip`` (N,) bool defaults to one Bernoulli(0.5) draw per image
+    from ``generator``."""
+    if flip is None:
+        flip = torch.rand(batch.shape[0], generator=generator,
+                          device=batch.device) < 0.5
+    return torch.where(flip.to(batch.device).view(-1, 1, 1, 1),
+                       batch.flip(-1), batch)

@@ -139,6 +139,23 @@ def load_image_dir(data_dir: str, resolution: int = 64, ext: str = "png",
     return out
 
 
+def nearest_resize(images, size: int):
+    """PIL-NEAREST-exact resize over the trailing (H, W, C) axes of a numpy
+    array or tensor, as a gather: output pixel ``i`` samples input row /
+    column ``floor((i + 0.5) * S / s)``, Pillow's center-aligned nearest
+    mapping — the PGGAN loader's ``Resize(size, interpolation=NEAREST)``
+    (``gan_models/pggan/train.py:82-88``)."""
+    h, w = images.shape[-3], images.shape[-2]
+    if h == size and w == size:
+        return images
+    ri = np.floor((np.arange(size) + 0.5) * h / size).astype(np.int64)
+    ci = np.floor((np.arange(size) + 0.5) * w / size).astype(np.int64)
+    if not isinstance(images, np.ndarray):
+        import torch
+        ri, ci = (torch.from_numpy(a).to(images.device) for a in (ri, ci))
+    return images[..., ri[:, None], ci[None, :], :]
+
+
 def to_uint8(img: np.ndarray, drange=(-1.0, 1.0),
              rounding: str = "floor") -> np.ndarray:
     """Map images from ``drange`` to uint8 [0, 255]. ``rounding='floor'``

@@ -1,6 +1,6 @@
 """PyTorch layers with the numerics of the JAX package's torch-compatible
-blocks (port of ``ganleaks_tpu.ops.nn`` for the VAE-GAN, DCGAN and
-WGAN-GP nets), NCHW.
+blocks (port of ``ganleaks_tpu.ops.nn`` for the VAE-GAN, DCGAN, WGAN-GP,
+PGGAN and medGAN nets), NCHW.
 
 The JAX blocks re-create torch layers on NHWC; here most are the torch
 layers themselves under the JAX names, and what matters is how the JAX
@@ -21,12 +21,16 @@ parameters map onto them (``weights.load_jax_tree``):
 * ``normal_init_`` / ``initialize_weights``: the reference's N(0, 0.02)
   draw of every conv and BatchNorm weight (``dcgan/model_torch.py:
   124-127``) from an explicit ``torch.Generator``;
-* ``SNConvTranspose2d``: spectral norm as the VAE-GAN wrapper does it at
-  evaluation (``vaegan/ops.py:23-75``);
-* ``SelfAttention``: SAGAN attention (``vaegan/ops.py:86-120``).
-
-``SNConv2d``, ``SNDense`` and the PGGAN blocks belong to the VAE-GAN and
-PGGAN trainers and are not ported yet (ROADMAP M10).
+  ``torch_default_init``: torch's own default draw of every conv, linear
+  and spectral-norm layer, from an explicit generator;
+* ``SNConv2d`` / ``SNConvTranspose2d`` / ``SNDense``: the VAE-GAN's
+  spectral-norm wrapper (``vaegan/ops.py:23-75``), one power iteration
+  per forward, advancing ``u``/``v`` in training (see :class:`SpectralLayer`
+  and :func:`spectral_chain` for the gradient);
+* ``SelfAttention``: SAGAN attention (``vaegan/ops.py:86-120``);
+* the PGGAN blocks (``pggan/model_torch.py``): ``leaky_relu``,
+  ``pixel_norm``, ``minibatch_std``, ``upsample_nearest_2x``,
+  ``avg_pool_2x`` and the equalised-learning-rate ``WSConv2d``.
 """
 
 from __future__ import annotations
@@ -42,16 +46,14 @@ ConvTranspose2dTorch = nn.ConvTranspose2d
 DenseTorch = nn.Linear
 
 
-class ChannelsToLinear(nn.Module):
+class ChannelsToLinear(nn.Linear):
     """NCHW-major flatten, then a linear layer (``vaegan/ops.py:78-83``);
-    the column order matters for converted torch weights."""
-
-    def __init__(self, in_features: int, out_features: int):
-        super().__init__()
-        self.linear = DenseTorch(in_features, out_features)
+    the column order matters for converted torch weights. Like the
+    reference's it subclasses ``nn.Linear``, so its keys are
+    ``weight``/``bias``; the JAX variables hold them under ``linear``."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.linear(x.flatten(1))
+        return super().forward(x.flatten(1))
 
 
 class BatchNormTorch(nn.Module):
@@ -112,6 +114,13 @@ def torch_conv_default_init_(tensor: torch.Tensor, fan_in: int,
         return tensor.uniform_(-bound, bound, generator=generator)
 
 
+def fan_in(weight: torch.Tensor) -> int:
+    """torch's fan-in of a conv / linear weight: ``weight.shape[1]`` times
+    the kernel's size (output channels for a transposed conv, whose weight
+    is IOHW)."""
+    return weight.shape[1] * weight[0, 0].numel()
+
+
 def initialize_weights(model: nn.Module, generator: torch.Generator,
                        std: float = 0.02) -> nn.Module:
     """The reference's ``initialize_weights`` (``dcgan/model_torch.py:
@@ -125,8 +134,7 @@ def initialize_weights(model: nn.Module, generator: torch.Generator,
         if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d)):
             normal_init_(m.weight, std, generator)
             if m.bias is not None:
-                fan_in = m.weight.shape[1] * m.weight[0, 0].numel()
-                torch_conv_default_init_(m.bias, fan_in, generator)
+                torch_conv_default_init_(m.bias, fan_in(m.weight), generator)
         elif isinstance(m, BatchNormTorch):
             normal_init_(m.weight, std, generator)
             with torch.no_grad():
@@ -140,40 +148,180 @@ def l2normalize(v: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
     return v / (torch.linalg.vector_norm(v) + eps)
 
 
-class SNConvTranspose2d(nn.Module):
-    """``SpectralNorm(nn.ConvTranspose2d(...))`` at evaluation, as the JAX
-    layer runs it: one power iteration per forward from the stored ``u``
-    and ``v`` (``v = l2n(W^T u)``, ``u = l2n(W v)``) with W the IOHW weight
-    matricised as (I, O*k*k), then the convolution with ``W / (u^T W v)``.
-    ``u`` and ``v`` are buffers the forward pass never writes (the torch
-    wrapper updates them even in eval; the JAX package freezes them at
-    evaluation, and so does this layer).
-    ``torch.nn.utils.spectral_norm`` skips the iteration in eval mode, so
-    it is not used."""
+class _SpectralParams(nn.Module):
+    """What the reference's ``SpectralNorm`` leaves on its wrapped layer
+    (``vaegan/ops.py:47-63``): the raw weight as ``weight_bar``, the bias,
+    and the power-iteration vectors ``weight_u`` / ``weight_v`` (kept as
+    buffers here: the optimiser never sees them). So a wrapped layer's
+    state-dict keys are the reference's ``<name>.module.weight_bar`` and
+    the like, and a reference checkpoint loads by name."""
+
+    def __init__(self, weight_shape: tuple, out_features: int, h: int,
+                 w: int):
+        super().__init__()
+        self.weight_bar = nn.Parameter(torch.empty(weight_shape))
+        self.bias = nn.Parameter(torch.zeros(out_features))
+        self.register_buffer("weight_u", l2normalize(torch.randn(h)))
+        self.register_buffer("weight_v", l2normalize(torch.randn(w)))
+
+
+class SpectralLayer(nn.Module):
+    """Spectral normalisation as the JAX layers compute it
+    (``ganleaks_tpu.ops.nn._SpectralBase``): ``v = l2n(W^T u)``,
+    ``u = l2n(W v)``, ``sigma = u^T W v`` with W the weight matricised as
+    torch's ``w.view(height, -1)``, and the layer applies ``W / sigma``.
+
+    In training each forward stores the new ``u``/``v`` in the buffers
+    (the torch wrapper's in-place update, ``vaegan/ops.py:73-75``); at
+    evaluation they stay frozen, as in the JAX package. The JAX forward
+    is traced, so its gradient flows through the power iteration; this
+    layer's does too (``torch.nn.utils.spectral_norm`` and the reference
+    wrapper detach ``u``/``v``, which gives another gradient while ``u``
+    has not converged). Inside :func:`spectral_chain` a forward starts
+    from the previous forward's ``u`` still attached to its graph, as the
+    JAX D step's fake forward starts from the real forward's output
+    collection: the loss over both then differentiates through both
+    iterations."""
+
+    def _init_spectral(self, weight_shape: tuple, out_features: int,
+                       h: int, w: int) -> None:
+        self.module = _SpectralParams(weight_shape, out_features, h, w)
+        self._chain = False
+        self._live_u: torch.Tensor | None = None
+
+    @property
+    def weight(self) -> nn.Parameter:
+        return self.module.weight_bar
+
+    @property
+    def bias(self) -> nn.Parameter:
+        return self.module.bias
+
+    @property
+    def u(self) -> torch.Tensor:
+        return self.module.weight_u
+
+    @property
+    def v(self) -> torch.Tensor:
+        return self.module.weight_v
+
+    def matrix(self) -> torch.Tensor:
+        return self.weight.reshape(self.weight.shape[0], -1)
+
+    def normalized_weight(self) -> torch.Tensor:
+        wm = self.matrix()
+        u0 = (self._live_u if self.training and self._live_u is not None
+              else self.u)
+        v = l2normalize(wm.T @ u0)
+        u = l2normalize(wm @ v)
+        if self.training:
+            # a new tensor, not an in-place write: the previous forward's
+            # graph may still hold the old vectors
+            self.module.weight_u = u.detach()
+            self.module.weight_v = v.detach()
+            if self._chain:
+                self._live_u = u
+        return self.weight / (u @ (wm @ v))
+
+
+class spectral_chain:
+    """``with spectral_chain(net): ...``: the spectral-norm layers of
+    ``net`` chain their forwards — each starts from the previous one's
+    ``u`` with its graph (the JAX step threading one forward's
+    ``spectral`` collection into the next inside one loss). Leaving the
+    block drops the chain; the buffers hold the last vectors."""
+
+    def __init__(self, *modules: nn.Module):
+        self.layers = [m for mod in modules for m in mod.modules()
+                       if isinstance(m, SpectralLayer)]
+
+    def _set(self, on: bool) -> None:
+        for layer in self.layers:
+            layer._chain, layer._live_u = on, None
+
+    def __enter__(self):
+        self._set(True)
+        return self
+
+    def __exit__(self, *exc):
+        self._set(False)
+
+
+class SNConvTranspose2d(SpectralLayer):
+    """``SpectralNorm(nn.ConvTranspose2d(...))`` (``vaegan/train.py:
+    112-121``): W the IOHW weight matricised as (I, O*k*k)."""
 
     def __init__(self, in_ch: int, out_ch: int, kernel_size: int,
                  stride: int = 1, padding: int = 0):
         super().__init__()
         self.stride, self.padding = stride, padding
-        self.weight = nn.Parameter(
-            torch.empty(in_ch, out_ch, kernel_size, kernel_size))
-        self.bias = nn.Parameter(torch.zeros(out_ch))
-        bound = 1.0 / (out_ch * kernel_size * kernel_size) ** 0.5
+        k = kernel_size
+        self._init_spectral((in_ch, out_ch, k, k), out_ch, in_ch,
+                            out_ch * k * k)
+        bound = 1.0 / (out_ch * k * k) ** 0.5
         nn.init.uniform_(self.weight, -bound, bound)
-        self.register_buffer("u", l2normalize(torch.randn(in_ch)))
-        self.register_buffer("v", l2normalize(
-            torch.randn(out_ch * kernel_size * kernel_size)))
-
-    def normalized_weight(self) -> torch.Tensor:
-        wm = self.weight.reshape(self.weight.shape[0], -1)
-        v = l2normalize(wm.T @ self.u)
-        u = l2normalize(wm @ v)
-        sigma = u @ (wm @ v)
-        return self.weight / sigma
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return F.conv_transpose2d(x, self.normalized_weight(), self.bias,
                                   self.stride, self.padding)
+
+
+class SNConv2d(SpectralLayer):
+    """``SpectralNorm(nn.Conv2d(...))`` (``vaegan/train.py:166-172``): W
+    the OIHW weight matricised as (O, I*k*k)."""
+
+    def __init__(self, in_ch: int, out_ch: int, kernel_size: int,
+                 stride: int = 1, padding: int = 0):
+        super().__init__()
+        self.stride, self.padding = stride, padding
+        k = kernel_size
+        self._init_spectral((out_ch, in_ch, k, k), out_ch, out_ch,
+                            in_ch * k * k)
+        bound = 1.0 / (in_ch * k * k) ** 0.5
+        nn.init.uniform_(self.weight, -bound, bound)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.conv2d(x, self.normalized_weight(), self.bias,
+                        self.stride, self.padding)
+
+
+class SNDense(SpectralLayer):
+    """``SpectralNorm(nn.Linear(...))`` (``vaegan/train.py:172``): W the
+    (out, in) weight."""
+
+    def __init__(self, in_features: int, out_features: int):
+        super().__init__()
+        self._init_spectral((out_features, in_features), out_features,
+                            out_features, in_features)
+        bound = 1.0 / in_features ** 0.5
+        nn.init.uniform_(self.weight, -bound, bound)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.linear(x, self.normalized_weight(), self.bias)
+
+
+def torch_default_init(model: nn.Module,
+                       generator: torch.Generator) -> nn.Module:
+    """torch's default draw of every ``nn.Conv2d``, ``nn.ConvTranspose2d``
+    and ``nn.Linear`` (weight and bias U(+-1 / sqrt(fan_in))) and of every
+    spectral-norm layer (the same for its ``weight_bar`` and bias, then
+    ``u`` and ``v`` as l2-normalised standard normals), all from
+    ``generator`` in module order (``torch_conv_default_init``)."""
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, SpectralLayer):
+                fan = fan_in(m.weight)
+                torch_conv_default_init_(m.weight, fan, generator)
+                torch_conv_default_init_(m.bias, fan, generator)
+                for buf in (m.u, m.v):
+                    buf.copy_(l2normalize(torch.randn(
+                        buf.shape, generator=generator, dtype=buf.dtype)))
+            elif isinstance(m, (nn.Conv2d, nn.ConvTranspose2d, nn.Linear)):
+                fan = fan_in(m.weight)
+                torch_conv_default_init_(m.weight, fan, generator)
+                if m.bias is not None:
+                    torch_conv_default_init_(m.bias, fan, generator)
+    return model
 
 
 class SelfAttention(nn.Module):
@@ -196,3 +344,68 @@ class SelfAttention(nn.Module):
         attn = torch.softmax(q @ k.transpose(1, 2), dim=-1)
         out = (attn @ v).transpose(1, 2).reshape(n, c, h, w)
         return self.gamma * out + x
+
+
+# ---------------------------------------------------------------------------
+# PGGAN blocks (pggan/model_torch.py)
+# ---------------------------------------------------------------------------
+
+def leaky_relu(x: torch.Tensor, negative_slope: float = 0.2) -> torch.Tensor:
+    return F.leaky_relu(x, negative_slope)
+
+
+def pixel_norm(x: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:
+    """PixelNorm (``pggan/model_torch.py:25-31``): x over the root of its
+    channel mean square, as the JAX block's ``x * rsqrt(...)``."""
+    return x * torch.rsqrt(x.square().mean(dim=1, keepdim=True) + eps)
+
+
+def minibatch_std(x: torch.Tensor) -> torch.Tensor:
+    """Minibatch std (``pggan/model_torch.py:122-124``): each feature's
+    unbiased std over the batch (``torch.std``'s correction 1), averaged
+    to one scalar and appended as a constant channel."""
+    stat = torch.std(x, dim=0).mean()
+    n, _, h, w = x.shape
+    return torch.cat([x, stat.expand(n, 1, h, w)], dim=1)
+
+
+def upsample_nearest_2x(x: torch.Tensor) -> torch.Tensor:
+    """``F.interpolate(scale_factor=2, mode='nearest')``
+    (``pggan/model_torch.py:82``)."""
+    return F.interpolate(x, scale_factor=2, mode="nearest")
+
+
+def avg_pool_2x(x: torch.Tensor) -> torch.Tensor:
+    """``nn.AvgPool2d(kernel_size=2, stride=2)`` (``:106``)."""
+    return F.avg_pool2d(x, 2, 2)
+
+
+class WSConv2d(nn.Module):
+    """Equalised-learning-rate conv (``pggan/model_torch.py:8-22``): the
+    input is scaled by ``sqrt(gain / (in * k^2))`` before a bias-free
+    conv, whose weight is drawn from N(0, 1), and the bias (zero at
+    first) is added unscaled after it. State-dict keys are the
+    reference's: ``conv.weight`` and ``bias``."""
+
+    def __init__(self, in_ch: int, out_ch: int, kernel_size: int = 3,
+                 stride: int = 1, padding: int = 1, gain: float = 2.0):
+        super().__init__()
+        self.conv = Conv2dTorch(in_ch, out_ch, kernel_size, stride, padding,
+                                bias=False)
+        self.scale = (gain / (in_ch * kernel_size ** 2)) ** 0.5
+        self.bias = nn.Parameter(torch.zeros(out_ch))
+        nn.init.normal_(self.conv.weight)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x * self.scale
+        conv = self.conv
+        if x.dtype == torch.bfloat16 and x.device.type == "cpu":
+            # torch's CPU bfloat16 convolution sums the weight gradient of
+            # its double backward (the gradient penalty's) in bfloat16,
+            # which stalls: 90% off float32 on one 16-px layer. Sum in
+            # float32 and round the output, as cuDNN and XLA do.
+            y = F.conv2d(x.float(), conv.weight.float(), None, conv.stride,
+                         conv.padding).to(x.dtype)
+        else:
+            y = conv(x)
+        return y + self.bias.view(1, -1, 1, 1)

@@ -151,10 +151,20 @@ def generate(cfg, state: GANState | None = None, run_dir: str | None = None,
     else:
         raise ValueError("generate needs a trained state or "
                          "saved_model_name")
+    return sample_artifacts(cfg, gen, min(cfg.num_generated, 512), run_dir,
+                            device, model_name)
+
+
+def sample_artifacts(cfg, gen, batch: int, run_dir: str | None,
+                     device: torch.device | str, model_name: str
+                     ) -> dict[str, str]:
+    """``cfg.num_generated`` samples of ``gen`` (z -> image) in batches of
+    ``batch``, latents from a generator on ``device`` seeded with
+    ``cfg.seed + 2``, written as the artifact triplet under
+    ``<PATH_syn_data>/<model_name>``."""
     sample_gen = torch.Generator(device=device).manual_seed(cfg.seed + 2)
-    noise, imgs01 = sample_to_host(gen, cfg.num_generated, cfg.nz,
-                                   min(cfg.num_generated, 512), sample_gen,
-                                   device)
+    noise, imgs01 = sample_to_host(gen, cfg.num_generated, cfg.nz, batch,
+                                   sample_gen, device)
     root = os.path.join(cfg.PATH_syn_data, model_name)
     return write_synthetic_artifacts(root, model_name, imgs01, noise,
                                      run_dir)

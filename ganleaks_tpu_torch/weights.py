@@ -9,14 +9,21 @@
   torchvision-layout state dict (what ``tools/convert_inception.py``
   converts), ``fc.*`` and ``AuxLogits.*`` skipped. One weights file
   serves both packages.
-* VAE-GAN encoder and generator: the variables ``{"params",
-  "batch_stats", "spectral"}`` that the JAX trainer saves and
-  ``tools/convert_victim.py`` writes <-> the port's modules
-  (:func:`load_jax_tree` / :func:`dump_jax_tree`).
+* VAE-GAN encoder, generator and both discriminators: the variables
+  ``{"params", "batch_stats", "spectral"}`` that the JAX trainer saves
+  and ``tools/convert_victim.py`` writes <-> the port's modules
+  (:func:`load_jax_tree` / :func:`dump_jax_tree`), whose own keys are the
+  reference's.
 * DCGAN / WGAN-GP generator, discriminator and critic: the JAX trainers'
   ``{"params", "batch_stats"}`` (``block{i}_conv``, ``block{i}/bn``,
   ``block{i}_in``, ``to_img``, ``from_img``, ``head``) <-> the port's
   modules, whose own keys are the reference's state-dict keys.
+* medGAN generator, autoencoder and discriminator (``block{1,2}_fc``,
+  ``block{1,2}/bn``; ``enc``, ``dec``; ``fc1..3``) and the PGGAN
+  generator and critic (``initial_convt``, ``initial_conv``, ``rgb{i}``,
+  ``prog{i}``, ``final_conv{1,2,3}``: ``init_progressive``'s union tree)
+  <-> the port's modules under the reference's keys, layer by layer as
+  for DCGAN.
 
 Leaves are numpy (or any array-like); kernels are transposed HWIO -> OIHW
 (conv), HWIO -> IOHW (transposed conv, ``transpose(2, 3, 0, 1)``: the JAX
@@ -34,12 +41,13 @@ from torch import nn
 
 from ganleaks_tpu_torch.ops.inception import BasicConv2d, InceptionV3Pool3
 from ganleaks_tpu_torch.ops.lpips.lpips import LPIPS
-from ganleaks_tpu_torch.ops.nn import (BatchNormTorch, InstanceNorm2d,
-                                       SNConvTranspose2d)
+from ganleaks_tpu_torch.ops.nn import (BatchNormTorch, ChannelsToLinear,
+                                       InstanceNorm2d,
+                                       SNConvTranspose2d, SpectralLayer)
 
 
 def _copy(dst: torch.Tensor, src, name: str) -> None:
-    val = torch.from_numpy(np.ascontiguousarray(np.asarray(src, np.float32)))
+    val = torch.from_numpy(np.array(src, np.float32))
     if val.shape != dst.shape:
         raise ValueError(f"{name}: shape {tuple(val.shape)} does not fit "
                          f"{tuple(dst.shape)}")
@@ -169,6 +177,26 @@ def inception_from_torchvision_state_dict(sd: dict) -> InceptionV3Pool3:
 # VAE-GAN
 # ---------------------------------------------------------------------------
 
+def _kernel_to_torch(module: SpectralLayer, kernel) -> np.ndarray:
+    """A spectral-norm layer's JAX kernel in its torch weight layout:
+    HWIO -> IOHW (transposed conv), HWIO -> OIHW (conv), (in, out) ->
+    (out, in) (dense)."""
+    kernel = np.asarray(kernel)
+    if kernel.ndim == 2:
+        return kernel.T
+    return kernel.transpose((2, 3, 0, 1) if isinstance(
+        module, SNConvTranspose2d) else (3, 2, 0, 1))
+
+
+def _kernel_to_jax(module: SpectralLayer, weight: np.ndarray) -> np.ndarray:
+    """Inverse of :func:`_kernel_to_torch`."""
+    if weight.ndim == 2:
+        return np.ascontiguousarray(weight.T)
+    return np.ascontiguousarray(weight.transpose(
+        (2, 3, 0, 1) if isinstance(module, SNConvTranspose2d)
+        else (2, 3, 1, 0)))
+
+
 def load_jax_tree(module: nn.Module, params: dict,
                   batch_stats: dict | None = None,
                   spectral: dict | None = None, path: str = "") -> None:
@@ -187,14 +215,18 @@ def load_jax_tree(module: nn.Module, params: dict,
             _copy(module.weight, params["scale"], path)
             _copy(module.bias, params["bias"], path)
             return
-        if isinstance(module, (SNConvTranspose2d, nn.ConvTranspose2d)):
+        if isinstance(module, SpectralLayer):
+            _copy(module.weight, _kernel_to_torch(module, params["kernel"]),
+                  path)
+            _copy(module.bias, params["bias"], path)
+            _copy(module.u, spectral["u"], path)
+            _copy(module.v, spectral["v"], path)
+            return
+        if isinstance(module, nn.ConvTranspose2d):
             _copy(module.weight,
                   np.asarray(params["kernel"]).transpose(2, 3, 0, 1), path)
             if module.bias is not None:
                 _copy(module.bias, params["bias"], path)
-            if isinstance(module, SNConvTranspose2d):
-                _copy(module.u, spectral["u"], path)
-                _copy(module.v, spectral["v"], path)
             return
         if isinstance(module, nn.Conv2d):
             _copy(module.weight,
@@ -203,6 +235,8 @@ def load_jax_tree(module: nn.Module, params: dict,
                 _copy(module.bias, params["bias"], path)
             return
         if isinstance(module, nn.Linear):
+            if isinstance(module, ChannelsToLinear):
+                params = params["linear"]
             _copy(module.weight, np.asarray(params["kernel"]).T, path)
             _copy(module.bias, params["bias"], path)
             return
@@ -230,21 +264,25 @@ def dump_jax_tree(module: nn.Module) -> dict:
                        "var": _np(module.running_var)}
     elif isinstance(module, InstanceNorm2d):
         params.update(scale=_np(module.weight), bias=_np(module.bias))
-    elif isinstance(module, (SNConvTranspose2d, nn.ConvTranspose2d)):
+    elif isinstance(module, SpectralLayer):
+        params["kernel"] = _kernel_to_jax(module, _np(module.weight))
+        params["bias"] = _np(module.bias)
+        spectral.update(u=_np(module.u), v=_np(module.v))
+    elif isinstance(module, nn.ConvTranspose2d):
         params["kernel"] = np.ascontiguousarray(
             _np(module.weight).transpose(2, 3, 0, 1))
         if module.bias is not None:
             params["bias"] = _np(module.bias)
-        if isinstance(module, SNConvTranspose2d):
-            spectral.update(u=_np(module.u), v=_np(module.v))
     elif isinstance(module, nn.Conv2d):
         params["kernel"] = np.ascontiguousarray(
             _np(module.weight).transpose(2, 3, 1, 0))
         if module.bias is not None:
             params["bias"] = _np(module.bias)
     elif isinstance(module, nn.Linear):
-        params["kernel"] = np.ascontiguousarray(_np(module.weight).T)
-        params["bias"] = _np(module.bias)
+        lin = params.setdefault("linear", {}) if isinstance(
+            module, ChannelsToLinear) else params
+        lin["kernel"] = np.ascontiguousarray(_np(module.weight).T)
+        lin["bias"] = _np(module.bias)
     else:
         for name, param in module.named_parameters(recurse=False):
             params[name] = _np(param)
@@ -258,35 +296,56 @@ def dump_jax_tree(module: nn.Module) -> dict:
     return {k: v for k, v in out.items() if v}
 
 
-def _vaegan_dims(kind: str, params: dict) -> tuple[int, int]:
+VAEGAN_KINDS = ("encoder", "generator", "discriminator",
+                "discriminator_l")
+
+
+def _vaegan_dims(kind: str, params: dict) -> tuple[int, ...]:
+    """Constructor arguments read from the kernels' shapes: (z_dim, d),
+    (d,) for the image discriminator, (z_dim,) for the latent one."""
     if kind == "encoder":
         return (int(np.shape(params["fc1_1"]["kernel"])[1]),
                 int(np.shape(params["cv1"]["kernel"])[3]))
     if kind == "generator":
         return (int(np.shape(params["deconv1"]["kernel"])[2]),
                 int(np.shape(params["deconv5"]["kernel"])[2]))
-    raise ValueError(f"kind must be 'encoder' or 'generator', got {kind!r}")
+    if kind == "discriminator":
+        return (int(np.shape(params["conv1"]["kernel"])[3]),)
+    if kind == "discriminator_l":
+        return (int(np.shape(params["fc1"]["kernel"])[0]),)
+    raise ValueError(f"kind must be one of {VAEGAN_KINDS}, got {kind!r}")
 
 
 def vaegan_from_jax_variables(kind: str, variables: dict,
                               z_dim: int | None = None,
                               d: int | None = None) -> nn.Module:
-    """The port's VAE-GAN ``Encoder`` or ``Generator`` (``kind``), on the
-    CPU in eval mode, from flax variables ``{"params", "batch_stats"
-    [, "spectral"]}``. ``z_dim`` and ``d`` are read from the kernels'
-    shapes; when given they must agree."""
-    from ganleaks_tpu_torch.models.vaegan import Encoder, Generator
+    """The port's VAE-GAN ``Encoder``, ``Generator``, ``Discriminator`` or
+    ``DiscriminatorL`` (``kind``: one of :data:`VAEGAN_KINDS`), on the CPU
+    in eval mode, from flax variables ``{"params"[, "batch_stats"][,
+    "spectral"]}`` (the JAX trainer's, train-mode statistics included).
+    ``z_dim`` and ``d`` are read from the kernels' shapes; when given they
+    must agree."""
+    from ganleaks_tpu_torch.models import vaegan
 
     params = variables["params"]
     got = _vaegan_dims(kind, params)
-    for name, want, have in (("z_dim", z_dim, got[0]), ("d", d, got[1])):
+    names = {"encoder": ("z_dim", "d"), "generator": ("z_dim", "d"),
+             "discriminator": ("d",), "discriminator_l": ("z_dim",)}[kind]
+    for name, have in zip(names, got):
+        want = {"z_dim": z_dim, "d": d}[name]
         if want is not None and want != have:
             raise ValueError(f"{kind} weights have {name}={have}, the "
                              f"configuration says {want}")
-    model = (Encoder if kind == "encoder" else Generator)(*got)
+    cls = {"encoder": vaegan.Encoder, "generator": vaegan.Generator,
+           "discriminator": vaegan.Discriminator,
+           "discriminator_l": vaegan.DiscriminatorL}[kind]
+    model = cls(*got)
     load_jax_tree(model, params, variables.get("batch_stats"),
                   variables.get("spectral"))
     return model.eval()
+
+
+vaegan_to_jax_variables = dump_jax_tree
 
 
 # ---------------------------------------------------------------------------
@@ -313,12 +372,48 @@ def _gan_layers(model: nn.Module) -> list[tuple[str, nn.Module]]:
     return out + [("head", head)]
 
 
+def _medgan_layers(model: nn.Module) -> list[tuple[str, nn.Module]]:
+    from ganleaks_tpu_torch.models import medgan
+    if isinstance(model, medgan.Generator):
+        return [("block1_fc", model.gen_block1[0]),
+                ("block1", model.gen_block1[1]),
+                ("block2_fc", model.gen_block2[0]),
+                ("block2", model.gen_block2[1])]
+    if isinstance(model, medgan.Autoencoder):
+        return [("enc", model.encoder[0]), ("dec", model.decoder[0])]
+    return [(f"fc{j + 1}", model.disc[i]) for j, i in enumerate((0, 2, 4))]
+
+
+def _pggan_layers(model: nn.Module) -> list[tuple[str, nn.Module]]:
+    from ganleaks_tpu_torch.models import pggan
+    out = [(f"rgb{k}", m) for k, m in model.rgb_layers.named_children()]
+    out += [(f"prog{k}", m) for k, m in model.prog_blocks.named_children()]
+    if isinstance(model, pggan.Generator):
+        return [("initial_convt", model.initial[1]),
+                ("initial_conv", model.initial[3])] + out
+    return out + [(f"final_conv{j + 1}", model.final_block[i])
+                  for j, i in enumerate((0, 2, 4))]
+
+
+def _jax_layers(model: nn.Module) -> list[tuple[str, nn.Module]]:
+    """(JAX variable name, layer) of a port DCGAN, WGAN-GP, medGAN or
+    PGGAN module."""
+    from ganleaks_tpu_torch.models import medgan, pggan
+    if isinstance(model, (medgan.Generator, medgan.Autoencoder,
+                          medgan.Discriminator)):
+        return _medgan_layers(model)
+    if isinstance(model, (pggan.Generator, pggan.Discriminator)):
+        return _pggan_layers(model)
+    return _gan_layers(model)
+
+
 def gan_load_jax_variables(model: nn.Module, variables: dict) -> nn.Module:
     """Copy the JAX trainer's ``{"params"[, "batch_stats"]}`` onto a port
-    DCGAN/WGAN-GP module (:func:`load_jax_tree` layer by layer)."""
+    DCGAN, WGAN-GP, medGAN or PGGAN module (:func:`load_jax_tree` layer by
+    layer); every layer of the module must be in the variables."""
     params = variables["params"]
     stats = variables.get("batch_stats") or {}
-    for name, layer in _gan_layers(model):
+    for name, layer in _jax_layers(model):
         if name not in params:
             raise KeyError(f"no {name!r} in the parameter tree")
         load_jax_tree(layer, params[name], stats.get(name), path=name)
@@ -327,11 +422,11 @@ def gan_load_jax_variables(model: nn.Module, variables: dict) -> nn.Module:
 
 def gan_to_jax_variables(model: nn.Module) -> dict:
     """The JAX trainer's ``{"params", "batch_stats"}`` (numpy leaves) of a
-    port DCGAN/WGAN-GP module; ``batch_stats`` is left out for the critic,
-    which has none."""
+    port module as :func:`gan_load_jax_variables` reads them;
+    ``batch_stats`` is left out for nets without BatchNorm."""
     params: dict = {}
     stats: dict = {}
-    for name, layer in _gan_layers(model):
+    for name, layer in _jax_layers(model):
         sub = dump_jax_tree(layer)
         params[name] = sub["params"]
         if "batch_stats" in sub:
@@ -388,3 +483,66 @@ def wgangp_from_jax_variables(kind: str, variables: dict) -> nn.Module:
 
 
 dcgan_to_jax_variables = wgangp_to_jax_variables = gan_to_jax_variables
+
+
+# ---------------------------------------------------------------------------
+# medGAN / PGGAN
+# ---------------------------------------------------------------------------
+
+def medgan_from_jax_variables(kind: str, variables: dict,
+                              binary: bool = True,
+                              minibatch_average: bool = True) -> nn.Module:
+    """The port's medGAN ``Generator``, ``Autoencoder`` or
+    ``Discriminator`` (``kind``: "gen", "ae" or "disc", the JAX trainer's
+    names) on the CPU in eval mode; widths are read from the kernels,
+    ``binary`` and ``minibatch_average`` (which the weights cannot show)
+    are the config's."""
+    from ganleaks_tpu_torch.models import medgan
+
+    p = variables["params"]
+
+    def shape(name):
+        return np.shape(p[name]["kernel"])
+
+    if kind == "gen":
+        model = medgan.Generator(shape("block1_fc")[0], shape("block1_fc")[1],
+                                 shape("block2_fc")[1])
+    elif kind == "ae":
+        model = medgan.Autoencoder(shape("enc")[0], shape("enc")[1], binary)
+    elif kind == "disc":
+        width = shape("fc1")[0]
+        model = medgan.Discriminator(
+            width // 2 if minibatch_average else width, shape("fc1")[1],
+            shape("fc2")[1], minibatch_average)
+    else:
+        raise ValueError(f"kind must be 'gen', 'ae' or 'disc', got {kind!r}")
+    return gan_load_jax_variables(model, variables).eval()
+
+
+def pggan_from_jax_variables(kind: str, variables: dict) -> nn.Module:
+    """The port's PGGAN ``Generator`` or ``Discriminator`` (``kind``:
+    "generator" or "critic") on the CPU from the JAX trainer's
+    ``{"params"}`` (``init_progressive``'s union over every step up to the
+    tree's largest); nz, in_channels, nc and max_steps are read from the
+    kernels."""
+    from ganleaks_tpu_torch.models import pggan
+
+    p = variables["params"]
+    n_rgb = sum(k.startswith("rgb") for k in p)
+    if kind == "generator":
+        convt = np.shape(p["initial_convt"]["kernel"])
+        model = pggan.Generator(convt[2], convt[3],
+                                np.shape(p["rgb0"]["conv"]["kernel"])[3],
+                                n_rgb - 1)
+    elif kind == "critic":
+        model = pggan.Discriminator(
+            np.shape(p["final_conv2"]["conv"]["kernel"])[3],
+            np.shape(p[f"rgb{pggan.N_BLOCKS}"]["conv"]["kernel"])[2],
+            n_rgb - 1)
+    else:
+        raise ValueError(f"kind must be 'generator' or 'critic', got "
+                         f"{kind!r}")
+    return gan_load_jax_variables(model, variables).eval()
+
+
+medgan_to_jax_variables = pggan_to_jax_variables = gan_to_jax_variables

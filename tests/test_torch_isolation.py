@@ -62,14 +62,26 @@ def _run_isolated(code: str) -> subprocess.CompletedProcess:
     """Run ``code`` in a fresh interpreter where importing JAX, the JAX
     package or an optional library raises."""
     blocker = textwrap.dedent(f"""
+        import importlib.abc
+        import importlib.machinery
         import sys
         sys.path.insert(0, {REPO!r})
         BLOCKED = {FORBIDDEN + LAZY!r}
 
+        class _Refuse(importlib.abc.Loader):
+            def create_module(self, spec):
+                raise ImportError(f"blocked import of {{spec.name}}")
+
+            def exec_module(self, module):
+                pass
+
         class _Block:
+            # a spec whose loading raises: importing a blocked module
+            # fails, while a probe that only asks for the spec (torch's
+            # optimisers look for pandas this way) finds no file to read
             def find_spec(self, name, path=None, target=None):
                 if name.split(".")[0] in BLOCKED:
-                    raise ImportError(f"blocked import of {{name}}")
+                    return importlib.machinery.ModuleSpec(name, _Refuse())
                 return None
 
         sys.meta_path.insert(0, _Block())
@@ -215,9 +227,7 @@ def test_lpips_towers_and_scores_without_optional_libraries(tmp_path):
     """The non-VGG towers through a taps attack and the scores CLI's npz
     route (its ``key=value`` overrides parsed without PyYAML) run with JAX,
     PyYAML, Pillow, matplotlib, sklearn, scipy, pandas and msgpack all
-    unimportable. (The 2AFC trainer is left out: ``torch.optim`` probes
-    for pandas itself, which this blocker refuses rather than reports
-    missing.)"""
+    unimportable."""
     rng = np.random.default_rng(0)
     imgs = rng.uniform(-1, 1, (4, 32, 32, 3)).astype(np.float32)
     np.savez(tmp_path / "t.npz", ref=imgs, p0=imgs[::-1], p1=imgs,
@@ -456,6 +466,88 @@ def test_victim_entry_points_refuse_without_gpu(monkeypatch, tmp_path):
         lambda: cli_wgangp.main([f"data_path={tmp_path}"]),
         lambda: cli_dcgan.main(["--device", "cuda", "training=false"]),
         lambda: bench.main(["--metric", "gen", "--quick"]),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+
+
+def test_victim_trainers_without_optional_libraries(tmp_path):
+    """The VAE-GAN, medGAN and PGGAN trainers through their CLIs — PNG
+    training sets, a CSV read without pandas, ``torch.optim`` (which probes
+    for pandas), the checkpoints, ``netE`` / ``netG`` npz, the samples and
+    ``synthetic.npy`` — run with JAX, PyYAML, Pillow, matplotlib, sklearn,
+    scipy, pandas and msgpack all unimportable."""
+    code = textwrap.dedent(f"""
+        import os
+        import numpy as np
+        import torch
+        from ganleaks_tpu_torch.cli import (train_medgan, train_pggan,
+                                            train_vaegan)
+        from ganleaks_tpu_torch.io.native import save_png_batch_native
+        d = {str(tmp_path)!r}
+        os.chdir(d)
+        torch.set_num_threads(1)  # the suite runs in several processes
+        rng = np.random.default_rng(0)
+        os.makedirs("train")
+        save_png_batch_native(rng.integers(0, 256, (4, 64, 64, 3), np.uint8),
+                              [f"train/{{i}}.png" for i in range(4)])
+        train_vaegan.main(["data_path=train", "z_dim=8", "d=4",
+                           "batch_size=2", "nepoch=1", "steps_per_epoch=1",
+                           "num_samples=3"], device="cpu")
+        assert os.path.exists("results/vaegan_default/netG.npz")
+        with open("m.csv", "w") as f:
+            f.write("a,b,c,d\\n" + "\\n".join(
+                ",".join(str(int(v)) for v in row)
+                for row in rng.integers(0, 2, (20, 4))) + "\\n")
+        train_medgan.main(["DATASETPATH=m.csv", "n_epochs=1",
+                           "n_epochs_pretrain=1", "batch_size=6",
+                           "latent_dim=4", "hidden_gen=4", "generate_N=5",
+                           "PATH=model"], device="cpu")
+        assert np.load("model/synthetic.npy").shape == (5, 4)
+        os.makedirs("train8")
+        save_png_batch_native(rng.integers(0, 256, (4, 8, 8, 3), np.uint8),
+                              [f"train8/{{i}}.png" for i in range(4)])
+        train_pggan.main(["data_path=train8", "image_size=8", "nz=8",
+                          "in_channels=8", "batch_sizes=[2]",
+                          "num_epochs=1", "num_generated=3", "PATH=model",
+                          "PATH_syn_data=syn", "sample_grid_dir=null"],
+                         device="cpu")
+        assert os.path.isdir("syn/pggan/png_images")
+        bad = [m for m in sys.modules if m.split(".")[0] in BLOCKED]
+        assert not bad, bad
+        print("ok")
+    """)
+    res = _run_isolated(code)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip().endswith("ok")
+
+
+def test_new_victim_entry_points_refuse_without_gpu(monkeypatch, tmp_path):
+    """The VAE-GAN, medGAN and PGGAN trainers, samplers and CLIs refuse
+    without a GPU unless asked for the CPU."""
+    from ganleaks_tpu_torch.cli import train_medgan as cli_medgan
+    from ganleaks_tpu_torch.cli import train_pggan as cli_pggan
+    from ganleaks_tpu_torch.cli import train_vaegan as cli_vaegan
+    from ganleaks_tpu_torch.config import (MedGANConfig, PGGANConfig,
+                                           VAEGANConfig)
+    from ganleaks_tpu_torch.train import medgan, pggan, vaegan
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.chdir(tmp_path)
+    imgs = np.zeros((4, 8, 8, 3), np.float32)
+    rows = np.zeros((4, 3), np.float32)
+    calls = [
+        lambda: vaegan.train(VAEGANConfig(), images=imgs),
+        lambda: vaegan.sample(VAEGANConfig(), None, str(tmp_path)),
+        lambda: medgan.train(MedGANConfig(), data=rows),
+        lambda: medgan.generate(MedGANConfig(), None),
+        lambda: pggan.train(PGGANConfig(), images=imgs),
+        lambda: pggan.generate(PGGANConfig()),
+        lambda: cli_vaegan.main([f"data_path={tmp_path}"]),
+        lambda: cli_medgan.main(["DATASETPATH=x.csv"]),
+        lambda: cli_pggan.main([f"data_path={tmp_path}"]),
+        lambda: cli_pggan.main(["--device", "cuda", "training=false"]),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="device='cpu'"):

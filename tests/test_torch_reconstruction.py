@@ -115,15 +115,15 @@ def test_conv_transpose_matches_jax():
 
 
 def test_sn_conv_transpose_one_iteration_buffers_unchanged():
-    """One power iteration from the stored u, v per forward; the forward
-    leaves the buffers as they were (the JAX layer freezes them at
-    evaluation)."""
+    """One power iteration from the stored u, v per forward; at
+    evaluation the forward leaves the buffers as they were (the JAX layer
+    freezes them at evaluation; in training both advance them)."""
     x = np.random.default_rng(2).standard_normal((2, 4, 4, 6)).astype(
         np.float32)
     jmod = jnn.SNConvTranspose2d(features=3, kernel_size=4, stride=2,
                                  padding=1)
     v = _init(jmod, x)
-    tmod = tnn.SNConvTranspose2d(6, 3, 4, 2, 1)
+    tmod = tnn.SNConvTranspose2d(6, 3, 4, 2, 1).eval()
     load_jax_tree(tmod, v["params"], spectral=v["spectral"])
     u0, v0 = tmod.u.clone(), tmod.v.clone()
     want = np.asarray(jmod.apply(v, x))
