@@ -10,18 +10,21 @@ Phases, each printing JSON lines:
    versions, and the build of every kernel library from ``csrc/`` (one
    ``nvcc`` per source, started together);
 2. kernel: the fused distance+argmin kernel (K1) against its plain PyTorch
-   version on the card, in float32 (FFMA tile) and bfloat16 (wgmma tile,
-   asserted through the per-route launch counts) — a ragged synthetic
-   count, one smaller than a tile with K not a multiple of 8 (the bf16
-   route's zero-padded copy), several tiles per block, the attack's
-   K = 512,000, and planted duplicate rows (exact ties); then bf16 at
-   K = 512,000 on non-negative rows (LPIPS-like, a planted near-copy)
-   against float64 computed on the card;
+   version on the card, in float32 (3xTF32 tile) and bfloat16 (wgmma tile),
+   each asserted through the per-route launch counts — a ragged synthetic
+   count, one smaller than a tile with K = 4,099 (3 mod 4: both routes'
+   zero-padded copy), several tiles per block, the attack's K = 512,000,
+   and planted duplicate rows (exact ties); then both types at
+   K = 512,000 on non-negative rows (LPIPS-like, planted near-copies)
+   against float64 computed on the card, float32's relative error printed
+   beside the former FFMA tile's 3.86e-6; then per-pair invariance: the
+   same pairs' d bit for bit at four shapes that move them across query
+   tiles, synthetic tiles and spans (K = 20,003);
 3. topk: the fused distance+top-k kernel (K3) against its plain version,
    float32 and bfloat16: ragged N_s, N_s < k, a long N_s across many
    spans, K = 512,000 (zero-mean rows), k = 128 (the wrapper's limit),
-   planted ties across tiles and spans; bf16 on non-negative rows at
-   K = 512,000 against float64;
+   planted ties across tiles and spans; both types on non-negative rows
+   at K = 512,000 against float64; per-pair invariance as in phase 2;
 4. epilogue: the tap epilogue kernel (K2) against its plain version on
    every 64-px tap of 2,048 images as each LPIPS tower produces them
    (VGG16, AlexNet, SqueezeNet1.1 and ResNet18: 5, 5, 7 and 5 taps,
@@ -43,17 +46,19 @@ Phases, each printing JSON lines:
    tower); every loss against the float64 distance of its pair, every
    engine's indices against the float32 'pallas' run's, every run's
    launches per kernel and tile; then the float32 top-k search
-   (``knn_topk_streamed``, engine 'pallas': K3 on the FFMA tile) on the
+   (``knn_topk_streamed``, engine 'pallas': K3 on the 3xTF32 tile) on the
    same arrays, its nearest entries against the 'pallas' run's;
 5b. attack_towers: the same attack on the same sets with the AlexNet and
    SqueezeNet1.1 towers (seeded surrogate backbones, uniform lin heads):
-   'taps' (K2, K1 on the FFMA tile; the exact float32 reference), 'gemm',
+   'taps' (K2, K1 on the 3xTF32 tile; the float32 reference), 'gemm',
    'taps' on a bf16 tower (K1 on the wgmma tile) and 'auto', held as in
    phase 5;
 6. timing: K1 at the attack's block (2,048 x 2,048, K = 512,000) in
    float32 and bfloat16, K3 there in bfloat16 and float32, K2 per tap and
    summed over the five taps of a 2,048-image block — each beside its
-   plain version, its bound and, where one PyTorch call composition
+   plain version, its bound (float32 K1/K3: the 3xTF32 tile's and an
+   FFMA design's on the CUDA cores, with the share of each), and, where
+   one PyTorch call composition
    computes the same function, that composition (timed only), K2 also
    with GB/s and its share of the byte bound; K1 and K3
    also on the block's first query tile alone, for the work per block
@@ -88,9 +93,10 @@ Phases, each printing JSON lines:
 9. tabular: ``run_tabular_attack`` at medGAN's MIMIC-III width (D =
    1,071 binary codes; 10,000 synthetic rows against 4,652 members and
    4,652 non-members, the 10% hold-out of 46,520 patients) with 'pallas'
-   (K1 on the FFMA tile, launches counted) and 'gemm': every loss and
+   (K1 on the 3xTF32 tile, launches counted) and 'gemm': every loss and
    index against float64 distances; K1 at that shape against its plain
-   version, and timed;
+   version, and timed (the zero-padded copy to K = 1,072 inside the call),
+   beside both float32 bounds;
 10. north_star: ``attack_arrays`` at the reference study's shape — 10,000
    members, 10,000 non-members and 100,000 synthetic images at 64 px,
    uint8, drawn on the card (members' noisy copies planted) — with the
@@ -182,10 +188,16 @@ import numpy as np
 REPO = os.path.dirname(os.path.abspath(__file__))
 
 # NVIDIA H100 SXM data sheet (dense, 700 W): float32 on the CUDA cores,
-# bf16 on the tensor cores, and device-memory bandwidth
+# bf16 and TF32 on the tensor cores, and device-memory bandwidth
 PEAK_FP32_FLOPS = 67e12
 PEAK_BF16_FLOPS = 989e12
+PEAK_TF32_FLOPS = 495e12
 PEAK_HBM_BYTES = 3.35e12
+# float32 K1/K3 issue three TF32 products per multiply-add (3xTF32)
+TF32X3_PRODUCTS = 3
+# the former FFMA tile's relative error off float64 on LPIPS rows at
+# K = 512,000 (PERF.md), printed beside the 3xTF32 tile's
+FFMA_REL_ERR = 3.86e-6
 # |d_kernel - d_plain| <= TOL * (rq + rs): the two sum K products in
 # different orders and rq + rs - 2 q.s cancels
 TOL = 1e-5
@@ -345,10 +357,10 @@ def hold_against_plain(torch, name, q, s, rq, rs, ties):
             "ties": len(ties)}
 
 
-def nonneg_inputs(torch, n_q, n_s, k_dim, near, gen):
-    """LPIPS-like bf16 rows: ``relu`` of seeded normal rows (every product
-    >= 0), with each (query row, a) in ``near`` planting s[a] as a noisy
-    copy of q[row]; float32 norms."""
+def nonneg_inputs(torch, n_q, n_s, k_dim, near, gen, dtype):
+    """LPIPS-like rows of ``dtype``: ``relu`` of seeded normal rows (every
+    product >= 0), with each (query row, a) in ``near`` planting s[a] as a
+    noisy copy of q[row]; float32 norms."""
     from ganleaks_tpu_torch.ops.knn_fused import sq_norms
     dev = torch.device(DEVICE)
     q = torch.randn((n_q, k_dim), generator=gen, device=dev).relu_()
@@ -356,8 +368,8 @@ def nonneg_inputs(torch, n_q, n_s, k_dim, near, gen):
     for row, a in near:
         s[a] = (q[row] + 0.05 * torch.randn(
             (k_dim,), generator=gen, device=dev)).relu_()
-    q = (q / k_dim ** 0.5).bfloat16()
-    s = (s / k_dim ** 0.5).bfloat16()
+    q = (q / k_dim ** 0.5).to(dtype)
+    s = (s / k_dim ** 0.5).to(dtype)
     return q, s, sq_norms(q), sq_norms(s)
 
 
@@ -409,13 +421,71 @@ def hold_against_f64(torch, name, q, s, rq, rs, near, k=None, d64=None):
         check(int(i_k[row, 0]) == a,
               f"{name}: near-copy of query {row} -> {int(i_k[row, 0])}, "
               f"want {a}")
-    return {"case": name, "n_q": q.shape[0], "n_s": s.shape[0],
-            "k_dim": q.shape[1], "k": k,
-            "dtype": str(q.dtype).replace("torch.", ""),
-            "reference": "float64",
-            "max_abs_err": float(err.max()),
-            "max_err_over_tol": float((err / tol).max()),
-            "max_rel_err": float((err / norms).max())}
+    out = {"case": name, "n_q": q.shape[0], "n_s": s.shape[0],
+           "k_dim": q.shape[1], "k": k,
+           "dtype": str(q.dtype).replace("torch.", ""),
+           "reference": "float64",
+           "max_abs_err": float(err.max()),
+           "max_err_over_tol": float((err / tol).max()),
+           "max_rel_err": float((err / norms).max())}
+    if q.dtype == torch.float32:
+        out["ffma_tile_max_rel_err"] = FFMA_REL_ERR
+    return out
+
+
+# per-pair invariance: (query rows, synthetic rows) of one set, sliced so
+# that the same pairs sit at other positions in the query tiles, in other
+# synthetic tiles and in other spans of the launch plan
+INVARIANCE_K = 20003  # 3 mod 4: the padded copy, and 157 promotions
+INVARIANCE_SETS = (600, 9000)
+INVARIANCE_SLICES = ((0, 600, 0, 9000), (3, 260, 3000, 5100),
+                     (0, 128, 0, 9000), (5, 6, 3999, 4001))
+INVARIANCE_NEAR = ((5, 4000), (200, 3001), (130, 5000), (7, 8999))
+
+
+def hold_invariance(torch, name, dtype, gen, k=None):
+    """K1 (``k`` None) or K3 at each slice of ``INVARIANCE_SLICES`` with
+    the norms sliced from one computation: every (query, synthetic) pair
+    that two launches report has the same d bit for bit, and the planted
+    near-copies are found wherever their pair is in the slice."""
+    from ganleaks_tpu_torch.ops.knn_fused import (knn_argmin_fused,
+                                                  knn_topk_fused)
+    q, s, rq, rs = nonneg_inputs(torch, *INVARIANCE_SETS, INVARIANCE_K,
+                                 INVARIANCE_NEAR, gen, dtype)
+    seen: dict = {}
+    compared = 0
+    for q0, q1, s0, s1 in INVARIANCE_SLICES:
+        args = (q[q0:q1].contiguous(), s[s0:s1].contiguous())
+        kw = {"rq": rq[q0:q1].contiguous(), "rs": rs[s0:s1].contiguous()}
+        fn = knn_argmin_fused if k is None else knn_topk_fused
+        done = on_route(fn, dtype)
+        d, i = (fn(*args, **kw) if k is None else fn(*args, k, **kw))
+        done(f"{name} slice {(q0, q1, s0, s1)}")
+        bits_rows = d.reshape(q1 - q0, -1).view(torch.int32).tolist()
+        i = i.reshape(q1 - q0, -1).tolist()
+        for row, (cols, row_bits) in enumerate(zip(i, bits_rows)):
+            for col, bits in zip(cols, row_bits):
+                if col < 0:
+                    continue
+                pair = (q0 + row, s0 + col)
+                if pair in seen:
+                    compared += 1
+                    check(seen[pair] == bits,
+                          f"{name}: pair {pair} gives d bits {bits:#x} at "
+                          f"slice {(q0, q1, s0, s1)}, {seen[pair]:#x} "
+                          f"before")
+                seen[pair] = bits
+        for row, a in INVARIANCE_NEAR:
+            if q0 <= row < q1 and s0 <= a < s1:
+                check(i[row - q0][0] == a - s0,
+                      f"{name}: near-copy of query {row} -> "
+                      f"{s0 + i[row - q0][0]}, want {a}")
+    check(compared >= len(INVARIANCE_NEAR),
+          f"{name}: only {compared} pairs seen twice")
+    return {"case": name, "k_dim": INVARIANCE_K, "k": k,
+            "dtype": str(dtype).replace("torch.", ""),
+            "slices": [list(x) for x in INVARIANCE_SLICES],
+            "pairs_compared": compared, "bit_identical": True}
 
 
 def phase_kernel(torch) -> float:
@@ -436,13 +506,18 @@ def phase_kernel(torch) -> float:
             res = kernel_case(torch, name, n_q, n_s, k_dim, dtype, ties, gen)
             worst[res["dtype"]] = max(worst[res["dtype"]], res["max_abs_err"])
             emit({"phase": "kernel", **res})
-    # LPIPS-like rows: the wgmma tile's promoted sum against float64
-    q, s, rq, rs = nonneg_inputs(torch, 256, 300, 512000, [(3, 17), (200, 299)],
-                                 gen)
-    res = hold_against_f64(torch, "k512000_nonneg", q, s, rq, rs,
-                           [(3, 17), (200, 299)])
-    worst["bfloat16"] = max(worst["bfloat16"], res["max_abs_err"])
-    emit({"phase": "kernel", **res})
+    # LPIPS-like rows: each tile's promoted sum against float64
+    for dtype in (torch.float32, torch.bfloat16):
+        q, s, rq, rs = nonneg_inputs(torch, 256, 300, 512000,
+                                     [(3, 17), (200, 299)], gen, dtype)
+        res = hold_against_f64(torch, "k512000_nonneg", q, s, rq, rs,
+                               [(3, 17), (200, 299)])
+        worst[res["dtype"]] = max(worst[res["dtype"]], res["max_abs_err"])
+        emit({"phase": "kernel", **res})
+        del q, s
+    for dtype in (torch.float32, torch.bfloat16):
+        emit({"phase": "kernel",
+              **hold_invariance(torch, "per_pair_invariance", dtype, gen)})
     return worst
 
 
@@ -461,8 +536,8 @@ def reset_launches() -> None:
 
 
 def read_launches() -> dict:
-    """Launches per kernel, K1 and K3 per tile: 'knn_argmin.ffma' (float32)
-    and 'knn_argmin.wgmma' (bfloat16), likewise 'knn_topk.*'."""
+    """Launches per kernel, K1 and K3 per tile: 'knn_argmin.tf32x3'
+    (float32) and 'knn_argmin.wgmma' (bfloat16), likewise 'knn_topk.*'."""
     from ganleaks_tpu_torch.ops.knn_fused import (knn_argmin_fused,
                                                   knn_topk_fused)
     from ganleaks_tpu_torch.ops.lpips.epilogue import tap_epilogue
@@ -480,7 +555,7 @@ def read_launches() -> dict:
 
 def on_route(fn, dtype):
     """A check to call after one call of ``fn``: on the card it must have
-    launched the tile of ``dtype`` (FFMA for float32, wgmma for bfloat16)
+    launched the tile of ``dtype`` (3xTF32 for float32, wgmma for bfloat16)
     exactly once, and no other."""
     from ganleaks_tpu_torch.ops.knn_fused import route
     want = route(dtype)
@@ -563,12 +638,18 @@ def phase_topk(torch) -> float:
             res = hold_topk(torch, name, q, s, rq, rs, k, ties)
             worst[res["dtype"]] = max(worst[res["dtype"]], res["max_abs_err"])
             emit({"phase": "topk", **res})
-    q, s, rq, rs = nonneg_inputs(torch, 256, 300, 512000, [(3, 17), (200, 299)],
-                                 gen)
-    res = hold_against_f64(torch, "k512000_nonneg", q, s, rq, rs,
-                           [(3, 17), (200, 299)], k=TOPK_K)
-    worst["bfloat16"] = max(worst["bfloat16"], res["max_abs_err"])
-    emit({"phase": "topk", **res})
+    for dtype in (torch.float32, torch.bfloat16):
+        q, s, rq, rs = nonneg_inputs(torch, 256, 300, 512000,
+                                     [(3, 17), (200, 299)], gen, dtype)
+        res = hold_against_f64(torch, "k512000_nonneg", q, s, rq, rs,
+                               [(3, 17), (200, 299)], k=TOPK_K)
+        worst[res["dtype"]] = max(worst[res["dtype"]], res["max_abs_err"])
+        emit({"phase": "topk", **res})
+        del q, s
+    for dtype in (torch.float32, torch.bfloat16):
+        emit({"phase": "topk",
+              **hold_invariance(torch, "per_pair_invariance", dtype, gen,
+                                k=TOPK_K)})
     return worst
 
 
@@ -748,8 +829,8 @@ ATTACK_RUNS = [
     ("taps_int8_two_pass", "taps-int8", True, {}),
     ("auto", "auto", False, {}),
 ]
-# phase 5b on the alex and squeeze towers: 'taps' (K1 on the FFMA tile,
-# exact float32) is the reference; 'gemm' is cuBLAS's float32 fold
+# phase 5b on the alex and squeeze towers: 'taps' (K1 on the 3xTF32 tile,
+# float32) is the reference; 'gemm' is cuBLAS's float32 fold
 TOWER_RUNS = [
     ("taps", "taps", False, {}),
     ("gemm", "gemm", False, {}),
@@ -757,16 +838,16 @@ TOWER_RUNS = [
     ("auto", "auto", False, {}),
 ]
 # which kernels each run launches, K1 (knn_argmin) and K3 (knn_topk) per
-# tile — '.ffma' on float32, '.wgmma' on bf16 — and K2 (tap_epilogue);
+# tile — '.tf32x3' on float32, '.wgmma' on bf16 — and K2 (tap_epilogue);
 # pass 1 of two-pass runs K3 on bf16 embeddings, the float32 re-rank and
-# fallbacks run K1 on the FFMA tile
+# fallbacks run K1 on the 3xTF32 tile
 WANT_LAUNCHES = {
-    "pallas": ("knn_argmin.ffma",), "gemm": (),
-    "pallas_two_pass": ("knn_topk.wgmma", "knn_argmin.ffma"),
-    "taps": ("tap_epilogue", "knn_argmin.ffma"),
+    "pallas": ("knn_argmin.tf32x3",), "gemm": (),
+    "pallas_two_pass": ("knn_topk.wgmma", "knn_argmin.tf32x3"),
+    "taps": ("tap_epilogue", "knn_argmin.tf32x3"),
     "taps_bf16": ("tap_epilogue", "knn_argmin.wgmma"),
     "taps_int8": ("tap_epilogue",),
-    "taps_int8_two_pass": ("tap_epilogue", "knn_argmin.ffma"),
+    "taps_int8_two_pass": ("tap_epilogue", "knn_argmin.tf32x3"),
     "auto": ("tap_epilogue",)}
 
 
@@ -967,7 +1048,7 @@ def phase_attack_towers(torch, data: dict) -> dict:
 def topk_search(torch, embed, queries, syn, p) -> dict:
     """The float32 top-k search through the port's entry point
     (``knn_topk_streamed``, engine 'pallas', which folds every block with
-    K3 on the FFMA tile) on the attack's arrays: each query's list
+    K3 on the 3xTF32 tile) on the attack's arrays: each query's list
     ascending, its first entry the 'pallas' run's nearest row (or a
     near-tie of it) at that row's float64 distance within TOL. Returns the
     launches of the search."""
@@ -979,7 +1060,7 @@ def topk_search(torch, embed, queries, syn, p) -> dict:
     d, i = d.cpu().numpy().astype(np.float64), i.cpu().numpy()
     secs = time.perf_counter() - t0
     launches = read_launches()
-    want = {name: int(name == "knn_topk.ffma") for name in launches}
+    want = {name: int(name == "knn_topk.tf32x3") for name in launches}
     for name, n in launches.items():
         check((n > 0) == bool(want[name]),
               f"topk_f32: {name} launched {n} times")
@@ -1047,9 +1128,30 @@ def bound(flops: float, peak_flops: float, nbytes: float) -> dict:
             "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
 
 
+def float32_bounds(flops: float, nbytes: float, ms: float) -> dict:
+    """The float32 route's bounds: ``bound_ms``, the 3xTF32 tile's (three
+    TF32 products per multiply-add at the tensor cores' TF32 peak), and
+    ``ffma_bound_ms``, any design's on the float32 CUDA cores; each with
+    the share of it that ``ms`` reached."""
+    tc = bound(TF32X3_PRODUCTS * flops, PEAK_TF32_FLOPS, nbytes)
+    cc = bound(flops, PEAK_FP32_FLOPS, nbytes)
+    return {**tc, "bound_share": tc["bound_ms"] / ms,
+            "ffma_bound_ms": cc["bound_ms"],
+            "ffma_bound_share": cc["bound_ms"] / ms}
+
+
+def kernel_bounds(dtype, flops: float, nbytes: float, ms: float) -> dict:
+    """bf16: the bf16 tensor cores' bound (a bf16 product is exact in
+    float32, so they could do the same math); float32: both bounds."""
+    if dtype_name(dtype) == "float32":
+        return float32_bounds(flops, nbytes, ms)
+    out = bound(flops, PEAK_BF16_FLOPS, nbytes)
+    return {**out, "bound_share": out["bound_ms"] / ms}
+
+
 def kernel_reps(dtype) -> int:
-    """Timed launches per K1/K3 measurement: more for the ~10 ms bf16
-    (wgmma) runs than for the ~110 ms float32 (FFMA) ones."""
+    """Timed launches per K1/K3 measurement: more for the ~10 ms bf16 runs
+    than for the slower float32 ones."""
     return 3 if dtype_name(dtype) == "float32" else 10
 
 
@@ -1082,13 +1184,12 @@ def timing_k1(torch, dtype) -> dict:
     flops = 2.0 * n_q * n_s * k_dim
     nbytes = (n_q + n_s) * k_dim * q.element_size() + (n_q + n_s) * 4 \
         + n_q * 8
-    peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_FP32_FLOPS
     res = {"kernel": "knn_argmin", "tile": route(dtype), "n_q": n_q,
            "n_s": n_s, "k": k_dim, "dtype": dtype_name(dtype),
            "ms": min(ms, ms2),
            "ms_runs": [ms, ms2], "plain_ms": plain_ms,
            "library_ms": library_ms, "max_abs_err": held["max_abs_err"],
-           **bound(flops, peak, nbytes),
+           **kernel_bounds(dtype, flops, nbytes, min(ms, ms2)),
            "tflops": flops / (min(ms, ms2) * 1e-3) / 1e12,
            **one_tile_ms(torch, lambda a, b, ra, rb: knn_argmin_fused(
                a, b, rq=ra, rs=rb), q, s, rq, rs, reps)}
@@ -1144,15 +1245,12 @@ def timing_k3(torch, dtype) -> dict:
     flops = 2.0 * n_q * n_s * k_dim
     elt = q.element_size()
     nbytes = (n_q + n_s) * k_dim * elt + (n_q + n_s) * 4 + n_q * k * 8
-    # bf16 products are exact in float32, so the bf16 tensor cores could
-    # do the same math: the bf16 bound is at their peak
-    peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_FP32_FLOPS
     res = {"kernel": "knn_topk", "tile": route(dtype), "n_q": n_q,
            "n_s": n_s, "k_dim": k_dim,
            "k": k, "dtype": dtype_name(dtype), "ms": min(ms, ms2),
            "ms_runs": [ms, ms2], "plain_ms": plain_ms,
            "library_ms": library_ms, "max_abs_err": held["max_abs_err"],
-           **bound(flops, peak, nbytes),
+           **kernel_bounds(dtype, flops, nbytes, min(ms, ms2)),
            "tflops": flops / (min(ms, ms2) * 1e-3) / 1e12,
            **one_tile_ms(torch, lambda a, b, ra, rb: knn_topk_fused(
                a, b, k, rq=ra, rs=rb), q, s, rq, rs, reps)}
@@ -1697,7 +1795,7 @@ def phase_tabular(torch, tmp: str) -> dict:
             "max_gap_over_norms_where_differs": gap}
         emit({"phase": "tabular", "engine": engine, "d": TAB_D,
               "n_syn": TAB_SYN, "n_pos": TAB_Q, "n_neg": TAB_Q, **r})
-    check(runs["pallas"]["kernel_launches"]["knn_argmin.ffma"] >= 1,
+    check(runs["pallas"]["kernel_launches"]["knn_argmin.tf32x3"] >= 1,
           "tabular: engine='pallas' never launched K1")
     check(sum(runs["gemm"]["kernel_launches"].values()) == 0,
           "tabular: engine='gemm' launched a kernel")
@@ -1709,7 +1807,8 @@ def phase_tabular(torch, tmp: str) -> dict:
 
     # K1 at the tabular shape: against its plain version, then timed
     q, s = emb["pos"].contiguous(), emb["syn"].contiguous()
-    from ganleaks_tpu_torch.ops.knn_fused import knn_argmin_plain, sq_norms
+    from ganleaks_tpu_torch.ops.knn_fused import (knn_argmin_plain, route,
+                                                  sq_norms)
     rq, rs = sq_norms(q), sq_norms(s)
     held = hold_against_plain(torch, "tabular_k1071", q, s, rq, rs, [])
     emit({"phase": "kernel", **held})
@@ -1727,12 +1826,12 @@ def phase_tabular(torch, tmp: str) -> dict:
         n_q, k_dim = q.shape
         flops = 2.0 * n_q * TAB_SYN * k_dim
         nbytes = (n_q + TAB_SYN) * k_dim * 4 + (n_q + TAB_SYN) * 4 + n_q * 8
-        timing = {"kernel": "knn_argmin", "tile": "ffma", "n_q": n_q,
-                  "n_s": TAB_SYN, "k": k_dim, "dtype": "float32",
+        timing = {"kernel": "knn_argmin", "tile": route(q.dtype),
+                  "n_q": n_q, "n_s": TAB_SYN, "k": k_dim, "dtype": "float32",
                   "ms": min(ms, ms2), "ms_runs": [ms, ms2],
                   "plain_ms": plain_ms, "library_ms": library_ms,
                   "max_abs_err": held["max_abs_err"],
-                  **bound(flops, PEAK_FP32_FLOPS, nbytes),
+                  **float32_bounds(flops, nbytes, min(ms, ms2)),
                   "tflops": flops / (min(ms, ms2) * 1e-3) / 1e12}
         emit({"phase": "timing", "case": "tabular_k1071", **timing})
     return {"runs": runs, "held": held, "timing": timing}
@@ -2978,7 +3077,7 @@ def v2_csv(path: str, rng) -> None:
 def v2_medgan(torch, tmp: str) -> dict:
     """``train`` from a seeded CSV (two pretrain and two GAN epochs at
     batch 2,000), ``generate`` 10,000 records, ``run_tabular_attack``
-    ('pallas': K1 on the FFMA tile, launches counted) with the CSV's own
+    ('pallas': K1 on the 3xTF32 tile, launches counted) with the CSV's own
     split as members and non-members, ``evaluate``."""
     from ganleaks_tpu_torch.attack.eval_roc import evaluate
     from ganleaks_tpu_torch.attack.tabular import run_tabular_attack
@@ -3022,7 +3121,7 @@ def v2_medgan(torch, tmp: str) -> dict:
     check(bool(np.isfinite(out["pos_loss"]).all())
           and out["pos_nn_idx"].shape == (n_train,),
           "medgan: the tabular attack's losses")
-    check(launches["knn_argmin.ffma"] > 0,
+    check(launches["knn_argmin.tf32x3"] > 0,
           f"medgan: the tabular attack did not launch K1 ({launches})")
     return r
 
@@ -3209,10 +3308,10 @@ def main() -> int:
     emit({"phase": "seconds", "build_s": build_s, **phase_s})
 
     # launches: each kernel's count in the run of the path it serves — K1
-    # on the FFMA tile in the float32 engine='pallas' run, K1 on the wgmma
+    # on the 3xTF32 tile in the float32 engine='pallas' run, K1 on the wgmma
     # tile in phase 10's bf16 'taps' run at 20,000 x 100,000 (the recipe
     # 'auto' degrades to), K3 on the wgmma tile in the two-pass run on
-    # that engine (pass 1 on bf16 embeddings), K3 on the FFMA tile in the
+    # that engine (pass 1 on bf16 embeddings), K3 on the 3xTF32 tile in the
     # float32 top-k search, K2 in phase 10's engine='auto' run (taps-int8
     # on a bf16 tower: the main path on the card at the north star); the
     # timed rows are phase 6's block shapes and types
@@ -3221,7 +3320,8 @@ def main() -> int:
     k3_src = ("ganleaks_tpu_torch/csrc/knn_topk.cu",
               "ganleaks_tpu/ops/knn_pallas.py:340")
     rows = [
-        ("knn_argmin.ffma", *k1_src, launches["pallas"]["knn_argmin.ffma"],
+        ("knn_argmin.tf32x3", *k1_src,
+         launches["pallas"]["knn_argmin.tf32x3"],
          max(k1_err["float32"], t_k1["float32"]["max_abs_err"],
              tab["held"]["max_abs_err"]),
          t_k1["float32"]),
@@ -3229,7 +3329,7 @@ def main() -> int:
          north["launches"]["taps_bf16"]["knn_argmin.wgmma"],
          max(k1_err["bfloat16"], t_k1["bfloat16"]["max_abs_err"]),
          t_k1["bfloat16"]),
-        ("knn_topk.ffma", *k3_src, launches["topk_f32"]["knn_topk.ffma"],
+        ("knn_topk.tf32x3", *k3_src, launches["topk_f32"]["knn_topk.tf32x3"],
          max(k3_err["float32"], t_k3["float32"]["max_abs_err"]),
          t_k3["float32"]),
         ("knn_topk.wgmma", *k3_src,

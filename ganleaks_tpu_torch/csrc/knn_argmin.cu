@@ -13,35 +13,30 @@
 // attack's block (2048 x 2048, K = 512,000) about 2000 operations per byte
 // read, so the kernel is bound by arithmetic, not by the 3.35 TB/s of
 // device memory: 4.34 ms for bfloat16 inputs on the bf16 tensor cores
-// (989 TFLOP/s; a bf16 x bf16 product is exact in float32), 64.1 ms for
-// float32 inputs on the float32 CUDA cores (67 TFLOP/s; TF32 would cut the
-// products to ~3 digits). All times for an H100 SXM at 700 W.
+// (989 TFLOP/s; a bf16 x bf16 product is exact in float32), 26.0 ms for
+// float32 inputs on the TF32 tensor cores (495 TFLOP/s, three TF32
+// products per float32 multiply-add; the float32 CUDA cores' bound is
+// 64.1 ms). All times for an H100 SXM at 700 W.
 //
-// Design: two routes by dtype, one pass-1 kernel each, one merge.
-//  * float32 (knn_partial_kernel, tile of knn_tile.cuh): a 256-thread block
-//    owns a 128-query tile and a contiguous span of 128-row synthetic
-//    tiles; per tile it walks K in 16-deep stages through double-buffered
-//    shared memory, each thread accumulating an 8x8 register block with
-//    fmaf, every 128 K values added into the main sum (two-level sum).
-//    Each row's first minimal column is found in registers and across the
-//    16 lanes sharing the row, and folded into the block's running (min,
-//    index) with strict '<'.
-//  * bfloat16 (knn_partial_wgmma, tile of knn_tile_wgmma.cuh): a 384-thread
-//    CTA, one per SM, owns a 128-query tile and a span of synthetic tiles;
-//    a producer thread feeds a ring of 32 KB stages by TMA, two consumer
-//    warpgroups run wgmma.m64n128k16 (bf16 -> f32) and promote the
-//    accumulator into a float32 register sum every few stages. On the
-//    fragment, d = (rq + rs) - 2*sum, and each row's first minimal column
-//    is found over its 32 registers and the 4 lanes of its quad; the
-//    running (min, index) of the thread's two rows stays in registers.
-//    Ring: 6 stages (192 KB); promotion every 2 stages (128 K values);
-//    registers: 64 accumulator + 64 promoted floats per consumer thread
-//    under setmaxnreg 232 (ptxas: 168 at launch, no spills).
+// Design: one pass-1 kernel on either of two tiles, one merge.
+//  * knn_partial_wgmma<Tile>: a 384-thread CTA, one per SM, owns a
+//    128-query tile and a span of synthetic tiles; the producer warpgroup
+//    feeds a ring of stages by TMA, two consumer warpgroups run wgmma and
+//    promote the accumulator into a float32 register sum every 128 K
+//    values. bfloat16 takes knn_wgmma::Bf16 (knn_tile_wgmma.cuh:
+//    m64n128k16, 6 stages of 64 K values); float32 takes knn_tf32x3::Tile
+//    (knn_tile_tf32x3.cuh: each stage split into TF32 hi and lo in shared
+//    memory, three m64n128k8 products per 8 K values, 6 stages of 16). On
+//    the fragment, d = (rq + rs) - 2*sum, and each row's first minimal
+//    column is found over its 32 registers and the 4 lanes of its quad;
+//    the running (min, index) of the thread's two rows stays in registers.
+//    Registers: 64 accumulator + 64 promoted floats per consumer thread
+//    under setmaxnreg 232 (bf16) or 224 (float32).
 //  * Tiles are visited in increasing order, so strict '<' keeps the earliest
 //    index. The TPU grid is sequential and carries the running argmin across
 //    the whole synthetic axis; blocks on Hopper run in parallel, so the
 //    synthetic axis is split into spans (the wrapper plans them for one
-//    wave of blocks), each writing one partial (min, index) per query.
+//    wave of CTAs), each writing one partial (min, index) per query.
 //  * Pass 2 (knn_merge_kernel) walks the partials of each query in span
 //    order with strict '<', which is exactly the sequential walk.
 
@@ -50,97 +45,15 @@
 #include <stdint.h>
 #include <climits>
 
-#include "knn_tile.cuh"
+#include "knn_tile_tf32x3.cuh"
 #include "knn_tile_wgmma.cuh"
 
 namespace {
 
-using knn_tile::kThreads;
-using knn_tile::kTileQ;
-using knn_tile::kTileS;
+using knn_wgmma::kTileQ;
+using knn_wgmma::kTileS;
 
-static_assert(knn_wgmma::kTileS == kTileS, "one tile height for both routes");
-
-template <bool VEC>
-__global__ void __launch_bounds__(kThreads)
-knn_partial_kernel(const float* __restrict__ q, const float* __restrict__ s,
-                   const float* __restrict__ rq, const float* __restrict__ rs,
-                   int n_q, int n_s, int k_dim, int tiles_per_split,
-                   float* __restrict__ part_d, int* __restrict__ part_i) {
-  __shared__ __align__(16) knn_tile::Stages sm;
-  __shared__ float run_d[kTileQ];
-  __shared__ int run_i[kTileQ];
-
-  const int tid = threadIdx.x;
-  const int tx = tid & 15;
-  const int ty = tid >> 4;
-  const int m0 = blockIdx.y * kTileQ;
-  const int split = blockIdx.x;
-  const int n_tiles = (n_s + kTileS - 1) / kTileS;
-  const int t_begin = split * tiles_per_split;
-  const int t_end = min(n_tiles, t_begin + tiles_per_split);
-
-  if (tid < kTileQ) {
-    run_d[tid] = CUDART_INF_F;
-    run_i[tid] = 0;
-  }
-
-  for (int t = t_begin; t < t_end; ++t) {
-    const int n0 = t * kTileS;
-    float acc[8][8];
-    knn_tile::tile_dot<VEC>(q, s, m0, n0, n_q, n_s, k_dim, sm, acc);
-
-    // epilogue: distances, first minimal column per row, running fold
-    int col[8];
-    float rs_c[8];
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      col[j] = n0 + knn_tile::out_col(tx, j);
-      rs_c[j] = col[j] < n_s ? rs[col[j]] : 0.f;
-    }
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const int lrow = knn_tile::out_row(ty, i);
-      const int m = m0 + lrow;
-      const float rqm = m < n_q ? rq[m] : 0.f;
-      float best_d = CUDART_INF_F;
-      int best_i = INT_MAX;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {  // columns ascend with j
-        if (col[j] < n_s) {
-          const float d = (rqm + rs_c[j]) - 2.f * acc[i][j];
-          if (d < best_d) {
-            best_d = d;
-            best_i = col[j];
-          }
-        }
-      }
-      // the 16 lanes sharing this row differ only in the low 4 lane bits
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1) {
-        const float od = __shfl_xor_sync(0xffffffffu, best_d, off);
-        const int oi = __shfl_xor_sync(0xffffffffu, best_i, off);
-        if (od < best_d || (od == best_d && oi < best_i)) {
-          best_d = od;
-          best_i = oi;
-        }
-      }
-      // one thread owns each row's running state: no race across tiles
-      if (tx == 0 && best_d < run_d[lrow]) {
-        run_d[lrow] = best_d;
-        run_i[lrow] = best_i;
-      }
-    }
-  }
-
-  __syncthreads();
-  if (tid < kTileQ && m0 + tid < n_q) {
-    const size_t o = static_cast<size_t>(split) * n_q + m0 + tid;
-    part_d[o] = run_d[tid];
-    part_i[o] = run_i[tid];
-  }
-}
-
+template <class Tile>
 __global__ void __launch_bounds__(knn_wgmma::kThreads, 1)
 knn_partial_wgmma(const __grid_constant__ CUtensorMap map_q,
                   const __grid_constant__ CUtensorMap map_s,
@@ -149,23 +62,22 @@ knn_partial_wgmma(const __grid_constant__ CUtensorMap map_q,
                   int n_stages, float* __restrict__ part_d,
                   int* __restrict__ part_i) {
   extern __shared__ unsigned char smem[];
-  const knn_wgmma::Ring ring(smem, n_stages);
+  const typename Tile::Ring ring(smem, n_stages);
   const int m0 = blockIdx.y * kTileQ;
   const int split = blockIdx.x;
   const int n_tiles = (n_s + kTileS - 1) / kTileS;
   const int t_begin = split * tiles_per_split;
   const int t_end = min(n_tiles, t_begin + tiles_per_split);
-  const int n_kb = (k_dim + knn_wgmma::kStageK - 1) / knn_wgmma::kStageK;
+  const int n_kb = (k_dim + Tile::kStageK - 1) / Tile::kStageK;
 
   if (threadIdx.x == 0) ring.init();
   __syncthreads();
 
   if (threadIdx.x >= knn_wgmma::kConsumerThreads) {  // producer warpgroup
-    knn_wgmma::producer_regs();
-    if (threadIdx.x == knn_wgmma::kConsumerThreads)
-      knn_wgmma::produce(ring, &map_q, &map_s, m0, t_begin, t_end, n_kb);
+    knn_wgmma::producer_regs<Tile::kProducerRegs>();
+    Tile::produce(ring, &map_q, &map_s, m0, t_begin, t_end, n_kb);
   } else {  // consumer warpgroups
-    knn_wgmma::consumer_regs();
+    knn_wgmma::consumer_regs<Tile::kConsumerRegs>();
     const int wg = threadIdx.x >> 7;
     int rows[2], lane_col;
     knn_wgmma::frag_rows(rows, lane_col);
@@ -182,7 +94,7 @@ knn_partial_wgmma(const __grid_constant__ CUtensorMap map_q,
 
     for (int t = t_begin; t < t_end; ++t) {
       const int n0 = t * kTileS;
-      knn_wgmma::consume_tile(ring, c, wg, n_kb, acc, sum);
+      Tile::consume_tile(ring, c, wg, n_kb, acc, sum);
       float best_d[2] = {CUDART_INF_F, CUDART_INF_F};
       int best_i[2] = {INT_MAX, INT_MAX};
 #pragma unroll
@@ -240,32 +152,19 @@ __global__ void knn_merge_kernel(const float* __restrict__ part_d,
   i_out[m] = best_i;
 }
 
-cudaError_t launch_ffma(dim3 grid, const float* q, const float* s,
-                        const float* rq, const float* rs, int n_q, int n_s,
-                        int k_dim, int tiles_per_split, float* part_d,
-                        int* part_i, cudaStream_t stream) {
-  if (knn_tile::vector_rows(q, s, k_dim)) {
-    knn_partial_kernel<true><<<grid, kThreads, 0, stream>>>(
-        q, s, rq, rs, n_q, n_s, k_dim, tiles_per_split, part_d, part_i);
-  } else {
-    knn_partial_kernel<false><<<grid, kThreads, 0, stream>>>(
-        q, s, rq, rs, n_q, n_s, k_dim, tiles_per_split, part_d, part_i);
-  }
-  return cudaGetLastError();
-}
-
-cudaError_t launch_wgmma(dim3 grid, const void* q, const void* s,
-                         const float* rq, const float* rs, int n_q, int n_s,
-                         int k_dim, int tiles_per_split, float* part_d,
-                         int* part_i, cudaStream_t stream) {
+template <class Tile>
+cudaError_t launch(dim3 grid, const void* q, const void* s, const float* rq,
+                   const float* rs, int n_q, int n_s, int k_dim,
+                   int tiles_per_split, float* part_d, int* part_i,
+                   cudaStream_t stream) {
   CUtensorMap map_q, map_s;
   int n_stages;
   size_t smem;
-  const cudaError_t err = knn_wgmma::prepare_launch(
-      knn_partial_wgmma, q, s, n_q, n_s, k_dim, 0, &map_q, &map_s, &n_stages,
-      &smem);
+  const cudaError_t err = knn_wgmma::prepare_launch<Tile>(
+      knn_partial_wgmma<Tile>, q, s, n_q, n_s, k_dim, 0, &map_q, &map_s,
+      &n_stages, &smem);
   if (err != cudaSuccess) return err;
-  knn_partial_wgmma<<<grid, knn_wgmma::kThreads, smem, stream>>>(
+  knn_partial_wgmma<Tile><<<grid, knn_wgmma::kThreads, smem, stream>>>(
       map_q, map_s, rq, rs, n_q, n_s, k_dim, tiles_per_split, n_stages,
       part_d, part_i);
   return cudaGetLastError();
@@ -275,14 +174,14 @@ cudaError_t launch_wgmma(dim3 grid, const void* q, const void* s,
 
 extern "C" {
 
-// Rows per synthetic tile (both routes): the wrapper sizes the partial
+// Rows per synthetic tile (both tiles): the wrapper sizes the partial
 // buffers with it.
 int knn_argmin_tile_rows() { return kTileS; }
 
-// dtype: 0 = float32 (FFMA tile), 1 = bfloat16 (wgmma tile; k_dim % 8 == 0
-// and 16-byte-aligned q and s, for TMA). q (n_q, k_dim) and s (n_s, k_dim)
-// are row-major and contiguous; rq (n_q,), rs (n_s,) float32 squared row
-// norms. part_d/part_i hold n_splits * n_q entries, with
+// dtype: 0 = float32 (3xTF32 tile; k_dim % 4 == 0), 1 = bfloat16 (bf16
+// tile; k_dim % 8 == 0); 16-byte-aligned q and s, for TMA. q (n_q, k_dim)
+// and s (n_s, k_dim) are row-major and contiguous; rq (n_q,), rs (n_s,)
+// float32 squared row norms. part_d/part_i hold n_splits * n_q entries, with
 // n_splits = ceil(ceil(n_s / tile_rows) / tiles_per_split). Launches on
 // `stream` without synchronising; returns the cudaError_t of the launches
 // (0 on success).
@@ -304,12 +203,11 @@ int knn_argmin_launch(int dtype, const void* q, const void* s, const void* rq,
   auto st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (dtype == 0) {
-    err = launch_ffma(grid, static_cast<const float*>(q),
-                      static_cast<const float*>(s), rqf, rsf, n_q, n_s, k_dim,
-                      tiles_per_split, pd, pi, st);
+    err = launch<knn_tf32x3::Tile>(grid, q, s, rqf, rsf, n_q, n_s, k_dim,
+                                   tiles_per_split, pd, pi, st);
   } else if (dtype == 1) {
-    err = launch_wgmma(grid, q, s, rqf, rsf, n_q, n_s, k_dim, tiles_per_split,
-                       pd, pi, st);
+    err = launch<knn_wgmma::Bf16>(grid, q, s, rqf, rsf, n_q, n_s, k_dim,
+                                  tiles_per_split, pd, pi, st);
   } else {
     err = cudaErrorInvalidValue;
   }

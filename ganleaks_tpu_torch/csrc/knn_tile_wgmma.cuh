@@ -2,7 +2,10 @@
 // (knn_argmin.cu, K1, and knn_topk.cu, K3) on Hopper's tensor cores: the
 // float32 dot products of a 128-query tile with a 128-row synthetic tile,
 // computed by wgmma (bf16 x bf16 -> f32) from shared memory that TMA fills.
-// float32 inputs keep the FFMA tile of knn_tile.cuh.
+// float32 inputs take the 3xTF32 tile of knn_tile_tf32x3.cuh, built on this
+// file's PTX wrappers, roles, fragment helpers and host side. A kernel takes
+// its tile as a template parameter (Bf16 below, knn_tf32x3::Tile), which
+// supplies the ring, the producer warpgroup's work and one tile's products.
 //
 // Bound at the attack's block (2048 x 2048, K = 512,000): 4.29 TFLOP over
 // the 989 TFLOP/s of the bf16 tensor cores = 4.34 ms. A bf16 x bf16
@@ -14,8 +17,9 @@
 //    warpgroup w owns tile rows [64 w, 64 w + 64) and issues
 //    wgmma.m64n128k16 over them and all 128 synthetic rows. Warpgroup 2
 //    produces: one thread issues the TMA loads; the warpgroup gives up its
-//    registers with setmaxnreg (40 each) and the consumers take them (232
-//    each), inside one if/else that never reconverges.
+//    registers with setmaxnreg (40 each; Bf16::kProducerRegs) and the
+//    consumers take them (232 each), inside one if/else that never
+//    reconverges.
 //  * Ring: up to 6 stages of (128 + 128) rows x 64 K values x 2 B = 32 KB
 //    (as many as fit beside the caller's bytes: 3 beside K3's k = 128 lists),
 //    each a 128-byte-swizzled TMA box per operand (one 128-byte row per
@@ -26,9 +30,9 @@
 //    wrappers pad K with zero columns otherwise, which leave every dot
 //    product unchanged.
 //  * Promotion: the wgmma accumulator restarts (scale_d = 0) every
-//    kPromoteStages = 2 stages (128 K values, as the FFMA tile) and is then
-//    added into a float32 register sum on the CUDA cores, the two-level sum
-//    of the FFMA tile: over K = 512,000 one tensor-core accumulator would
+//    kPromoteStages = 2 stages (128 K values) and is then added into a
+//    float32 register sum on the CUDA cores, a two-level sum: over
+//    K = 512,000 one tensor-core accumulator would
 //    take 32,000 k16 steps whose internal rounding is not documented, and
 //    on LPIPS embeddings (every product >= 0) a one-sided rounding adds up.
 //    On an H100 SXM at 700 W a sweep of intervals from 1 stage to none
@@ -128,6 +132,12 @@ __device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
          (static_cast<uint64_t>(1) << 16) |            // LBO: unused here
          (static_cast<uint64_t>(1024 >> 4) << 32) |    // SBO
          (static_cast<uint64_t>(1) << 62);             // 128-byte swizzle
+}
+
+// Orders this thread's generic-proxy writes to shared memory before later
+// async-proxy reads of them (wgmma operands).
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -230,11 +240,15 @@ struct Cursor {
 // The two roles
 // ---------------------------------------------------------------------------
 
+// The register split of a tile's roles (per thread; 128 producer and 256
+// consumer threads share the 384 x 168 registers of the launch).
+template <int kRegs>
 __device__ __forceinline__ void producer_regs() {
-  asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kRegs));
 }
+template <int kRegs>
 __device__ __forceinline__ void consumer_regs() {
-  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kRegs));
 }
 
 // The producer thread: for synthetic tiles [t_begin, t_end) and every K
@@ -256,7 +270,8 @@ __device__ __forceinline__ void produce(const Ring& ring,
   }
 }
 
-__device__ __forceinline__ void release(const Ring& ring, int stage) {
+template <class R>
+__device__ __forceinline__ void release(const R& ring, int stage) {
   if ((threadIdx.x & 31) == 0) mbar_arrive(ring.empty(stage));
 }
 
@@ -354,47 +369,80 @@ inline EncodeTiledFn encode_tiled() {
   return fn;
 }
 
-// The TMA map of a row-major bf16 (n_rows, k_dim) matrix in boxes of 128
-// rows x 64 K values, 128-byte swizzled, zero outside the matrix.
+// The TMA map of a row-major (n_rows, k_dim) matrix of `elem_bytes`-byte
+// elements in boxes of 128 rows x box_k K values (one `swizzle`-wide row per
+// tile row), zero outside the matrix. TMA needs a row stride that is a
+// multiple of 16 bytes and a 16-byte-aligned base.
 inline cudaError_t rows_map(CUtensorMap* map, const void* base, int n_rows,
-                            int k_dim) {
-  if (k_dim % 8 != 0 || reinterpret_cast<uintptr_t>(base) % 16 != 0)
+                            int k_dim, CUtensorMapDataType type,
+                            int elem_bytes, int box_k,
+                            CUtensorMapSwizzle swizzle) {
+  if ((static_cast<size_t>(k_dim) * elem_bytes) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(base) % 16 != 0)
     return cudaErrorInvalidValue;
   const EncodeTiledFn enc = encode_tiled();
   if (enc == nullptr) return cudaErrorNotSupported;
   const cuuint64_t dims[2] = {static_cast<cuuint64_t>(k_dim),
                               static_cast<cuuint64_t>(n_rows)};
-  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(k_dim) * 2};
-  const cuuint32_t box[2] = {kStageK, kTileQ};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(k_dim) *
+                                 elem_bytes};
+  const cuuint32_t box[2] = {static_cast<cuuint32_t>(box_k), kTileQ};
   const cuuint32_t elem[2] = {1, 1};
-  const CUresult r = enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
-                         const_cast<void*>(base), dims, strides, box, elem,
-                         CU_TENSOR_MAP_INTERLEAVE_NONE,
-                         CU_TENSOR_MAP_SWIZZLE_128B,
-                         CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+  const CUresult r = enc(map, type, 2, const_cast<void*>(base), dims,
+                         strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                         swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                          CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
+// The bf16 tile as a kernel's template parameter.
+struct Bf16 {
+  using Ring = knn_wgmma::Ring;
+  static constexpr int kStageK = knn_wgmma::kStageK;
+  static constexpr int kRingBytes = kStageBytes + 16;  // a stage + barriers
+  static constexpr int kMaxStages = knn_wgmma::kMaxStages;
+  static constexpr int kProducerRegs = 40;
+  static constexpr int kConsumerRegs = 232;
+
+  static cudaError_t map(CUtensorMap* m, const void* base, int n_rows,
+                         int k_dim) {
+    return rows_map(m, base, n_rows, k_dim, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                    2, kStageK, CU_TENSOR_MAP_SWIZZLE_128B);
+  }
+  // Every thread of the producer warpgroup calls it; one issues the loads.
+  __device__ static void produce(const Ring& ring, const CUtensorMap* map_q,
+                                 const CUtensorMap* map_s, int m0,
+                                 int t_begin, int t_end, int n_kb) {
+    if (threadIdx.x == kConsumerThreads)
+      knn_wgmma::produce(ring, map_q, map_s, m0, t_begin, t_end, n_kb);
+  }
+  __device__ static void consume_tile(const Ring& ring, Cursor& c, int wg,
+                                      int n_kb, float (&acc)[kFragRegs],
+                                      float (&sum)[kFragRegs]) {
+    knn_wgmma::consume_tile(ring, c, wg, n_kb, acc, sum);
+  }
+};
+
 // Everything a wgmma kernel's launch needs before `<<<...>>>`: the ring's
-// stage count (*n_stages, as many as fit beside `extra` bytes, at most
-// kMaxStages, at least 2), its dynamic shared memory (*smem, the kernel's
-// limit raised to it) and the two TMA maps.
-template <typename Kernel>
+// stage count (*n_stages, as many of Tile's stages as fit beside `extra`
+// bytes, at most Tile::kMaxStages, at least 2), its dynamic shared memory
+// (*smem, the kernel's limit raised to it) and the two TMA maps.
+template <class Tile, typename Kernel>
 inline cudaError_t prepare_launch(Kernel kernel, const void* q, const void* s,
                                   int n_q, int n_s, int k_dim, size_t extra,
                                   CUtensorMap* map_q, CUtensorMap* map_s,
                                   int* n_stages, size_t* smem) {
   if (extra + kAlignSlack > kMaxSmem) return cudaErrorInvalidValue;
-  const size_t fit = (kMaxSmem - kAlignSlack - extra) / (kStageBytes + 16);
-  *n_stages = fit < static_cast<size_t>(kMaxStages) ? static_cast<int>(fit)
-                                                     : kMaxStages;
+  const size_t fit = (kMaxSmem - kAlignSlack - extra) / Tile::kRingBytes;
+  *n_stages = fit < static_cast<size_t>(Tile::kMaxStages)
+                  ? static_cast<int>(fit)
+                  : Tile::kMaxStages;
   if (*n_stages < 2) return cudaErrorInvalidValue;
-  *smem = kAlignSlack + static_cast<size_t>(*n_stages) * (kStageBytes + 16) +
+  *smem = kAlignSlack + static_cast<size_t>(*n_stages) * Tile::kRingBytes +
           extra;
-  cudaError_t err = rows_map(map_q, q, n_q, k_dim);
+  cudaError_t err = Tile::map(map_q, q, n_q, k_dim);
   if (err != cudaSuccess) return err;
-  err = rows_map(map_s, s, n_s, k_dim);
+  err = Tile::map(map_s, s, n_s, k_dim);
   if (err != cudaSuccess) return err;
   return cudaFuncSetAttribute(kernel,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,

@@ -17,10 +17,11 @@
 // operations against (N_q + N_s)*K input elements, far above the card's
 // operations-per-byte balance, so it is bound by arithmetic: at the attack's
 // block (2048 x 2048, K = 512,000) 4.34 ms for bfloat16 inputs on the bf16
-// tensor cores, 64.1 ms for float32 inputs on the float32 CUDA cores (H100
+// tensor cores, 26.0 ms for float32 inputs on the TF32 tensor cores (three
+// TF32 products per multiply-add; 64.1 ms on the float32 CUDA cores) (H100
 // SXM, 700 W).
 //
-// Design: the argmin kernel's two routes and split, with a k-list epilogue.
+// Design: the argmin kernel's two tiles and split, with a k-list epilogue.
 //  * Each query row keeps a running list of k (d, index) entries in
 //    dynamic shared memory, ascending, initialised to (+inf, -1). After a
 //    tile, the lanes that share a row extract the tile's first minimal
@@ -30,13 +31,12 @@
 //    column. Running entries come from earlier tiles (lower indices), so
 //    "ascending d, earliest index first" holds — the running entries are
 //    merged before the tile's, as in the TPU kernel.
-//  * float32 (knn_topk_partial_kernel): the FFMA tile of knn_tile.cuh; a
-//    row's 128 columns lie on 16 lanes, 8 each.
-//  * bfloat16 (knn_topk_partial_wgmma): the wgmma + TMA tile of
-//    knn_tile_wgmma.cuh; a row's columns lie on the 4 lanes of a quad, 32
-//    each, d computed in place in the promoted sum. The lists (128 x k x 8
-//    bytes) share the CTA's shared memory with the ring, so the launch
-//    picks the ring's stage count from k (6 up to k = 33, 3 at k = 128).
+//  * knn_topk_partial_wgmma<Tile>: the argmin kernel's CTA on the bf16 tile
+//    (knn_wgmma::Bf16) or the 3xTF32 tile (knn_tf32x3::Tile) for float32;
+//    a row's columns lie on the 4 lanes of a quad, 32 each, d computed in
+//    place in the promoted sum. The lists (128 x k x 8 bytes) share the
+//    CTA's shared memory with the ring, so the launch picks the ring's
+//    stage count from k (either tile: 6 up to k = 33, 3 at k = 128).
 //  * Pass 2 (knn_topk_merge_kernel) merges each query's per-span lists in
 //    span order by the same insertion, earlier spans first among equals.
 
@@ -45,14 +45,13 @@
 #include <stdint.h>
 #include <climits>
 
-#include "knn_tile.cuh"
+#include "knn_tile_tf32x3.cuh"
 #include "knn_tile_wgmma.cuh"
 
 namespace {
 
-using knn_tile::kThreads;
-using knn_tile::kTileQ;
-using knn_tile::kTileS;
+using knn_wgmma::kTileQ;
+using knn_wgmma::kTileS;
 
 // running lists: kTileQ * k * 8 bytes of dynamic shared memory
 constexpr int kMaxK = 128;
@@ -72,104 +71,7 @@ __device__ __forceinline__ void insert_entry(float* ld, int* li, int k,
   li[p] = i;
 }
 
-template <bool VEC>
-__global__ void __launch_bounds__(kThreads)
-knn_topk_partial_kernel(const float* __restrict__ q,
-                        const float* __restrict__ s,
-                        const float* __restrict__ rq,
-                        const float* __restrict__ rs, int n_q, int n_s,
-                        int k_dim, int k, int tiles_per_split,
-                        float* __restrict__ part_d, int* __restrict__ part_i) {
-  __shared__ __align__(16) knn_tile::Stages sm;
-  extern __shared__ __align__(16) unsigned char lists[];
-  float* run_d = reinterpret_cast<float*>(lists);
-  int* run_i = reinterpret_cast<int*>(run_d + kTileQ * k);
-
-  const int tid = threadIdx.x;
-  const int tx = tid & 15;
-  const int ty = tid >> 4;
-  const int m0 = blockIdx.y * kTileQ;
-  const int split = blockIdx.x;
-  const int n_tiles = (n_s + kTileS - 1) / kTileS;
-  const int t_begin = split * tiles_per_split;
-  const int t_end = min(n_tiles, t_begin + tiles_per_split);
-
-  for (int e = tid; e < kTileQ * k; e += kThreads) {
-    run_d[e] = CUDART_INF_F;
-    run_i[e] = -1;
-  }
-  // tile_dot's first barrier orders these stores before the epilogue reads
-
-  for (int t = t_begin; t < t_end; ++t) {
-    const int n0 = t * kTileS;
-    float acc[8][8];
-    knn_tile::tile_dot<VEC>(q, s, m0, n0, n_q, n_s, k_dim, sm, acc);
-
-    int col[8];
-    float rs_c[8];
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      col[j] = n0 + knn_tile::out_col(tx, j);
-      rs_c[j] = col[j] < n_s ? rs[col[j]] : 0.f;
-    }
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {  // unrolled: acc[i] stays in registers
-      const int lrow = knn_tile::out_row(ty, i);
-      const int m = m0 + lrow;
-      const float rqm = m < n_q ? rq[m] : 0.f;
-      float dv[8];
-#pragma unroll
-      for (int j = 0; j < 8; ++j)
-        dv[j] = col[j] < n_s ? (rqm + rs_c[j]) - 2.f * acc[i][j]
-                             : CUDART_INF_F;
-      float* ld = run_d + lrow * k;
-      int* li = run_i + lrow * k;
-      // k rounds for every lane of the warp (uniform trip count, so the
-      // full-mask shuffles are safe); a round that cannot enter the list
-      // changes nothing, and neither can any later one
-      for (int r = 0; r < k; ++r) {
-        float best_d = CUDART_INF_F;
-        int best_i = INT_MAX;
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {  // columns ascend with j
-          if (dv[j] < best_d) {
-            best_d = dv[j];
-            best_i = col[j];
-          }
-        }
-#pragma unroll
-        for (int off = 8; off > 0; off >>= 1) {
-          const float od = __shfl_xor_sync(0xffffffffu, best_d, off);
-          const int oi = __shfl_xor_sync(0xffffffffu, best_i, off);
-          if (od < best_d || (od == best_d && oi < best_i)) {
-            best_d = od;
-            best_i = oi;
-          }
-        }
-        const bool take = best_d < ld[k - 1];  // same on the row's 16 lanes
-        __syncwarp();  // every lane read ld[k - 1] before lane 0 writes
-        if (take) {
-          if (tx == 0) insert_entry(ld, li, k, best_d, best_i);
-#pragma unroll
-          for (int j = 0; j < 8; ++j)
-            if (col[j] == best_i) dv[j] = CUDART_INF_F;
-        }
-        __syncwarp();  // the insert is visible to the next round's reads
-      }
-    }
-  }
-
-  __syncthreads();
-  for (int e = tid; e < kTileQ * k; e += kThreads) {
-    const int m = m0 + e / k;
-    if (m < n_q) {
-      const size_t o = (static_cast<size_t>(split) * n_q + m) * k + e % k;
-      part_d[o] = run_d[e];
-      part_i[o] = run_i[e];
-    }
-  }
-}
-
+template <class Tile>
 __global__ void __launch_bounds__(knn_wgmma::kThreads, 1)
 knn_topk_partial_wgmma(const __grid_constant__ CUtensorMap map_q,
                        const __grid_constant__ CUtensorMap map_s,
@@ -179,7 +81,7 @@ knn_topk_partial_wgmma(const __grid_constant__ CUtensorMap map_q,
                        float* __restrict__ part_d,
                        int* __restrict__ part_i) {
   extern __shared__ unsigned char smem[];
-  const knn_wgmma::Ring ring(smem, n_stages);
+  const typename Tile::Ring ring(smem, n_stages);
   float* run_d = reinterpret_cast<float*>(ring.extra);
   int* run_i = reinterpret_cast<int*>(run_d + kTileQ * k);
   const int m0 = blockIdx.y * kTileQ;
@@ -187,17 +89,16 @@ knn_topk_partial_wgmma(const __grid_constant__ CUtensorMap map_q,
   const int n_tiles = (n_s + kTileS - 1) / kTileS;
   const int t_begin = split * tiles_per_split;
   const int t_end = min(n_tiles, t_begin + tiles_per_split);
-  const int n_kb = (k_dim + knn_wgmma::kStageK - 1) / knn_wgmma::kStageK;
+  const int n_kb = (k_dim + Tile::kStageK - 1) / Tile::kStageK;
 
   if (threadIdx.x == 0) ring.init();
   __syncthreads();
 
   if (threadIdx.x >= knn_wgmma::kConsumerThreads) {  // producer warpgroup
-    knn_wgmma::producer_regs();
-    if (threadIdx.x == knn_wgmma::kConsumerThreads)
-      knn_wgmma::produce(ring, &map_q, &map_s, m0, t_begin, t_end, n_kb);
+    knn_wgmma::producer_regs<Tile::kProducerRegs>();
+    Tile::produce(ring, &map_q, &map_s, m0, t_begin, t_end, n_kb);
   } else {  // consumer warpgroups
-    knn_wgmma::consumer_regs();
+    knn_wgmma::consumer_regs<Tile::kConsumerRegs>();
     const int wg = threadIdx.x >> 7;
     const int quad_lane = threadIdx.x & 3;
     int rows[2], lane_col;
@@ -220,7 +121,7 @@ knn_topk_partial_wgmma(const __grid_constant__ CUtensorMap map_q,
 
     for (int t = t_begin; t < t_end; ++t) {
       const int n0 = t * kTileS;
-      knn_wgmma::consume_tile(ring, c, wg, n_kb, acc, dv);
+      Tile::consume_tile(ring, c, wg, n_kb, acc, dv);
 #pragma unroll
       for (int j = 0; j < knn_wgmma::kFragRegs; ++j) {  // d in place
         const int col = n0 + 8 * (j >> 2) + lane_col + (j & 1);
@@ -296,47 +197,19 @@ __global__ void knn_topk_merge_kernel(const float* __restrict__ part_d,
   }
 }
 
-template <bool VEC>
-cudaError_t launch_ffma_vec(dim3 grid, size_t lists_bytes, cudaStream_t stream,
-                            const float* q, const float* s, const float* rq,
-                            const float* rs, int n_q, int n_s, int k_dim,
-                            int k, int tiles_per_split, float* part_d,
-                            int* part_i) {
-  auto kernel = knn_topk_partial_kernel<VEC>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(lists_bytes));
-  if (err != cudaSuccess) return err;
-  kernel<<<grid, kThreads, lists_bytes, stream>>>(
-      q, s, rq, rs, n_q, n_s, k_dim, k, tiles_per_split, part_d, part_i);
-  return cudaGetLastError();
-}
-
-cudaError_t launch_ffma(dim3 grid, size_t lists_bytes, cudaStream_t stream,
-                        const float* q, const float* s, const float* rq,
-                        const float* rs, int n_q, int n_s, int k_dim, int k,
-                        int tiles_per_split, float* part_d, int* part_i) {
-  return knn_tile::vector_rows(q, s, k_dim)
-             ? launch_ffma_vec<true>(grid, lists_bytes, stream, q, s, rq, rs,
-                                     n_q, n_s, k_dim, k, tiles_per_split,
-                                     part_d, part_i)
-             : launch_ffma_vec<false>(grid, lists_bytes, stream, q, s, rq, rs,
-                                      n_q, n_s, k_dim, k, tiles_per_split,
-                                      part_d, part_i);
-}
-
-cudaError_t launch_wgmma(dim3 grid, size_t lists_bytes, cudaStream_t stream,
-                         const void* q, const void* s, const float* rq,
-                         const float* rs, int n_q, int n_s, int k_dim, int k,
-                         int tiles_per_split, float* part_d, int* part_i) {
+template <class Tile>
+cudaError_t launch(dim3 grid, size_t lists_bytes, cudaStream_t stream,
+                   const void* q, const void* s, const float* rq,
+                   const float* rs, int n_q, int n_s, int k_dim, int k,
+                   int tiles_per_split, float* part_d, int* part_i) {
   CUtensorMap map_q, map_s;
   int n_stages;
   size_t smem;
-  const cudaError_t err = knn_wgmma::prepare_launch(
-      knn_topk_partial_wgmma, q, s, n_q, n_s, k_dim, lists_bytes, &map_q,
-      &map_s, &n_stages, &smem);
+  const cudaError_t err = knn_wgmma::prepare_launch<Tile>(
+      knn_topk_partial_wgmma<Tile>, q, s, n_q, n_s, k_dim, lists_bytes,
+      &map_q, &map_s, &n_stages, &smem);
   if (err != cudaSuccess) return err;
-  knn_topk_partial_wgmma<<<grid, knn_wgmma::kThreads, smem, stream>>>(
+  knn_topk_partial_wgmma<Tile><<<grid, knn_wgmma::kThreads, smem, stream>>>(
       map_q, map_s, rq, rs, n_q, n_s, k_dim, k, tiles_per_split, n_stages,
       part_d, part_i);
   return cudaGetLastError();
@@ -349,9 +222,9 @@ extern "C" {
 // Rows per synthetic tile: the wrapper sizes the partial buffers with it.
 int knn_topk_tile_rows() { return kTileS; }
 
-// dtype: 0 = float32 (FFMA tile), 1 = bfloat16 (wgmma tile; k_dim % 8 == 0
-// and 16-byte-aligned q and s, for TMA). q (n_q, k_dim) and s (n_s, k_dim)
-// are row-major and contiguous; rq (n_q,), rs (n_s,) float32 squared row
+// dtype: 0 = float32 (3xTF32 tile; k_dim % 4 == 0), 1 = bfloat16 (bf16
+// tile; k_dim % 8 == 0); 16-byte-aligned q and s, for TMA. q (n_q, k_dim)
+// and s (n_s, k_dim) are row-major and contiguous; rq (n_q,), rs (n_s,) float32 squared row
 // norms. part_d/part_i hold n_splits * n_q * k entries, with
 // n_splits = ceil(ceil(n_s / tile_rows) / tiles_per_split); d_out/i_out hold
 // n_q * k, row-major. Launches on `stream` without synchronising; returns
@@ -377,12 +250,11 @@ int knn_topk_launch(int dtype, const void* q, const void* s, const void* rq,
   auto st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (dtype == 0) {
-    err = launch_ffma(grid, lists_bytes, st, static_cast<const float*>(q),
-                      static_cast<const float*>(s), rqf, rsf, n_q, n_s, k_dim,
-                      k, tiles_per_split, pd, pi);
+    err = launch<knn_tf32x3::Tile>(grid, lists_bytes, st, q, s, rqf, rsf, n_q,
+                                   n_s, k_dim, k, tiles_per_split, pd, pi);
   } else if (dtype == 1) {
-    err = launch_wgmma(grid, lists_bytes, st, q, s, rqf, rsf, n_q, n_s, k_dim,
-                       k, tiles_per_split, pd, pi);
+    err = launch<knn_wgmma::Bf16>(grid, lists_bytes, st, q, s, rqf, rsf, n_q,
+                                  n_s, k_dim, k, tiles_per_split, pd, pi);
   } else {
     err = cudaErrorInvalidValue;
   }

@@ -15,25 +15,31 @@ are (+inf, -1).
 Bound on an H100 SXM (700 W): ``2*N_q*N_s*K`` operations against
 ``(N_q+N_s)*K`` input elements — at the attack's 2048 x 2048 block with
 K = 512,000 about 2000 operations per byte read, far above the card's
-balance point, so both kernels are bound by arithmetic. Two routes by
-dtype, sharing each kernel's span split and merge:
+balance point, so both kernels are bound by arithmetic. Both dtypes run
+on the tensor cores, on one kernel per file templated on its tile: ``wgmma``
+from shared memory that TMA fills through an mbarrier ring, one CTA per
+SM, the accumulator promoted into a float32 register sum every 128 K
+values. Two routes by dtype, sharing each kernel's span split and merge:
 
-* float32 -> the FFMA tile (``csrc/knn_tile.cuh``): true float32 products
-  on the CUDA cores (67 TFLOP/s; TF32 would cut them to ~3 digits), floor
-  64.1 ms at that block.
-* bfloat16 -> the tensor-core tile (``csrc/knn_tile_wgmma.cuh``): ``wgmma``
-  bf16 x bf16 -> f32 from shared memory that TMA fills through an mbarrier
-  ring, one CTA per SM, the accumulator promoted into a float32 register
-  sum every two 64-deep K stages (128 K values). The products are
-  exact in float32, so the math is the FFMA tile's; floor 4.34 ms at 989
-  TFLOP/s. TMA needs K % 8 == 0 and 16-byte-aligned rows: other inputs go
-  through an explicit zero-padded copy (:func:`pad_k`), which leaves every
-  dot product unchanged.
+* float32 -> 'tf32x3' (``csrc/knn_tile_tf32x3.cuh``): each value split
+  into TF32 hi and lo in shared memory, three TF32 products per
+  multiply-add (lo.hi, hi.lo, hi.hi), which keeps float32's products to
+  ~7e-7 of sum |a b| (plain TF32 would cut them to ~3 digits); floor
+  26.0 ms at that block at 495 TFLOP/s (the CUDA cores' float32 floor is
+  64.1 ms).
+* bfloat16 -> 'wgmma' (``csrc/knn_tile_wgmma.cuh``): bf16 x bf16 -> f32,
+  products exact in float32; floor 4.34 ms at 989 TFLOP/s.
+
+TMA needs 16-byte rows (K % 4 == 0 for float32, K % 8 == 0 for bfloat16)
+and a 16-byte-aligned base: other inputs go through an explicit
+zero-padded copy (:func:`pad_k`), which leaves every dot product
+unchanged.
 
 Each wrapper launches its kernel for CUDA tensors, counting its launches in
 ``<wrapper>.launches`` and per route in ``<wrapper>.launches_by_route``
-(``{"ffma": n, "wgmma": n}``); it takes the plain version only for tensors
-on the CPU. It never falls back: a failed build or launch raises.
+(``{"tf32x3": n, "wgmma": n}``); it takes the plain version only for
+tensors on the CPU. It never falls back: a failed build, TMA map or launch
+raises.
 """
 
 from __future__ import annotations
@@ -43,13 +49,13 @@ import ctypes
 import torch
 
 # dtype -> (code of the C launch entry, route)
-_ROUTES = {torch.float32: (0, "ffma"), torch.bfloat16: (1, "wgmma")}
+_ROUTES = {torch.float32: (0, "tf32x3"), torch.bfloat16: (1, "wgmma")}
 TOPK_MAX_K = 128  # kMaxK of csrc/knn_topk.cu (running lists in shared memory)
 
 
 def route(dtype: torch.dtype) -> str:
     """The tile that computes the cross term for embeddings of ``dtype``:
-    'ffma' (float32) or 'wgmma' (bfloat16); anything else raises."""
+    'tf32x3' (float32) or 'wgmma' (bfloat16); anything else raises."""
     try:
         return _ROUTES[dtype][1]
     except KeyError:
@@ -58,10 +64,11 @@ def route(dtype: torch.dtype) -> str:
 
 
 def pad_k(x: torch.Tensor) -> torch.Tensor:
-    """``x`` (N, K) with K zero-padded to a multiple of 8, in a new tensor;
-    ``x`` itself when K already is one and its rows start on 16 bytes
-    (what TMA needs). Zero columns change no dot product and no norm."""
-    pad = -x.shape[1] % 8
+    """``x`` (N, K) with K zero-padded to 16-byte rows (a multiple of 4
+    float32 or 8 bfloat16 values), in a new tensor; ``x`` itself when its
+    rows already are and start on 16 bytes (what TMA needs). Zero columns
+    change no dot product and no norm."""
+    pad = -x.shape[1] % (16 // x.element_size())
     if pad == 0 and x.data_ptr() % 16 == 0:
         return x
     out = x.new_zeros((x.shape[0], x.shape[1] + pad))
@@ -105,20 +112,14 @@ def _sm_count(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
-def tiles_per_split(n_q: int, n_s: int, tile: int, n_sm: int,
-                    tile_route: str) -> int:
-    """Synthetic tiles per block; span ``j`` covers tiles
-    ``[j * tps, min(n_tiles, (j + 1) * tps))``.
-
-    'ffma': as few as keep >= 2 blocks per SM, so the grid fills the card
-    while each block keeps a long K loop. 'wgmma' (one CTA per SM): the
-    span length whose grid finishes in the fewest tile-times,
+def tiles_per_split(n_q: int, n_s: int, tile: int, n_sm: int) -> int:
+    """Synthetic tiles per CTA; span ``j`` covers tiles
+    ``[j * tps, min(n_tiles, (j + 1) * tps))``. Both tiles run one CTA per
+    SM: the span length whose grid finishes in the fewest tile-times,
     ``waves x span``, the longer span among equals (fewer partials to
     merge)."""
     n_qt = -(-n_q // tile)
     n_st = -(-n_s // tile)
-    if tile_route == "ffma":
-        return max(1, (n_qt * n_st) // (2 * n_sm))
 
     def cost(tps: int) -> int:
         return -(-(n_qt * -(-n_st // tps)) // n_sm) * tps
@@ -129,8 +130,7 @@ def launch_plan(q: torch.Tensor, n_s: int, tile: int = 128
                 ) -> tuple[int, int]:
     """(tiles per split, splits) of a launch on CUDA ``q`` against ``n_s``
     synthetic rows."""
-    tps = tiles_per_split(q.shape[0], n_s, tile, _sm_count(q.device),
-                          route(q.dtype))
+    tps = tiles_per_split(q.shape[0], n_s, tile, _sm_count(q.device))
     return tps, -(-(-(-n_s // tile)) // tps)
 
 
@@ -187,8 +187,7 @@ def _launch(fn, name: str, q: torch.Tensor, s: torch.Tensor,
     if n_q == 0:
         return d, idx
     code, tile_route = _ROUTES[q.dtype]
-    if tile_route == "wgmma":
-        q, s = pad_k(q), pad_k(s)
+    q, s = pad_k(q), pad_k(s)
     lib = _library(name, 5 if k else 4)
     tile = getattr(lib, f"{name}_tile_rows")()
     tps, n_splits = launch_plan(q, n_s, tile)
@@ -220,7 +219,7 @@ def knn_argmin_fused(q: torch.Tensor, s: torch.Tensor, *,
     (d float32 (N_q,), idx int32 (N_q,)), ``d`` the minimal
     ``rq + rs - 2 q.s`` and ``idx`` its first index.
 
-    ``q`` and ``s``: contiguous, same device, float32 (FFMA tile) or
+    ``q`` and ``s``: contiguous, same device, float32 (3xTF32 tile) or
     bfloat16 (wgmma tile); products accumulate in float32 either way.
     ``rq``/``rs``: optional float32 squared row norms (computed from the
     embeddings when absent; the streamed search passes norms taken before a
@@ -232,7 +231,7 @@ def knn_argmin_fused(q: torch.Tensor, s: torch.Tensor, *,
 
 
 knn_argmin_fused.launches = 0
-knn_argmin_fused.launches_by_route = {"ffma": 0, "wgmma": 0}
+knn_argmin_fused.launches_by_route = {"tf32x3": 0, "wgmma": 0}
 
 
 def knn_topk_plain(q: torch.Tensor, s: torch.Tensor, k: int,
@@ -275,4 +274,4 @@ def knn_topk_fused(q: torch.Tensor, s: torch.Tensor, k: int, *,
 
 
 knn_topk_fused.launches = 0
-knn_topk_fused.launches_by_route = {"ffma": 0, "wgmma": 0}
+knn_topk_fused.launches_by_route = {"tf32x3": 0, "wgmma": 0}

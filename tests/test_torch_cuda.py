@@ -34,9 +34,9 @@ TOL = 1e-5
 
 def launched_on(fn, dtype, before):
     """``fn`` launched exactly once since ``before`` (a copy of its
-    ``launches_by_route``), on the tile of ``dtype``: FFMA for float32,
+    ``launches_by_route``), on the tile of ``dtype``: 3xTF32 for float32,
     wgmma for bfloat16."""
-    want = "wgmma" if dtype == torch.bfloat16 else "ffma"
+    want = "wgmma" if dtype == torch.bfloat16 else "tf32x3"
     got = {r: n - before[r] for r, n in fn.launches_by_route.items()}
     return got == {r: int(r == want) for r in got}
 

@@ -98,7 +98,7 @@ def test_fbb_tabular_matches_jax(engine, kind, monkeypatch):
     """'pallas' runs the fused kernel's plain version here (CPU tensors);
     on the JAX side the Pallas kernel, which runs on the CPU only in
     interpret mode, with float32 streams (``demote=False``: the port's
-    FFMA tile is float32 throughout)."""
+    float32 route keeps float32 rows throughout)."""
     if engine == "pallas":
         from ganleaks_tpu.ops import knn_pallas
 
