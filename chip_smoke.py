@@ -161,9 +161,32 @@ Phases, each printing JSON lines:
    ``run_attack`` ('auto': K2 launches counted; every planted member
    below every non-member); each ``evaluate``d; and steps/s timed apart
    (VAE-GAN iterations, medGAN steps, PGGAN at 64 px in bf16 and
-   float32).
+   float32);
+14. privgan: privDCGAN (nz 100, ngf / ndf 64, 64 px) and privPGGAN (nz
+   512, in_channels 512, 4 -> 64 px, float32), each with 2 splits and
+   privacy_ratio 0.5 — privDCGAN's first 3 steps (the classifier's gate
+   off, then on) at batch 8 a split on the CPU in float64 and on the
+   card in float64 and float32 at lr 0 and at the config's lr with phase
+   12's bars, every net's BatchNorm statistics held (``priv_hold``), the
+   per-convolution gradient table; privPGGAN's step at 8 px likewise and
+   at 64 px the card's float32 against its float64; on the card each
+   generator's statistics advanced twice a step and the classifier's
+   left bit for bit by the generator step; then each through its entry
+   points — ``train_privdcgan`` on phase 12's 1,024 training PNGs (2
+   splits of 512, batch 32, 2 epochs, the gate opening in the second),
+   ``train_privpggan`` on phase 13's 256 (batch 32, one epoch a
+   resolution, flips, the gate from 8 px) — ``generate_priv*`` 2,040
+   images from split 0 under ``privDCGAN`` / ``privPGGAN``, 256 / 64 of
+   split 0's training PNGs planted, ``run_attack`` ('auto': K2 launches
+   counted; every planted member below every non-member), ``evaluate``;
+   and steps/s (privDCGAN at batch 32 and 128 a split, DCGAN at 32,
+   privPGGAN at 64 px) beside phases 12-13's DCGAN and PGGAN rates.
 
-Phases 7, 8, 12 and 13's training and sampling run no hand-written kernel
+Phase 12 and phase 14's privDCGAN hold also print each convolution's
+gradient error against float64 with cuDNN and without it
+(``grad_by_conv``).
+
+Phases 7, 8, 12, 13 and 14's training and sampling run no hand-written kernel
 (their convolutions and products are the library's, as in the JAX package
 they are XLA's); their launch counts are read and printed all the same.
 
@@ -262,7 +285,8 @@ V2_ALPHA = 0.5
 V2_F64_STEP = 1e-5
 # trained losses, float32 against float64: PGGAN's read 2.1-4.7% at
 # 64 px (Adam's sign-like steps part the trajectories)
-V2_TRAJ_RTOL = {"vaegan": 1e-2, "medgan": 1e-3, "pggan": 0.1}
+V2_TRAJ_RTOL = {"vaegan": 1e-2, "medgan": 1e-3, "pggan": 0.1,
+                "privdcgan": VICTIM_TRAJ_RTOL["dcgan"], "privpggan": 0.1}
 V2_BF16_LOSS = 0.08        # bf16 lr-0 losses, relative (absolute < 1)
 V2_BF16_TRAJ = 0.15        # bf16 trained losses (float32's drift 2%)
 V2_BF16_GRAD = 0.25        # bf16 lr-0 gradients, L2, relative
@@ -270,6 +294,21 @@ V2_BF16_UPDATE = 1.0       # bf16 trained updates, L2, relative
 V2_TRAIN_PNGS = 256        # PGGAN's training set; the attacks' query sets
 V2_PLANT = 64              # PGGAN training PNGs planted in its dump
 TAB2_ROWS = 10000          # medGAN's seeded CSV: rows x TAB_D codes
+# phase 14: privDCGAN and privPGGAN at the reference's widths
+PRIV_SPLITS = 2            # N_splits
+PRIV_RATIO = 0.5           # privacy_ratio
+PRIV_HOLD_BATCH = 8        # per split, the held steps
+PRIV_DP = (False, True, True)  # the held privDCGAN steps' classifier gates
+PRIV_DCGAN_BATCH = 32      # configs/dcgan_config.yaml
+PRIV_DCGAN_EPOCHS = 2      # dp_delay 0: the gate opens in the second
+PRIV_PGGAN_TOP = 4         # 64 px
+PRIV_PGGAN_DP_DELAY = 8    # the private critic trains from 8 px
+PRIV_GENERATED = 2040      # the configs' num_generated
+PRIV_PLANT = {"privdcgan": VICTIM_PLANT, "privpggan": V2_PLANT}
+PRIV_RATE_BATCHES = (32, 128)  # privDCGAN steps/s, per split
+# a generator's statistics after the step against two forwards of a copy
+# (L2 over the change): the same float32 operations in the same order
+PRIV_STAT_RTOL = 1e-5
 
 
 def emit(obj: dict) -> None:
@@ -2242,11 +2281,34 @@ def victim_state_arrays(torch, state, grads: bool = False) -> dict:
 
 def rel_l2(card: dict, ref: dict, base: dict | None, keys) -> float:
     """||card - ref|| / ||ref - base|| over ``keys`` (``base`` None: over
-    ||ref||)."""
+    ||ref||); 0 where both are 0 (a net a step did not update)."""
     diff = sum(float(((card[k] - ref[k]) ** 2).sum()) for k in keys)
     norm = sum(float(((ref[k] - (0.0 if base is None else base[k])) ** 2)
                      .sum()) for k in keys)
+    if norm == 0.0:
+        return 0.0 if diff == 0.0 else float("inf")
     return (diff / norm) ** 0.5
+
+
+def grad_by_conv(card_lr0: dict, ref_lr0: dict, init: dict) -> dict:
+    """Each convolution kernel's lr-0 gradient off float64 on the CPU
+    (L2, relative, the worst step), keyed '<net>.<name>'."""
+    convs = [k for k, v in init.items() if v.ndim == 4]
+    return {k: max(rel_l2(c, r, None, [k]) for c, r in
+                   zip(card_lr0["grads"], ref_lr0["grads"])) for k in convs}
+
+
+def emit_conv_table(victim: str, tables: dict) -> dict:
+    """One line: every convolution's gradient error with cuDNN (the
+    trainers' numerics) and without it (``tables``: label -> layer ->
+    error), and the layer each reads worst at."""
+    rec = {"phase": "grad_by_conv", "victim": victim,
+           "layers": {k: {lab: t[k] for lab, t in tables.items()}
+                      for k in next(iter(tables.values()))},
+           "worst": {lab: max(t, key=t.get) for lab, t in tables.items()},
+           "worst_err": {lab: max(t.values()) for lab, t in tables.items()}}
+    emit(rec)
+    return rec
 
 
 # (label, dtype, TF32 on, cuDNN on) of the card's runs of the held steps:
@@ -2256,6 +2318,10 @@ HOLD_VARIANTS = (("f32", "float32", False, True),
                  ("f64", "float64", False, True),
                  ("f32_tf32", "float32", True, True),
                  ("f32_no_cudnn", "float32", False, False))
+# the variants whose gradient error per convolution is printed: which
+# layer cuDNN's float32 algorithms move off float64, against the native
+# convolutions
+CONV_TABLE_VARIANTS = ("f32", "f32_no_cudnn")
 
 
 def adam_ratio_bound(beta1: float, beta2: float, t: int) -> float:
@@ -2418,7 +2484,7 @@ def victim_hold(torch, kind: str) -> dict:
            for m, c in modes.items()}
     init = victim_state_arrays(torch, (dcgan if kind == "dcgan" else wgangp)
                                .build_state(cfg))
-    errs, card_s = {}, {}
+    errs, card_s, by_conv = {}, {}, {}
     for label, dtype, tf32, cudnn in HOLD_VARIANTS:
         with Numerics(torch, tf32, cudnn):
             card = {m: victim_steps(torch, kind, c, steps, DEVICE,
@@ -2426,6 +2492,8 @@ def victim_hold(torch, kind: str) -> dict:
                     for m, c in modes.items()}
         errs[label] = hold_errors(card, ref, init, cfg.lr)
         card_s[label] = card["trained"]["seconds"]
+        if label in CONV_TABLE_VARIANTS:
+            by_conv[label] = grad_by_conv(card["lr0"], ref["lr0"], init)
         if label == "f32":
             card_losses = card["trained"]["losses"].tolist()
     # Adam steps each net took: the critic updates critic_iter times a step
@@ -2445,6 +2513,7 @@ def victim_hold(torch, kind: str) -> dict:
            "max_moved_f64": moved,
            "card_s": card_s, "cpu_f64_s": ref["trained"]["seconds"]}
     emit(rec)
+    rec["grad_by_conv"] = emit_conv_table(kind, by_conv)
     f64, f32 = errs["f64"], errs["f32"]
     f64_worst = max(f64["lr0_loss"], *f64["lr0_grad"].values(),
                     f64["lr0_bn_stats"], f64["trained_loss"],
@@ -2599,15 +2668,9 @@ def victim_run(torch, kind: str, tmp: str, dirs: dict) -> dict:
     return r
 
 
-def phase_victims(torch, tmp: str) -> dict:
-    """Phase 12: DCGAN and WGAN-GP at full width (nz 100, ngf 64, ndf 64,
-    64 px, batch 128): the float64 hold of their first steps, then
-    training, sampling, the attack on the PNG dump, and ``bench --metric
-    gen``."""
-    import contextlib
-    import io
-
-    from ganleaks_tpu_torch import bench
+def victim_data(tmp: str) -> dict:
+    """VICTIM_TRAIN seeded training and as many held-out 64-px PNGs, in
+    ``<tmp>/train`` and ``<tmp>/heldout``."""
     from ganleaks_tpu_torch.io.native import save_png_batch_native
     rng = np.random.default_rng(SEED + 13)
     dirs = {}
@@ -2619,6 +2682,19 @@ def phase_victims(torch, tmp: str) -> dict:
             os.path.join(d, f"{i:05d}.png") for i in range(VICTIM_TRAIN)])
     emit({"phase": "victim_data", "images": 2 * VICTIM_TRAIN,
           "seconds": time.perf_counter() - t0})
+    return dirs
+
+
+def phase_victims(torch, tmp: str) -> dict:
+    """Phase 12: DCGAN and WGAN-GP at full width (nz 100, ngf 64, ndf 64,
+    64 px, batch 128): the float64 hold of their first steps, then
+    training, sampling, the attack on the PNG dump, and ``bench --metric
+    gen``."""
+    import contextlib
+    import io
+
+    from ganleaks_tpu_torch import bench
+    dirs = victim_data(tmp)
     out = {}
     for kind in ("dcgan", "wgangp"):
         out[f"{kind}_hold"] = victim_hold(torch, kind)
@@ -3208,7 +3284,7 @@ def phase_victims2(torch, tmp: str, dirs: dict) -> dict:
     rates."""
     queries = {k: v2_subset(dirs[k], os.path.join(tmp, f"{k}_q"),
                             V2_TRAIN_PNGS) for k in ("train", "heldout")}
-    out = {}
+    out = {"queries": queries}
     for kind in ("vaegan", "medgan", "pggan"):
         t0 = time.perf_counter()
         out[f"{kind}_hold"] = v2_hold(torch, kind)
@@ -3220,6 +3296,390 @@ def phase_victims2(torch, tmp: str, dirs: dict) -> dict:
     emit({"phase": "victim2_rates", **out["rates"],
           "hold_s": {k: out[f"{k}_hold"]["seconds"]
                      for k in ("vaegan", "medgan", "pggan")}})
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 14: the privGAN victims at full width
+# ---------------------------------------------------------------------------
+
+def priv_config(kind: str, **kw):
+    from ganleaks_tpu_torch.config import DCGANConfig, PGGANConfig
+    cls = DCGANConfig if kind == "privdcgan" else PGGANConfig
+    return cls(seed=SEED, **kw)
+
+
+def priv_pcfg(**kw):
+    from ganleaks_tpu_torch.config import PrivGANConfig
+    return PrivGANConfig(N_splits=PRIV_SPLITS, privacy_ratio=PRIV_RATIO,
+                         **kw)
+
+
+def priv_state(torch, kind: str, dev: str, dtype):
+    """``kind``'s seeded state on ``dev`` in ``dtype`` (privPGGAN with
+    every layer to 64 px) and its three nets by name."""
+    from ganleaks_tpu_torch.train import priv
+    if kind == "privdcgan":
+        st = priv.build_privdcgan_state(priv_config(kind), priv_pcfg(), dev,
+                                        dtype)
+    else:
+        st = priv.build_privpggan_state(priv_config(kind), priv_pcfg(), dev,
+                                        dtype, PRIV_PGGAN_TOP)
+    return st, {"gen": st.genS, "disc": st.discS, "priv": st.priv}
+
+
+def priv_inputs(kind: str, res: int, n_steps: int) -> list:
+    """``n_steps`` steps' seeded (S, B) batches at ``res`` px, noise, eps
+    and target labels (uniform over the other splits), numpy."""
+    from ganleaks_tpu_torch.io.native import LUT_CROP
+    rng = np.random.default_rng(SEED + 16)
+    s, b, nz = PRIV_SPLITS, PRIV_HOLD_BATCH, priv_config(kind).nz
+    out = []
+    for _ in range(n_steps):
+        real = LUT_CROP[make_images(rng, s * b, res)].transpose(0, 3, 1, 2)
+        r = rng.integers(0, s - 1, (s, b))
+        out.append({"real": real.reshape(s, b, 3, res, res).copy(),
+                    "noise": rng.standard_normal((s, b, nz)).astype(
+                        np.float32),
+                    "eps": rng.random((s, b, 1, 1, 1)).astype(np.float32),
+                    "gen_y": r + (r >= np.arange(s)[:, None])})
+    return out
+
+
+def priv_steps(torch, kind: str, inputs: list, dps, dev: str, dtype,
+               lr0: bool, res_steps: int = 1) -> dict:
+    """The held steps of ``kind`` (gates ``dps``) on ``dev`` in ``dtype``,
+    as ``v2_steps``: per step the losses and, at lr 0, every net's
+    gradients and buffers; at the end every parameter and buffer."""
+    from ganleaks_tpu_torch.train import priv
+    st, nets = priv_state(torch, kind, dev, dtype)
+    if lr0:
+        for opt in (st.opt_gen, st.opt_disc, st.opt_priv):
+            for group in opt.param_groups:
+                group["lr"] = 0.0
+    cfg = priv_config(kind)
+
+    def t(a):
+        return torch.from_numpy(a).to(dev, dtype)
+
+    hist, grads, bufs = [], [], []
+    t0 = time.perf_counter()
+    for inp, dp in zip(inputs, dps):
+        y = torch.from_numpy(inp["gen_y"]).to(dev)
+        if kind == "privdcgan":
+            m = priv.privdcgan_train_step(st, t(inp["real"]), PRIV_RATIO, dp,
+                                          noise=t(inp["noise"]), gen_y=y)
+        else:
+            m = priv.privpggan_train_step(
+                st, t(inp["real"]), V2_ALPHA, res_steps, PRIV_RATIO, dp,
+                cfg.lambda_gp, cfg.drift, noise=t(inp["noise"]),
+                eps=t(inp["eps"]), gen_y=y)
+        hist.append([float(v) for v in m.values()])
+        if lr0:
+            grads.append(v2_arrays(torch, nets, grads=True))
+            bufs.append({k: v for k, v in v2_arrays(torch, nets).items()
+                         if k in v2_buffer_keys(nets)})
+    if dev != "cpu":
+        torch.cuda.synchronize()
+    return {"losses": np.array(hist), "grads": grads, "bufs": bufs,
+            "final": v2_arrays(torch, nets),
+            "seconds": time.perf_counter() - t0}
+
+
+def priv_hold(torch, kind: str) -> dict:
+    """``kind``'s first steps at full width from the same seeded weights,
+    batches and draws, at lr 0 and at the config's lr, with phase 12's
+    bars (``victim_hold``, through ``v2_check_f64`` / ``v2_check_f32``;
+    parameters within two of Adam's largest steps per update each net
+    took, plus 0.01 lr of float32 rounding).
+
+    privDCGAN: PRIV_DP's three steps (the classifier's gate off, then
+    on), batch PRIV_HOLD_BATCH per split at 64 px, on the CPU in float64
+    and on the card in each of HOLD_VARIANTS; every net's BatchNorm
+    statistics are among the held buffers (each generator's advanced
+    twice a step, the classifier's by its own update only), and the
+    per-convolution gradient table is printed as phase 12's. privPGGAN:
+    one step with the gate on at 8 px on the CPU in float64 against the
+    card's float64 and float32 (the CPU's float64 at 64 px would take
+    minutes), then one at 64 px, the card's float32 against its float64."""
+    dcgan_kind = kind == "privdcgan"
+    cfg = priv_config(kind)
+    dps = PRIV_DP if dcgan_kind else (True,)
+    inputs = priv_inputs(kind, RES if dcgan_kind else 8, len(dps))
+    _, nets = priv_state(torch, kind, "cpu", torch.float64)
+    init = v2_arrays(torch, nets)
+    lrs = dict.fromkeys(nets, cfg.lr)
+    betas = (cfg.beta1, cfg.beta2) if dcgan_kind else (0.0, 0.99)
+    updates = {"gen": len(dps), "disc": len(dps), "priv": sum(dps)}
+    bound = {n: 2 * sum(adam_ratio_bound(*betas, t)
+                        for t in range(1, k + 1)) + 0.01
+             for n, k in updates.items()}
+
+    def runs(dev, dtype, inp=inputs, res_steps=1):
+        return {m: priv_steps(torch, kind, inp, dps, dev, dtype, m == "lr0",
+                              res_steps) for m in ("lr0", "trained")}
+
+    ref = runs("cpu", torch.float64)
+    variants = (HOLD_VARIANTS if dcgan_kind else
+                (("f32", "float32", False, True),
+                 ("f64", "float64", False, True)))
+    errs, card_s, by_conv = {}, {}, {}
+    for label, dtype, tf32, cudnn in variants:
+        with Numerics(torch, tf32, cudnn):
+            card = runs(DEVICE, getattr(torch, dtype))
+        errs[label] = v2_errors(card, ref, init, nets, lrs)
+        card_s[label] = card["trained"]["seconds"]
+        if label in CONV_TABLE_VARIANTS and dcgan_kind:
+            by_conv[label] = grad_by_conv(card["lr0"], ref["lr0"], init)
+        if label == "f32":
+            card_losses = card["trained"]["losses"].tolist()
+    rec = {"phase": "privgan_hold", "victim": kind, "splits": PRIV_SPLITS,
+           "batch_per_split": PRIV_HOLD_BATCH, "gates": list(dps),
+           "resolution": RES if dcgan_kind else 8, "lr": cfg.lr,
+           "betas": list(betas), "param_bound_lr": bound,
+           "errors_vs_cpu_f64": errs, "losses_card_f32": card_losses,
+           "losses_f64": ref["trained"]["losses"].tolist(),
+           "card_s": card_s, "cpu_f64_s": ref["trained"]["seconds"]}
+    if not dcgan_kind:
+        top = priv_inputs(kind, RES, 1)
+        hi = {k: runs(DEVICE, dt, top, PRIV_PGGAN_TOP) for k, dt in
+              (("f64", torch.float64), ("f32", torch.float32))}
+        rec["top_resolution"] = RES
+        rec["top_errors_f32_vs_f64"] = v2_errors(hi["f32"], hi["f64"], init,
+                                                 nets, lrs)
+        rec["top_losses"] = {k: v["trained"]["losses"].tolist()
+                             for k, v in hi.items()}
+    emit(rec)
+    if by_conv:
+        rec["grad_by_conv"] = emit_conv_table(kind, by_conv)
+    v2_check_f64(kind, errs["f64"], "the card's float64")
+    v2_check_f32(kind, errs["f32"], bound, "the card's float32")
+    if not dcgan_kind:
+        v2_check_f32(kind, rec["top_errors_f32_vs_f64"], bound,
+                     "64 px float32")
+    moved = max(float(np.abs(ref["trained"]["final"][k] - init[k]).max())
+                for k in init if k not in v2_buffer_keys(nets))
+    check(moved > 0.5 * cfg.lr,
+          f"{kind}: the steps barely moved the weights ({moved:.3g})")
+    return rec
+
+
+def priv_statistics(torch) -> dict:
+    """On the card in float32, one privDCGAN step with the gate off: each
+    generator's running statistics are those of two train-mode forwards
+    on the step's noise (within PRIV_STAT_RTOL of the change, L2), and
+    the generator step's train-mode classifier forwards leave its buffers
+    bit for bit."""
+    import copy
+
+    from ganleaks_tpu_torch.train import priv
+    st, _ = priv_state(torch, "privdcgan", DEVICE, torch.float32)
+    inp = priv_inputs("privdcgan", RES, 1)[0]
+    noise = torch.from_numpy(inp["noise"]).to(DEVICE)
+    gens = {n: copy.deepcopy(st.genS[0]) for n in ("once", "twice")}
+    with torch.no_grad():
+        for n, g in gens.items():
+            for _ in range(1 if n == "once" else 2):
+                g(noise[0])
+    before = {k: v.clone() for k, v in st.priv.named_buffers()}
+
+    def stats(m):
+        return {k: v.double().cpu().numpy() for k, v in m.named_buffers()}
+
+    init = stats(st.genS[0])
+    priv.privdcgan_train_step(
+        st, torch.from_numpy(inp["real"]).to(DEVICE), PRIV_RATIO, False,
+        noise=noise, gen_y=torch.from_numpy(inp["gen_y"]).to(DEVICE))
+    got = stats(st.genS[0])
+    rec = {"phase": "privgan_statistics",
+           "gen_vs_two_forwards": rel_l2(got, stats(gens["twice"]), init,
+                                         list(init)),
+           "gen_vs_one_forward": rel_l2(got, stats(gens["once"]), init,
+                                        list(init)),
+           "classifier_buffers_bit_for_bit": all(
+               torch.equal(v, before[k]) for k, v in
+               st.priv.named_buffers())}
+    emit(rec)
+    check(rec["classifier_buffers_bit_for_bit"],
+          "privdcgan: the generator step moved the classifier's statistics")
+    check(rec["gen_vs_two_forwards"] <= PRIV_STAT_RTOL
+          < rec["gen_vs_one_forward"],
+          f"privdcgan: the generators' statistics did not advance twice "
+          f"({rec})")
+    return rec
+
+
+def priv_attack(torch, kind: str, png: str, n_gen: int, queries: dict,
+                n_q: int, plant: int, tmp: str) -> dict:
+    """``plant`` of split 0's training PNGs (the first of the sorted
+    training set) copied into the PNG dump, ``run_attack`` ('auto': K2
+    launches counted) with the training and held-out PNGs as members and
+    non-members, ``evaluate``; every planted member must lie below every
+    non-member."""
+    import shutil
+
+    from ganleaks_tpu_torch.attack.eval_roc import evaluate
+    from ganleaks_tpu_torch.attack.fbb import run_attack
+    from ganleaks_tpu_torch.config import AttackConfig, EvalConfig
+    members = sorted(f for f in os.listdir(queries["train"])
+                     if f.endswith(".png"))[:n_q // PRIV_SPLITS]
+    for i, f in enumerate(members[:plant]):
+        shutil.copy(os.path.join(queries["train"], f),
+                    os.path.join(png, f"image_{n_gen + i}.png"))
+    reset_launches()
+    t0 = time.perf_counter()
+    out = run_attack(AttackConfig(
+        syn_data_path=png, pos_data_dir=queries["train"],
+        neg_data_dir=queries["heldout"], data_num=n_q, distance="l2-lpips",
+        resolution=RES, engine="auto", save_root=os.path.join(tmp, "fbb"),
+        exp_name=kind), device=DEVICE)[0]
+    attack_s = time.perf_counter() - t0
+    launches = read_launches()
+    res = evaluate(EvalConfig(result_load_dir=out["save_dir"]))
+    caught = int((out["pos_loss"] < out["neg_loss"].min()).sum())
+    check(bool(np.isfinite(out["pos_loss"]).all()
+               and np.isfinite(out["neg_loss"]).all()),
+          f"{kind}: non-finite attack losses")
+    check(caught >= plant and res["auc"] > 0.5,
+          f"{kind}: {caught} members below every non-member, AUROC "
+          f"{res['auc']:.4f}")
+    check(launches["tap_epilogue"] > 0,
+          f"{kind}: 'auto' did not launch K2 ({launches})")
+    return {"planted": plant, "attack_s": attack_s,
+            "query_pairs_per_sec": out["query_pairs_per_sec"],
+            "members_below_all_nonmembers": caught, "auroc": res["auc"],
+            "kernel_launches": launches}
+
+
+def priv_run(torch, kind: str, tmp: str, queries: dict) -> dict:
+    """``kind`` through its entry points on the card: ``train_priv*`` on
+    the training PNGs (2 splits; privDCGAN 2 epochs at batch 32 with the
+    gate opening in the second, privPGGAN 4 -> 64 px one epoch a
+    resolution at batch 32 with flips, the gate from 8 px), then
+    ``generate_priv*`` 2,040 images from split 0 as the triplet under the
+    JAX package's ``privDCGAN`` / ``privPGGAN`` roots, then
+    :func:`priv_attack`."""
+    from ganleaks_tpu_torch.train import priv
+    from ganleaks_tpu_torch.utils.logging import MetricsLogger
+    dcgan_kind = kind == "privdcgan"
+    n_q = len([f for f in os.listdir(queries["train"])
+               if f.endswith(".png")])
+    common = dict(data_path=queries["train"], num_generated=PRIV_GENERATED,
+                  PATH=os.path.join(tmp, "model"),
+                  PATH_syn_data=os.path.join(tmp, "syn"))
+    if dcgan_kind:
+        cfg = priv_config(kind, batch_size=PRIV_DCGAN_BATCH,
+                          num_epochs=PRIV_DCGAN_EPOCHS, **common)
+        pcfg = priv_pcfg(dp_delay=0, disc_epochs=1)
+        train, generate = priv.train_privdcgan, priv.generate_privdcgan
+    else:
+        cfg = priv_config(kind, num_epochs=1, **common)
+        pcfg = priv_pcfg(dp_delay=PRIV_PGGAN_DP_DELAY, disc_epochs=1)
+        train, generate = priv.train_privpggan, priv.generate_privpggan
+    log = os.path.join(tmp, f"{kind}.jsonl")
+    logger = MetricsLogger(log, echo=False)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state = train(cfg, pcfg, logger=logger, device=DEVICE)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    logger.close()
+    with open(log) as f:
+        recs = [json.loads(ln) for ln in f]
+    t0 = time.perf_counter()
+    dirs = generate(cfg, pcfg, state, run_dir="run", device=DEVICE)
+    gen_s = time.perf_counter() - t0
+    prefix = "dcgan" if dcgan_kind else "pggan"
+    fake = np.load(os.path.join(dirs["npz_images"],
+                                f"{prefix}_synthetic_data.npz"))["fake"]
+    noise = np.load(os.path.join(dirs["npz_noise"],
+                                 f"{prefix}_noise.npz"))["noise"]
+    per_split = n_q // PRIV_SPLITS
+    if dcgan_kind:
+        want_steps = PRIV_DCGAN_EPOCHS * (per_split // PRIV_DCGAN_BATCH)
+        gates = [r["loss_dp"] > 0 for r in recs]
+        want_gates = [e > 0 for e in range(PRIV_DCGAN_EPOCHS)]
+    else:
+        want_steps = (PRIV_PGGAN_TOP + 1) * (per_split // cfg.batch_sizes[-1])
+        gates = [r["loss_dp"] > 0 for r in recs]
+        want_gates = [4 * 2 ** s >= PRIV_PGGAN_DP_DELAY
+                      for s in range(PRIV_PGGAN_TOP + 1)]
+    r = {"phase": "privgan", "victim": kind, "train_images": n_q,
+         "splits": PRIV_SPLITS, "steps": state.step, "train_s": train_s,
+         "records": recs, "generate_s": gen_s,
+         "generated": int(fake.shape[0]),
+         "root": os.path.relpath(dirs["png_images"], cfg.PATH_syn_data)}
+    check(state.step == want_steps and gates == want_gates
+          and all(np.isfinite(v) for rec in recs for k, v in rec.items()
+                  if k.startswith("loss")),
+          f"{kind}: {state.step} steps (want {want_steps}), gates {gates} "
+          f"(want {want_gates}), records {recs}")
+    check(fake.shape == (PRIV_GENERATED, 3, RES, RES)
+          and bool(np.isfinite(fake).all())
+          and noise.shape == (PRIV_GENERATED, cfg.nz, 1, 1)
+          and len(os.listdir(dirs["png_images"])) == PRIV_GENERATED
+          and r["root"] == os.path.join(
+              "privDCGAN" if dcgan_kind else "privPGGAN", "png_images",
+              "run"),
+          f"{kind}: artifacts {fake.shape} {noise.shape} under {r['root']}")
+    r.update(priv_attack(torch, kind, dirs["png_images"], PRIV_GENERATED,
+                         queries, n_q, PRIV_PLANT[kind], tmp))
+    emit(r)
+    return r
+
+
+def priv_rates(torch, known: dict) -> dict:
+    """Train steps per second on the card in float32, synchronised, after
+    a warm-up step, on one seeded batch per split: privDCGAN at
+    PRIV_RATE_BATCHES per split and DCGAN at the first of them, privPGGAN
+    and PGGAN at 64 px, batch 32 (a split); ``known``: phases 12-13's
+    rates, printed beside them."""
+    from ganleaks_tpu_torch.train import dcgan, pggan, priv
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+
+    def images(*shape):
+        return torch.rand(*shape, generator=gen, device=DEVICE) * 2 - 1
+
+    out = dict(known)
+    for b in PRIV_RATE_BATCHES:
+        st, _ = priv_state(torch, "privdcgan", DEVICE, torch.float32)
+        real = images(PRIV_SPLITS, b, 3, RES, RES)
+        out[f"privdcgan_b{b}_steps_per_sec"] = v2_rate(
+            torch, lambda: priv.privdcgan_train_step(
+                st, real, PRIV_RATIO, True, generator=gen))
+    b = PRIV_RATE_BATCHES[0]
+    st = dcgan.build_state(priv_config("privdcgan"), DEVICE)
+    real = images(b, 3, RES, RES)
+    out[f"dcgan_b{b}_steps_per_sec"] = v2_rate(
+        torch, lambda: dcgan.dcgan_train_step(st, real, generator=gen))
+    cfg = priv_config("privpggan")
+    b = cfg.batch_sizes[-1]
+    st, _ = priv_state(torch, "privpggan", DEVICE, torch.float32)
+    real = images(PRIV_SPLITS, b, 3, RES, RES)
+    out["privpggan_64px_steps_per_sec"] = v2_rate(
+        torch, lambda: priv.privpggan_train_step(
+            st, real, 1.0, PRIV_PGGAN_TOP, PRIV_RATIO, True, cfg.lambda_gp,
+            cfg.drift, generator=gen))
+    emit({"phase": "privgan_rates", **out})
+    return out
+
+
+def phase_privgan(torch, tmp: str, dirs: dict, queries: dict,
+                  known_rates: dict) -> dict:
+    """Phase 14: privDCGAN (nz 100, ngf / ndf 64, 64 px) on phase 12's
+    1,024 training PNGs and privPGGAN (nz 512, in_channels 512, 4 -> 64
+    px, float32) on phase 13's 256, each with 2 splits: the holds of their
+    first steps, the statistics discipline, the entry points through to
+    the attack, and step rates."""
+    out = {}
+    for kind in ("privdcgan", "privpggan"):
+        t0 = time.perf_counter()
+        out[f"{kind}_hold"] = priv_hold(torch, kind)
+        out[f"{kind}_hold"]["seconds"] = time.perf_counter() - t0
+    out["statistics"] = priv_statistics(torch)
+    out["privdcgan"] = priv_run(torch, "privdcgan", tmp, dirs)
+    out["privpggan"] = priv_run(torch, "privpggan", tmp, queries)
+    out["rates"] = priv_rates(torch, known_rates)
     return out
 
 
@@ -3303,8 +3763,13 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         victims = phase_victims(torch, tmp)
         lap("victims")
-        phase_victims2(torch, tmp, victims["dirs"])
+        v2 = phase_victims2(torch, tmp, victims["dirs"])
         lap("victims2")
+        phase_privgan(torch, tmp, victims["dirs"], v2["queries"], {
+            "dcgan_b128_steps_per_sec": victims["dcgan"]["steps_per_sec"],
+            "pggan_64px_float32_steps_per_sec":
+                v2["rates"]["pggan_64px_float32_steps_per_sec"]})
+        lap("privgan")
     emit({"phase": "seconds", "build_s": build_s, **phase_s})
 
     # launches: each kernel's count in the run of the path it serves — K1

@@ -86,7 +86,10 @@ def run_reconstruction_attack(cfg, device: torch.device | str | None = None
     Loads the pos/neg query sets (PNG dirs through the configured reader,
     or image npz files), reconstructs every query through the VAE-GAN
     encoder and generator (``cfg.netE``/``cfg.netG``: the JAX trainer's
-    msgpack or an npz of the same variables), and writes the fbb layout:
+    msgpack or an npz of the same variables — the port's VAE-GAN trainer
+    writes one, and ``python -m ganleaks_tpu_torch.tools.convert_victim
+    --model vaegan`` makes one from a reference ``.pth`` / ``netG.pt``),
+    and writes the fbb layout:
     ``pos_loss.npy``/``neg_loss.npy`` (N, 1) float64, sequential
     ``pos_idx``/``neg_idx`` — the neg file reuses ``len(pos)``, the
     reference quirk (``fbb.py:162,171``) — ``params.txt``/``params.pkl``

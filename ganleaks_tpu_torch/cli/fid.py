@@ -4,9 +4,9 @@
 
 Each path is an image directory, an image npz or an npz of ``mu``/``sigma``.
 ``--weights`` takes the InceptionV3 npz of the JAX package's schema (what
-``ganleaks_tpu.tools.convert_inception`` writes from torchvision's
-weights); without it the tower is the seeded surrogate and the FID is a
-relative metric only. ``--device cpu`` (or ``main(argv, device="cpu")``)
+``python -m ganleaks_tpu_torch.tools.convert_inception`` writes from
+torchvision's weights, on the card's machine too); without it the tower
+is the seeded surrogate and the FID is a relative metric only. ``--device cpu`` (or ``main(argv, device="cpu")``)
 runs on the CPU.
 """
 
@@ -26,7 +26,8 @@ def main(argv=None, device=None) -> None:
                     help="image dirs, image npz or .npz statistic files")
     ap.add_argument("--weights", default=None,
                     help="InceptionV3 npz in the JAX package's schema "
-                         "(tools/convert_inception.py); surrogate otherwise")
+                         "(ganleaks_tpu_torch.tools.convert_inception); "
+                         "surrogate otherwise")
     ap.add_argument("--batch_size", type=int, default=50)
     ap.add_argument("--sqrtm", default="newton-schulz", choices=SQRTM_METHODS)
     ap.add_argument("--n_chips", type=int, default=1,

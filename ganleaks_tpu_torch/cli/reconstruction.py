@@ -5,6 +5,9 @@ run unchanged).
     python -m ganleaks_tpu_torch.cli.reconstruction --local_config recon.yaml \
         netE=runs/vaegan/netE.msgpack netG=runs/vaegan/netG.msgpack
 
+``netE`` / ``netG`` also take npz files: the port's VAE-GAN trainer's, or
+a reference checkpoint converted by ``python -m
+ganleaks_tpu_torch.tools.convert_victim --model vaegan --part encoder``.
 ``--device cpu`` (or ``main(argv, device="cpu")``) runs on the CPU.
 """
 

@@ -1,8 +1,9 @@
 """Typed configuration (copy of the attack, evaluation, FID, LPIPS scoring
 and victim training part of ``ganleaks_tpu.config``: DCGAN, WGAN-GP,
-PGGAN, VAE-GAN, medGAN): one dataclass per entry point,
-a YAML loader (PyYAML imported only when a file or a raw string needs
-parsing) and ``key=value`` overrides whose unknown keys raise.
+PGGAN, VAE-GAN, medGAN and the privGAN extras): one dataclass per entry
+point, a YAML loader (PyYAML imported only when a file or a raw string
+needs parsing), ``key=value`` overrides whose unknown keys raise, and the
+privGAN grid sweep's :func:`expand_grid` / :func:`sweep_tag`.
 
 The fields are the JAX package's, so existing YAML configs load unchanged.
 Fields that select a layout this port does not have yet (``n_chips > 1``,
@@ -14,11 +15,12 @@ ROADMAP item.
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import json
 import types
 import typing
 from dataclasses import dataclass
-from typing import Any, Sequence, Type, TypeVar, Union
+from typing import Any, Iterator, Sequence, Type, TypeVar, Union
 
 T = TypeVar("T")
 
@@ -108,6 +110,23 @@ def load_config(cls: Type[T], yaml_path: str | None = None,
     return cfg
 
 
+def expand_grid(grid: dict[str, Any]) -> Iterator[dict[str, Any]]:
+    """Expand a {key: list-of-values} YAML into per-experiment override
+    dicts, the ``itertools.product`` sweep of ``privDCGAN.py:73-92`` /
+    ``privPGGAN.py:248-266``; scalar values are single-element axes."""
+    keys = list(grid)
+    axes = [v if isinstance(v, (list, tuple)) else [v] for v in grid.values()]
+    for combo in itertools.product(*axes):
+        yield dict(zip(keys, combo))
+
+
+def sweep_tag(overrides: dict[str, Any]) -> tuple[str, str]:
+    """(keys, values) path components of a sweep run, the reference's
+    ``'-'.join(keys)`` / ``'-'.join(values)`` layout
+    (``privDCGAN.py:80,92``)."""
+    return "-".join(overrides), "-".join(str(v) for v in overrides.values())
+
+
 @dataclass
 class AttackConfig:
     """fbb attack configuration (reference ``attack_models/fbb.py:18-38``);
@@ -188,7 +207,8 @@ class ReconstructionConfig:
     resolution: int = 64
     reader: str = "center_crop"    # VAE-GAN trains on the center-crop reader
                                    # (vaegan/utils.py:44-71); 'resize' = fbb's
-    netE: str = ""                 # encoder weights: .msgpack (trainer) / .npz (converter)
+    # encoder weights: .msgpack or .npz (the trainers, tools/convert_victim)
+    netE: str = ""
     netG: str = ""                 # generator weights
     z_dim: int = 100               # must match the checkpoint (train.py:30)
     d: int = 64
@@ -377,3 +397,14 @@ class MedGANConfig(TrainCommon):
     binary: bool = True
     minibatch_averaging: bool = True
     generate_N: int = 100
+
+
+@dataclass
+class PrivGANConfig:
+    """privGAN extras shared by privDCGAN / privPGGAN
+    (``privDCGAN.py:52-53``, the ``privPGGAN.py`` grid)."""
+
+    N_splits: int = 2
+    privacy_ratio: float = 0.5
+    dp_delay: int = 100   # epoch gate for DCGAN; resolution gate for PGGAN
+    disc_epochs: int = 2  # private-discriminator pretrain epochs

@@ -3,7 +3,7 @@ reference ``gan_models/dcgan/model_torch.py``), NCHW.
 
 The modules keep the reference's structure, so their state-dict keys are
 the reference's (``gen.{i}.0.weight``, ``gen.{i}.1.running_mean``, ...,
-``disc.5.bias``; ``ganleaks_tpu/tools/convert_victim.py`` reads the same
+``disc.5.bias``; ``tools/convert_victim.py`` reads the same
 keys) and a reference ``generator.pth`` loads by name
 (``utils/checkpoint.load_state_dict``).
 
@@ -14,10 +14,14 @@ keys) and a reference ``generator.pth`` loads by name
 * :class:`Discriminator` (``model_torch.py:25-47``): strided convs with
   BatchNorm + LeakyReLU(0.2) and a 4x4 conv to one logit; raw logits by
   default, ``sigmoid=True`` for the reference's probability.
+* :class:`PrivateDiscriminator` (``model_torch.py:50-72``), privGAN's
+  split classifier: the same trunk with a 4x4 head to ``n_splits``
+  channels, returned as (N, n_splits) logits. The reference ends it in a
+  Softmax and still feeds that to ``CrossEntropyLoss``; the trainer's
+  loss reproduces the composition (``train/priv``).
 
 Sizes other than 64 follow the same doubling schedule (``_n_mid_blocks``,
-as the JAX package), for small test sizes. ``PrivateDiscriminator`` waits
-for the privGAN trainer (ROADMAP M11).
+as the JAX package), for small test sizes.
 """
 
 from __future__ import annotations
@@ -64,10 +68,11 @@ class Generator(nn.Module):
         return self.gen(z.reshape(z.shape[0], self.nz, 1, 1))
 
 
-def discriminator_trunk(nc: int, ndf: int, mults, norm) -> nn.Sequential:
+def discriminator_trunk(nc: int, ndf: int, mults, norm, n_out: int = 1
+                        ) -> nn.Sequential:
     """The reference's discriminator/critic ``disc`` Sequential: a strided
     conv and LeakyReLU(0.2), one (conv without bias, ``norm``, LeakyReLU)
-    block per multiplier, and the 4x4 head conv to one channel."""
+    block per multiplier, and the 4x4 head conv to ``n_out`` channels."""
     layers = [Conv2dTorch(nc, ndf, 4, 2, 1), nn.LeakyReLU(0.2)]
     cin = ndf
     for mult in mults:
@@ -75,7 +80,7 @@ def discriminator_trunk(nc: int, ndf: int, mults, norm) -> nn.Sequential:
             Conv2dTorch(cin, ndf * mult, 4, 2, 1, bias=False),
             norm(ndf * mult), nn.LeakyReLU(0.2)))
         cin = ndf * mult
-    layers.append(Conv2dTorch(cin, 1, 4, 2, 0))
+    layers.append(Conv2dTorch(cin, n_out, 4, 2, 0))
     return nn.Sequential(*layers)
 
 
@@ -91,3 +96,19 @@ class Discriminator(nn.Module):
                 ) -> torch.Tensor:
         logits = self.disc(x).reshape(x.shape[0])
         return torch.sigmoid(logits) if sigmoid else logits
+
+
+class PrivateDiscriminator(nn.Module):
+    """privGAN's ``PrivateDiscriminator(channel_img, feature_d, N_splits)``:
+    (N, nc, R, R) -> (N, n_splits) logits."""
+
+    def __init__(self, ndf: int = 64, n_splits: int = 2,
+                 image_size: int = 64, nc: int = 3):
+        super().__init__()
+        self.n_splits = n_splits
+        mults = [2 ** k for k in range(1, _n_mid_blocks(image_size) + 1)]
+        self.disc = discriminator_trunk(nc, ndf, mults, BatchNormTorch,
+                                        n_splits)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.disc(x).reshape(x.shape[0], self.n_splits)

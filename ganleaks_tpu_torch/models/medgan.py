@@ -1,7 +1,7 @@
 """medGAN, the tabular (EHR) victim (port of ``ganleaks_tpu.models.medgan``;
 reference ``gan_models/medgan/model.py``), under the reference's
 state-dict keys (``encoder.0``, ``decoder.0``, ``gen_block{1,2}.{0,1}``,
-``disc.{0,2,4}``; ``ganleaks_tpu/tools/convert_victim.py:99-131`` reads
+``disc.{0,2,4}``; ``tools/convert_victim.py`` (``convert_medgan``) reads
 the same).
 
 * :class:`Autoencoder` (``model.py:13-41``): one hidden layer; tanh /

@@ -26,7 +26,9 @@ down, so a smaller build holds indices ``8 - max_steps`` to 8.
 * :class:`Discriminator` (``model_torch.py:91-144``): from-RGB at the
   current step, the avg-pool fade-in against the downscaled image's
   from-RGB, the remaining blocks with 2x average pooling, minibatch std
-  and the 4x4 final block; one score per image.
+  and the 4x4 final block; one score per image, or ``n_outputs`` (privGAN's
+  ``PrivateDiscriminator``, ``model_torch.py:150-204``: the same trunk
+  with an ``n_splits``-wide last conv, whose softmax the loss applies).
 
 ``steps`` is the resolution index (4 * 2^steps px), ``alpha`` a float or
 a 0-dim tensor (the trainer passes one in its compute dtype).
@@ -131,10 +133,10 @@ class Generator(nn.Module):
 
 class Discriminator(nn.Module):
     """``Discriminator(in_channels, img_channels)``: (N, nc, R, R) at R = 4
-    * 2^steps -> (N, 1) scores."""
+    * 2^steps -> (N, n_outputs) scores."""
 
     def __init__(self, in_channels: int = 512, nc: int = 3,
-                 max_steps: int = N_BLOCKS):
+                 max_steps: int = N_BLOCKS, n_outputs: int = 1):
         super().__init__()
         self.max_steps = _check_steps(max_steps)
         self.prog_blocks = nn.ModuleDict()
@@ -151,7 +153,7 @@ class Discriminator(nn.Module):
         self.final_block = nn.Sequential(
             WSConv2d(in_channels + 1, in_channels), nn.LeakyReLU(0.2),
             WSConv2d(in_channels, in_channels, 4, 1, 0), nn.LeakyReLU(0.2),
-            WSConv2d(in_channels, 1, 1, 1, 0))
+            WSConv2d(in_channels, n_outputs, 1, 1, 0))
 
     def forward(self, x: torch.Tensor, steps: int,
                 alpha: float | torch.Tensor = 1.0) -> torch.Tensor:

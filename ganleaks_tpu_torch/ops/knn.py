@@ -419,7 +419,8 @@ def _plan_charges(embed_fn: Callable, queries, fold_kind: str,
                   state_bytes_per_row: int) -> dict:
     """The planner's charges for a search of ``queries`` through
     ``embed_fn`` (its ``tower`` key; image rows NHWC) folded by
-    ``fold_kind`` (``stream_plan.FOLD_BYTES_PER_PAIR``)."""
+    ``fold_kind`` (``stream_plan.FOLD_BYTES_PER_PAIR``; the fused kinds
+    are also charged K1 / K3's padded copies where rows pad)."""
     shape = tuple(queries.shape[1:])
     if len(shape) == 3:
         act = activation_bytes_per_row(getattr(embed_fn, "tower", None),
@@ -428,7 +429,8 @@ def _plan_charges(embed_fn: Callable, queries, fold_kind: str,
         act = int(np.prod(shape)) * 4 * 2
     return {"act_bytes_per_row": act,
             "fold_bytes_per_pair": FOLD_BYTES_PER_PAIR[fold_kind],
-            "state_bytes_per_row": state_bytes_per_row}
+            "state_bytes_per_row": state_bytes_per_row,
+            "fused_fold": fold_kind in ("fused", "topk_fused")}
 
 
 def stream_need_bytes(embed_fn: Callable, queries, *, engine: str,
@@ -438,8 +440,9 @@ def stream_need_bytes(embed_fn: Callable, queries, *, engine: str,
     ``embed_fn`` (flat, or parts for the 'taps' engines) plans beside its
     image sets, as the planner charges them: every query row cached (one
     sweep), or the requested cache with ``auto_plan=False``, plus the
-    stream's blocks and activations. One query is featurised to learn the
-    row width."""
+    stream's blocks and activations and, for the fused engines on rows
+    that are not 16-byte multiples, K1's padded copies. One query is
+    featurised to learn the row width."""
     probe = _probe(embed_fn, queries, device)
     if engine in PARTS_ENGINES:
         size = 1 if engine == "taps-int8" else probe[0].element_size()

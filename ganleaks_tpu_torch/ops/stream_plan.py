@@ -16,7 +16,14 @@ planner charges, per plan:
 * ``STREAM_BLOCKS`` in-flight blocks of embeddings,
   ``max(q_block, s_block) * row_bytes`` each;
 * the tower's peak activation bytes per featurised row
-  (:func:`activation_bytes_per_row`) times ``max(q_block, s_block)``.
+  (:func:`activation_bytes_per_row`) times ``max(q_block, s_block)``;
+* for a fused fold (``fused_fold``) whose rows are not 16-byte multiples,
+  the zero-padded copies K1 / K3's wrapper makes of its inputs
+  (``ops/knn_fused.pad_k``): the fold hands the kernel the whole cached
+  chunk and one synthetic block, so ``(rows + s_block) *
+  padded_row_bytes`` (:func:`pad_copy_bytes`). Rows of 16-byte multiples
+  (VGG16, AlexNet and SqueezeNet parts, 64-px pixels) are passed as they
+  are and charge nothing.
 
 Policy, in order:
   1. cache every query row (one synthetic sweep) if that fits at
@@ -121,38 +128,55 @@ def device_capacity(device: torch.device) -> int | None:
     return max(0, available - margin_bytes(available))
 
 
+def pad_copy_bytes(row_bytes: int, fused_fold: bool) -> int:
+    """Bytes per row of the zero-padded copy ``knn_fused.pad_k`` makes of
+    a fused fold's inputs: the row rounded up to 16 bytes where it is not
+    a multiple of 16 (float32 K % 4, bfloat16 K % 8), else 0 (no copy:
+    every block then starts on 16 bytes)."""
+    if not fused_fold or row_bytes % 16 == 0:
+        return 0
+    return row_bytes + (-row_bytes) % 16
+
+
 def _row_cost(row_bytes: int, s_block: int, state_bytes_per_row: int,
-              fold_bytes_per_pair: int) -> int:
+              fold_bytes_per_pair: int, pad_bytes: int) -> int:
     """Resident bytes per cached query row at ``s_block``."""
-    return row_bytes + 4 + state_bytes_per_row + fold_bytes_per_pair * s_block
+    return (row_bytes + 4 + state_bytes_per_row
+            + fold_bytes_per_pair * s_block + pad_bytes)
 
 
 def _overhead(row_bytes: int, s_block: int, q_block: int,
-              act_bytes_per_row: int) -> int:
-    """The stream's in-flight blocks and one block's tower activations."""
+              act_bytes_per_row: int, pad_bytes: int) -> int:
+    """The stream's in-flight blocks, one block's tower activations and
+    the synthetic block's padded copy."""
     blk = max(s_block, q_block)
-    return STREAM_BLOCKS * blk * row_bytes + blk * act_bytes_per_row
+    return (STREAM_BLOCKS * blk * row_bytes + blk * act_bytes_per_row
+            + s_block * pad_bytes)
 
 
 def plan_bytes(rows: int, row_bytes: int, *, s_block: int, q_block: int,
                act_bytes_per_row: int, state_bytes_per_row: int = 8,
-               fold_bytes_per_pair: int = 0) -> int:
+               fold_bytes_per_pair: int = 0, fused_fold: bool = False
+               ) -> int:
     """Device bytes a plan holds with ``rows`` cached query rows, as
     :func:`plan_stream` charges them."""
+    pad = pad_copy_bytes(row_bytes, fused_fold)
     return (rows * _row_cost(row_bytes, s_block, state_bytes_per_row,
-                             fold_bytes_per_pair)
-            + _overhead(row_bytes, s_block, q_block, act_bytes_per_row))
+                             fold_bytes_per_pair, pad)
+            + _overhead(row_bytes, s_block, q_block, act_bytes_per_row, pad))
 
 
 def plan_stream(n_q: int, row_bytes: int, *, q_block: int, s_block: int,
                 cache_bytes: int, act_bytes_per_row: int,
                 state_bytes_per_row: int = 8,
                 fold_bytes_per_pair: int = 0,
+                fused_fold: bool = False,
                 capacity_bytes: int | None = None,
                 device: torch.device | str | None = None,
                 credit_bytes: int = 0) -> tuple[int, int, int]:
     """``(cache_bytes, s_block, q_block)`` for a search of ``n_q`` query
-    rows of ``row_bytes`` each (module docstring). ``capacity_bytes``: the
+    rows of ``row_bytes`` each (module docstring). ``fused_fold``: the
+    fold runs K1 / K3 (charged their padded copies). ``capacity_bytes``: the
     budget; None reads it from ``device`` (:func:`device_capacity`), and
     without a card the request comes back unchanged. ``credit_bytes``:
     memory the search already holds and will use for this plan (a held
@@ -165,13 +189,14 @@ def plan_stream(n_q: int, row_bytes: int, *, q_block: int, s_block: int,
             return cache_bytes, s_block, q_block
     capacity_bytes += credit_bytes
     padded = n_q + (-n_q) % q_block
+    pad = pad_copy_bytes(row_bytes, fused_fold)
 
     def cap_for(sb: int, qb: int) -> int:
         """The largest cache (bytes of whole rows) that fits at (sb, qb)."""
         rows = ((capacity_bytes
-                 - _overhead(row_bytes, sb, qb, act_bytes_per_row))
+                 - _overhead(row_bytes, sb, qb, act_bytes_per_row, pad))
                 // _row_cost(row_bytes, sb, state_bytes_per_row,
-                             fold_bytes_per_pair))
+                             fold_bytes_per_pair, pad))
         return max(0, rows) * row_bytes
 
     need_one = padded * row_bytes

@@ -156,15 +156,16 @@ def generate(cfg, state: GANState | None = None, run_dir: str | None = None,
 
 
 def sample_artifacts(cfg, gen, batch: int, run_dir: str | None,
-                     device: torch.device | str, model_name: str
-                     ) -> dict[str, str]:
+                     device: torch.device | str, model_name: str,
+                     prefix: str | None = None) -> dict[str, str]:
     """``cfg.num_generated`` samples of ``gen`` (z -> image) in batches of
     ``batch``, latents from a generator on ``device`` seeded with
     ``cfg.seed + 2``, written as the artifact triplet under
-    ``<PATH_syn_data>/<model_name>``."""
+    ``<PATH_syn_data>/<model_name>`` with file names starting ``prefix``
+    (default ``model_name``; privGAN writes ``privDCGAN/.../dcgan_*``)."""
     sample_gen = torch.Generator(device=device).manual_seed(cfg.seed + 2)
     noise, imgs01 = sample_to_host(gen, cfg.num_generated, cfg.nz, batch,
                                    sample_gen, device)
     root = os.path.join(cfg.PATH_syn_data, model_name)
-    return write_synthetic_artifacts(root, model_name, imgs01, noise,
-                                     run_dir)
+    return write_synthetic_artifacts(root, prefix or model_name, imgs01,
+                                     noise, run_dir)

@@ -6,14 +6,14 @@
 * InceptionV3 pool_3: the flax variables ``{"params", "batch_stats"}`` of
   ``ganleaks_tpu.ops.inception.InceptionV3Pool3`` (conv kernels HWIO, BN
   ``scale``/``bias`` and ``mean``/``var``) <-> the port's tower; and a
-  torchvision-layout state dict (what ``tools/convert_inception.py``
-  converts), ``fc.*`` and ``AuxLogits.*`` skipped. One weights file
-  serves both packages.
+  torchvision-layout state dict (what either package's
+  ``tools/convert_inception.py`` converts), ``fc.*`` and ``AuxLogits.*``
+  skipped. One weights file serves both packages.
 * VAE-GAN encoder, generator and both discriminators: the variables
   ``{"params", "batch_stats", "spectral"}`` that the JAX trainer saves
-  and ``tools/convert_victim.py`` writes <-> the port's modules
-  (:func:`load_jax_tree` / :func:`dump_jax_tree`), whose own keys are the
-  reference's.
+  and either package's ``tools/convert_victim.py`` writes <-> the port's
+  modules (:func:`load_jax_tree` / :func:`dump_jax_tree`), whose own keys
+  are the reference's.
 * DCGAN / WGAN-GP generator, discriminator and critic: the JAX trainers'
   ``{"params", "batch_stats"}`` (``block{i}_conv``, ``block{i}/bn``,
   ``block{i}_in``, ``to_img``, ``from_img``, ``head``) <-> the port's
@@ -24,6 +24,10 @@
   ``prog{i}``, ``final_conv{1,2,3}``: ``init_progressive``'s union tree)
   <-> the port's modules under the reference's keys, layer by layer as
   for DCGAN.
+* privGAN: the JAX ``PrivGANState``'s generators and discriminators,
+  stacked on a leading split axis, and its shared private classifier <->
+  the port's per-split ``nn.ModuleList``s and classifier
+  (:func:`privgan_from_jax_state` / :func:`privgan_to_jax_state`).
 
 Leaves are numpy (or any array-like); kernels are transposed HWIO -> OIHW
 (conv), HWIO -> IOHW (transposed conv, ``transpose(2, 3, 0, 1)``: the JAX
@@ -454,14 +458,23 @@ def _dcgan_dims(kind: str, params: dict) -> dict:
 
 
 def dcgan_from_jax_variables(kind: str, variables: dict) -> nn.Module:
-    """The port's DCGAN ``Generator`` or ``Discriminator`` (``kind``), on
-    the CPU in eval mode, from the JAX trainer's variables; widths, latent
-    size and image size are read from the kernels."""
-    from ganleaks_tpu_torch.models.dcgan import Discriminator, Generator
+    """The port's DCGAN ``Generator``, ``Discriminator`` or privGAN
+    ``PrivateDiscriminator`` (``kind``: "generator", "discriminator" or
+    "private"), on the CPU in eval mode, from the JAX trainer's variables;
+    widths, latent size, image size and the private head's split count are
+    read from the kernels."""
+    from ganleaks_tpu_torch.models.dcgan import (Discriminator, Generator,
+                                                 PrivateDiscriminator)
 
+    if kind == "private":
+        p = variables["params"]
+        model = PrivateDiscriminator(
+            n_splits=int(np.shape(p["head"]["kernel"])[3]),
+            **_dcgan_dims("discriminator", p))
+        return gan_load_jax_variables(model, variables).eval()
     if kind not in ("generator", "discriminator"):
-        raise ValueError(f"kind must be 'generator' or 'discriminator', "
-                         f"got {kind!r}")
+        raise ValueError(f"kind must be 'generator', 'discriminator' or "
+                         f"'private', got {kind!r}")
     cls = Generator if kind == "generator" else Discriminator
     model = cls(**_dcgan_dims(kind, variables["params"]))
     return gan_load_jax_variables(model, variables).eval()
@@ -523,8 +536,9 @@ def pggan_from_jax_variables(kind: str, variables: dict) -> nn.Module:
     """The port's PGGAN ``Generator`` or ``Discriminator`` (``kind``:
     "generator" or "critic") on the CPU from the JAX trainer's
     ``{"params"}`` (``init_progressive``'s union over every step up to the
-    tree's largest); nz, in_channels, nc and max_steps are read from the
-    kernels."""
+    tree's largest); nz, in_channels, nc, max_steps and the critic's
+    output count (privGAN's private critic: ``n_splits``) are read from
+    the kernels."""
     from ganleaks_tpu_torch.models import pggan
 
     p = variables["params"]
@@ -538,7 +552,7 @@ def pggan_from_jax_variables(kind: str, variables: dict) -> nn.Module:
         model = pggan.Discriminator(
             np.shape(p["final_conv2"]["conv"]["kernel"])[3],
             np.shape(p[f"rgb{pggan.N_BLOCKS}"]["conv"]["kernel"])[2],
-            n_rgb - 1)
+            n_rgb - 1, np.shape(p["final_conv3"]["conv"]["kernel"])[3])
     else:
         raise ValueError(f"kind must be 'generator' or 'critic', got "
                          f"{kind!r}")
@@ -546,3 +560,60 @@ def pggan_from_jax_variables(kind: str, variables: dict) -> nn.Module:
 
 
 medgan_to_jax_variables = pggan_to_jax_variables = gan_to_jax_variables
+
+
+# ---------------------------------------------------------------------------
+# privGAN
+# ---------------------------------------------------------------------------
+
+def _split(tree, i: int):
+    """Split ``i`` of a tree whose leaves carry a leading split axis."""
+    if isinstance(tree, dict) or hasattr(tree, "items"):
+        return {k: _split(v, i) for k, v in tree.items()}
+    return np.asarray(tree)[i]
+
+
+def _first_leaf(tree):
+    while isinstance(tree, dict) or hasattr(tree, "items"):
+        tree = next(iter(tree.values()))
+    return tree
+
+
+def _stack(trees: list):
+    """The inverse of :func:`_split` over a list of equal trees."""
+    if isinstance(trees[0], dict):
+        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
+    return np.stack(trees)
+
+
+def privgan_from_jax_state(kind: str, genS: dict, discS: dict, priv: dict
+                           ) -> tuple[nn.ModuleList, nn.ModuleList,
+                                      nn.Module]:
+    """The JAX ``PrivGANState``'s nets as the port's (generators,
+    discriminators, private classifier), on the CPU in eval mode. ``kind``:
+    "dcgan" or "pggan"; ``genS`` / ``discS``: the stacked variables
+    (``{"params"[, "batch_stats"]}``, every leaf with a leading split
+    axis); ``priv``: the classifier's variables. Each split's sizes are
+    read from its own slice (the stacked kernels carry the split on axis
+    0, so ``nz`` sits on axis 3 there)."""
+    loaders = {"dcgan": (dcgan_from_jax_variables,
+                         ("generator", "discriminator", "private")),
+               "pggan": (pggan_from_jax_variables,
+                         ("generator", "critic", "critic"))}
+    if kind not in loaders:
+        raise ValueError(f"kind must be 'dcgan' or 'pggan', got {kind!r}")
+    load, parts = loaders[kind]
+    n = len(_first_leaf(genS["params"]))
+    nets = [nn.ModuleList([load(part, _split(tree, i)) for i in range(n)])
+            for part, tree in zip(parts, (genS, discS))]
+    return nets[0], nets[1], load(parts[2], priv)
+
+
+def privgan_to_jax_state(genS: nn.ModuleList, discS: nn.ModuleList,
+                         priv: nn.Module) -> tuple[dict, dict, dict]:
+    """(stacked generators' variables, stacked discriminators' variables,
+    the classifier's variables), numpy leaves, as
+    :func:`privgan_from_jax_state` reads them."""
+    return (_stack([gan_to_jax_variables(m) for m in genS]),
+            _stack([gan_to_jax_variables(m) for m in discS]),
+            gan_to_jax_variables(priv))

@@ -552,3 +552,35 @@ def test_new_victim_entry_points_refuse_without_gpu(monkeypatch, tmp_path):
     for call in calls:
         with pytest.raises(RuntimeError, match="device='cpu'"):
             call()
+
+
+def test_privgan_entry_points_refuse_without_gpu(monkeypatch, tmp_path):
+    """The privDCGAN / privPGGAN trainers, samplers and CLIs (whose
+    ``--device`` defaults to cuda) refuse without a GPU unless asked for
+    the CPU."""
+    from ganleaks_tpu_torch.cli import train_privdcgan as cli_privdcgan
+    from ganleaks_tpu_torch.cli import train_privpggan as cli_privpggan
+    from ganleaks_tpu_torch.config import (DCGANConfig, PGGANConfig,
+                                           PrivGANConfig)
+    from ganleaks_tpu_torch.train import priv
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.chdir(tmp_path)
+    imgs = np.zeros((4, 16, 16, 3), np.float32)
+    dc = DCGANConfig(image_size=16, nz=4, ngf=4, ndf=4)
+    pg = PGGANConfig(image_size=8, nz=4, in_channels=4)
+    pc = PrivGANConfig()
+    calls = [
+        lambda: priv.train_privdcgan(dc, pc, images=imgs),
+        lambda: priv.generate_privdcgan(dc, pc,
+                                        priv.build_privdcgan_state(dc, pc)),
+        lambda: priv.train_privpggan(pg, pc, images=imgs[:, :8, :8]),
+        lambda: priv.generate_privpggan(pg, pc,
+                                        priv.build_privpggan_state(pg, pc)),
+        lambda: cli_privdcgan.main([f"data_path={tmp_path}"]),
+        lambda: cli_privpggan.main([f"data_path={tmp_path}"]),
+        lambda: cli_privdcgan.main(["--device", "cuda", "num_epochs=0"]),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()

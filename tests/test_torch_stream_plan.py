@@ -267,3 +267,91 @@ def test_image_sets_stay_on_the_host_unless_they_fit(monkeypatch,
     got_q, got_s, moved = fbb._stage_sets(cfg, None, q, s,
                                           torch.device("cuda"))
     assert moved is on_device and got_q is q and got_s is s
+
+
+# K1 / K3's padded copies (``knn_fused.pad_k``): a fused fold of rows that
+# are not 16-byte multiples hands the kernel copies of the whole cached
+# chunk and of the synthetic block, which the planner now charges
+TAB_ACT = 1071 * 4 * 2  # tabular rows: the float32 embedding, twice
+
+
+@pytest.mark.parametrize("k_dim,dtype", [(1071, torch.float32),
+                                         (1001, torch.bfloat16),
+                                         (4099, torch.float32)])
+@pytest.mark.parametrize("rows,sb,qb", [(4096, 2048, 2048), (600, 512, 64)])
+def test_padded_rows_charge_the_copy(k_dim, dtype, rows, sb, qb):
+    """At a K whose rows pad, a fused fold's charge exceeds the unpadded
+    one by exactly the copies ``pad_k`` makes — (cached rows + s_block) of
+    its padded row — and a non-fused fold's does not move."""
+    from ganleaks_tpu_torch.ops.knn_fused import pad_k
+    elt = torch.empty((), dtype=dtype).element_size()
+    row = k_dim * elt
+    padded_row = pad_k(torch.zeros(2, k_dim, dtype=dtype)).shape[1] * elt
+    assert padded_row > row
+    assert stream_plan.pad_copy_bytes(row, True) == padded_row
+    kw = dict(s_block=sb, q_block=qb, act_bytes_per_row=TAB_ACT,
+              fold_bytes_per_pair=FOLD_BYTES_PER_PAIR["fused"])
+    fused = stream_plan.plan_bytes(rows, row, fused_fold=True, **kw)
+    plain = stream_plan.plan_bytes(rows, row, **kw)
+    assert fused - plain == (rows + sb) * padded_row
+    assert stream_plan.pad_copy_bytes(row, False) == 0
+
+
+def test_budget_without_the_copy_now_plans_smaller():
+    """A budget that holds the one-sweep plan only without the padded
+    copies no longer adopts it: the fused plan caches fewer rows (more
+    sweeps), and what it plans fits with the copies charged."""
+    row, n_q = 1071 * 4, 4096
+    kw = dict(q_block=2048, s_block=2048, act_bytes_per_row=TAB_ACT,
+              fold_bytes_per_pair=FOLD_BYTES_PER_PAIR["fused"])
+    cap = stream_plan.plan_bytes(n_q, row, s_block=2048, q_block=2048,
+                                 act_bytes_per_row=TAB_ACT,
+                                 fold_bytes_per_pair=1)
+    request = 2048 * row
+    unpadded = plan_stream(n_q, row, cache_bytes=request,
+                           capacity_bytes=cap, **kw)
+    assert unpadded == (n_q * row, 2048, 2048)
+    cache, sb, qb = plan_stream(n_q, row, cache_bytes=request,
+                                capacity_bytes=cap, fused_fold=True, **kw)
+    assert cache < n_q * row and (sb, qb) <= (2048, 2048)
+    assert stream_plan.plan_bytes(cache // row, row, s_block=sb,
+                                  q_block=qb, act_bytes_per_row=TAB_ACT,
+                                  fold_bytes_per_pair=1,
+                                  fused_fold=True) <= cap
+
+
+@pytest.mark.parametrize("net", ["vgg", "alex", "squeeze", None])
+def test_planned_paths_keep_their_plans(net):
+    """Every planned path of the attack at 64 px — the VGG16, AlexNet and
+    SqueezeNet parts in every cache dtype, and the pixels — has rows of
+    16-byte multiples, so the fused charge is the plan of before, bit for
+    bit, at budgets across every branch of the policy."""
+    from ganleaks_tpu_torch.ops.lpips.lpips import LPIPS
+    if net is None:
+        widths = [64 * 64 * 3]
+    else:
+        with torch.no_grad():
+            taps = LPIPS(net).features(torch.zeros(1, 64, 64, 3))
+        widths = [int(np.prod(t.shape[1:])) for t in taps]
+    k_dim = sum(widths)
+    for elt in (1, 2, 4):  # int8, bfloat16, float32 caches
+        row = k_dim * elt
+        assert stream_plan.pad_copy_bytes(row, True) == 0
+        act = ACT_BYTES_PER_ROW_64[(net, "float32")]
+        for cap_gib in (80, 20, 4, 0.5):
+            args = dict(q_block=2048, s_block=2048, cache_bytes=8 * GIB,
+                        act_bytes_per_row=act, fold_bytes_per_pair=1,
+                        capacity_bytes=int(cap_gib * GIB))
+            assert plan_stream(N_Q, row, fused_fold=True, **args) == \
+                plan_stream(N_Q, row, **args)
+
+
+def test_fused_charges_name_the_fold():
+    """``_plan_charges`` marks the fused argmin and top-k folds, so every
+    streamed search and ``stream_need_bytes`` pass the copies' charge."""
+    embed = make_embed_fn("l2")
+    imgs = np.zeros((2, 8, 8, 3), np.uint8)
+    for kind, fused in (("fused", True), ("topk_fused", True),
+                        ("gemm", False), ("int8", False),
+                        ("topk_int8", False)):
+        assert knn._plan_charges(embed, imgs, kind, 8)["fused_fold"] is fused
