@@ -182,6 +182,24 @@ Phases, each printing JSON lines:
    and steps/s (privDCGAN at batch 32 and 128 a split, DCGAN at 32,
    privPGGAN at 64 px) beside phases 12-13's DCGAN and PGGAN rates.
 
+15. pipeline: the reference study's first steps at the split's default
+   size — a synthetic CelebA (6,720 seeded 178x218 JPEGs written by
+   Pillow: 112 identities of exactly 30 images, 168 of 20), ``cli.split``
+   at ``num_images`` 10,020 and ``num_same_id`` 30 (3,340 members and
+   3,340 non-members; 10,020 training PNGs, a third each plain, ``_a1``
+   and ``_a2``), 32 sampled PNGs per directory against their crop of the
+   JPEG decode bit for bit and every pack against its sorted PNGs; DCGAN
+   at full width one epoch at batch 128 on the 128-px training PNGs (the
+   reader resizes them), ``generate`` 10,000 images, 256 positive PNGs
+   planted, ``run_attack`` ('auto': K2's launches counted against its
+   plan; every planted member below every non-member), ``evaluate``; the
+   plots where matplotlib imports (else a line that says it is absent);
+   ``tools.profile_attack`` at its defaults ('auto'): the profiler's K2
+   launches must equal the launch counter's, the projected and measured
+   seconds and the device's idle share printed; ``tools.hbm_projection``
+   at phase 10's configuration with the budget phase 10's plan read must
+   give phase 10's plan (cache bytes, blocks, sweeps).
+
 Phase 12 and phase 14's privDCGAN hold also print each convolution's
 gradient error against float64 with cuDNN and without it
 (``grad_by_conv``).
@@ -309,6 +327,16 @@ PRIV_RATE_BATCHES = (32, 128)  # privDCGAN steps/s, per split
 # a generator's statistics after the step against two forwards of a copy
 # (L2 over the change): the same float32 operations in the same order
 PRIV_STAT_RTOL = 1e-5
+# phase 15: the pipeline from the split to AUROC (SplitConfig's defaults)
+PIPE_IMAGES = 10020        # SplitConfig.num_images: a third each pool
+PIPE_SAME_ID = 30          # SplitConfig.num_same_id: a member identity
+PIPE_MEMBER_IDS = 112      # identities of exactly 30 images (3,360)
+PIPE_PUBLIC_IDS = 168      # identities of 20 images (3,360)
+PIPE_PUBLIC_PER_ID = 20
+PIPE_CHECK = 32            # PNGs per directory held against the JPEGs
+PIPE_BATCH = 128           # DCGAN's batch
+PIPE_GENERATED = 10000     # sampled images
+PIPE_PLANT = 256           # positive PNGs planted in the dump
 
 
 def emit(obj: dict) -> None:
@@ -2128,6 +2156,7 @@ def phase_north_star(torch) -> dict:
     tower = north_star_hold(torch, data, {"auto": a, "taps_bf16": b})
     return {"launches": {"auto": a["launches"],
                          "taps_bf16": b["launches"]}, "tower": tower,
+            "plan": a["out"]["plan"],
             "data": data, "auto": {k: a[k] for k in ("idx", "loss",
                                                      "launches")}}
 
@@ -3683,6 +3712,282 @@ def phase_privgan(torch, tmp: str, dirs: dict, queries: dict,
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the pipeline from the split to AUROC at the split's default size
+# ---------------------------------------------------------------------------
+
+def celeba_images(rng, n: int) -> np.ndarray:
+    """``n`` seeded 178x218 CelebA-sized images: a 28x23 random layout
+    upsampled 8x and cropped, plus pixel noise (uint8 NHWC)."""
+    base = rng.integers(0, 256, (n, 28, 23, 3), dtype=np.int16)
+    up = base.repeat(8, 1).repeat(8, 2)[:, :218, :178]
+    noise = rng.integers(-8, 9, up.shape, dtype=np.int16)
+    return np.clip(up + noise, 0, 255).astype(np.uint8)
+
+
+def celeba_sources(tmp: str) -> dict:
+    """A synthetic CelebA: PIPE_MEMBER_IDS identities of exactly
+    PIPE_SAME_ID images (the member pool) and PIPE_PUBLIC_IDS of
+    PIPE_PUBLIC_PER_ID, their files numbered in a seeded shuffled order,
+    written as JPEGs by Pillow (on threads), with ``<identity>
+    <filename>`` annotations in file order."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import PIL.Image
+    rng = np.random.default_rng(SEED + 15)
+    owners = ([f"m{i:04d}" for i in range(PIPE_MEMBER_IDS)
+               for _ in range(PIPE_SAME_ID)]
+              + [f"p{i:04d}" for i in range(PIPE_PUBLIC_IDS)
+                 for _ in range(PIPE_PUBLIC_PER_ID)])
+    owners = [owners[i] for i in rng.permutation(len(owners))]
+    names = [f"{i + 1:06d}.jpg" for i in range(len(owners))]
+    src = os.path.join(tmp, "img_align_celeba")
+    os.makedirs(src)
+    t0 = time.perf_counter()
+
+    def save(item):
+        name, arr = item
+        PIL.Image.fromarray(arr).save(os.path.join(src, name), quality=90)
+
+    with ThreadPoolExecutor(16) as pool:
+        for lo in range(0, len(names), 512):
+            imgs = celeba_images(rng, min(512, len(names) - lo))
+            list(pool.map(save, zip(names[lo:lo + 512], imgs)))
+    ann = os.path.join(tmp, "identities_ann.txt")
+    with open(ann, "w") as f:
+        f.writelines(f"{o} {n}\n" for o, n in zip(owners, names))
+    emit({"phase": "pipeline_sources", "jpegs": len(names),
+          "identities": PIPE_MEMBER_IDS + PIPE_PUBLIC_IDS,
+          "seconds": time.perf_counter() - t0})
+    return {"src": src, "ann": ann, "owners": owners, "names": names}
+
+
+def split_check(src: dict, dirs: dict) -> dict:
+    """The split's directories against the sources: the file names,
+    PIPE_CHECK sampled PNGs per directory bit for bit against their crop of
+    the JPEG decode (the ``_a1`` crops at the draws of ``default_rng(seed)``
+    made member by member, x then y), every pack against its sorted PNGs.
+    The expected member and non-member lists are rebuilt here from the
+    annotations (identities in first-appearance order)."""
+    import PIL.Image
+
+    from ganleaks_tpu_torch.io.native import decode_exact, decode_png
+    per_id: dict = {}
+    for o, n in zip(src["owners"], src["names"]):
+        per_id.setdefault(o, []).append(n)
+    want = PIPE_IMAGES // 3
+    members = [n for ns in per_id.values() if len(ns) == PIPE_SAME_ID
+               for n in ns][:want]
+    public = [n for ns in per_id.values() if len(ns) < PIPE_SAME_ID
+              for n in ns][:want]
+    draw = np.random.default_rng(SEED)
+    a1_at = {}
+    for n in members:
+        x = int(draw.integers(0, 178 - 128))
+        y = int(draw.integers(0, 218 - 128))
+        a1_at[n.split(".")[0]] = (y, x)
+    stems = {"train": sorted(f"{n.split('.')[0]}{s}" for n in members
+                             for s in ("", "_a1", "_a2")),
+             "pos": sorted(n.split(".")[0] for n in members),
+             "neg": sorted(n.split(".")[0] for n in public)}
+    rng = np.random.default_rng(SEED + 16)
+    out = {}
+    for key, d in dirs.items():
+        files = sorted(f for f in os.listdir(d) if f.endswith(".png"))
+        check(files == [s + ".png" for s in stems[key]],
+              f"pipeline split: {key} holds {len(files)} PNGs, not the "
+              f"{len(stems[key])} expected names")
+        for f in rng.choice(files, PIPE_CHECK, replace=False):
+            stem = f[:-4]
+            base = stem.split("_")[0]
+            with PIL.Image.open(os.path.join(src["src"],
+                                             base + ".jpg")) as im:
+                raw = np.asarray(im)
+            crop = raw[121 - 64:121 + 64, 89 - 64:89 + 64]
+            if stem.endswith("_a1"):
+                y, x = a1_at[base]
+                ref = raw[y:y + 128, x:x + 128]
+            else:
+                ref = crop[:, ::-1] if stem.endswith("_a2") else crop
+            check(np.array_equal(decode_png(os.path.join(d, f)), ref),
+                  f"pipeline split: {key}/{f} differs from its crop of "
+                  f"{base}.jpg")
+        pack = np.load(os.path.join(d, f"_packed_{key}.npy"))
+        pngs, other = decode_exact([os.path.join(d, f) for f in files], 128)
+        check(other.size == 0 and np.array_equal(pack, pngs),
+              f"pipeline split: _packed_{key}.npy differs from its sorted "
+              f"PNGs")
+        out[key] = len(files)
+    check(len(members) == want and len(public) == want,
+          f"pipeline split: {len(members)} members, {len(public)} "
+          f"non-members expected")
+    return out
+
+
+def phase_pipeline(torch, tmp: str, north_plan: dict) -> dict:
+    """Phase 15: the reference study's first steps at the split's default
+    size — a synthetic CelebA, ``cli.split`` (10,020 images, 30 a member
+    identity) and its check, DCGAN at full width for one epoch at batch
+    128 on the 128-px training PNGs (the reader resizes them),
+    ``generate`` 10,000 images, PIPE_PLANT positive PNGs planted, the
+    'auto' attack with the positive and negative directories as members
+    and non-members (K2's launches counted), ``evaluate``; the plots where
+    matplotlib imports; ``tools.profile_attack`` at its defaults ('auto');
+    ``tools.hbm_projection`` at phase 10's configuration and budget,
+    which must give phase 10's plan."""
+    import contextlib
+    import io
+    import shutil
+
+    from ganleaks_tpu_torch.attack.eval_roc import evaluate
+    from ganleaks_tpu_torch.attack.fbb import run_attack
+    from ganleaks_tpu_torch.cli import split
+    from ganleaks_tpu_torch.config import (AttackConfig, DCGANConfig,
+                                           EvalConfig)
+    from ganleaks_tpu_torch.tools import hbm_projection, profile_attack
+    from ganleaks_tpu_torch.train import dcgan
+    t_phase = time.perf_counter()
+    sec = {}
+    src = celeba_sources(tmp)
+    dirs = {k: os.path.join(tmp, k) for k in ("train", "pos", "neg")}
+    t0 = time.perf_counter()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        counts = split.main([
+            f"identity_annotations={src['ann']}", f"input_dir={src['src']}",
+            f"output_dir0={dirs['train']}", f"output_dir1={dirs['pos']}",
+            f"output_dir2={dirs['neg']}", f"num_images={PIPE_IMAGES}",
+            f"num_same_id={PIPE_SAME_ID}", f"seed={SEED}"])
+    sec["split_s"] = time.perf_counter() - t0
+    check(counts == {"members": PIPE_IMAGES // 3,
+                     "non_members": PIPE_IMAGES // 3},
+          f"pipeline split: {counts} ({buf.getvalue().strip()})")
+    t0 = time.perf_counter()
+    files = split_check(src, dirs)
+    sec["split_check_s"] = time.perf_counter() - t0
+    emit({"phase": "pipeline_split", "printed": buf.getvalue().strip(),
+          **counts, "files": files, "seconds": sec["split_s"],
+          "check_seconds": sec["split_check_s"]})
+
+    cfg = DCGANConfig(data_path=dirs["train"], batch_size=PIPE_BATCH,
+                      num_epochs=1, seed=SEED, image_size=RES,
+                      num_generated=PIPE_GENERATED,
+                      PATH=os.path.join(tmp, "model"),
+                      PATH_syn_data=os.path.join(tmp, "syn"))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state = dcgan.train(cfg, device=DEVICE)
+    torch.cuda.synchronize()
+    sec["train_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out_dirs = dcgan.generate(cfg, state, run_dir="run", device=DEVICE)
+    sec["generate_s"] = time.perf_counter() - t0
+    png = out_dirs["png_images"]
+    fake = np.load(os.path.join(out_dirs["npz_images"],
+                                "dcgan_synthetic_data.npz"))["fake"]
+    check(state.step == -(-files["train"] // PIPE_BATCH)
+          and fake.shape == (PIPE_GENERATED, 3, RES, RES)
+          and bool(np.isfinite(fake).all())
+          and len(os.listdir(png)) == PIPE_GENERATED,
+          f"pipeline DCGAN: {state.step} steps, {fake.shape} samples, "
+          f"{len(os.listdir(png))} PNGs")
+    members = sorted(f for f in os.listdir(dirs["pos"])
+                     if f.endswith(".png"))
+    for i, f in enumerate(members[:PIPE_PLANT]):
+        shutil.copy(os.path.join(dirs["pos"], f),
+                    os.path.join(png, f"image_{PIPE_GENERATED + i}.png"))
+
+    reset_launches()
+    t0 = time.perf_counter()
+    res = run_attack(AttackConfig(
+        syn_data_path=png, pos_data_dir=dirs["pos"],
+        neg_data_dir=dirs["neg"], distance="l2-lpips", resolution=RES,
+        engine="auto", save_root=os.path.join(tmp, "fbb"),
+        exp_name="pipeline"), device=DEVICE)[0]
+    sec["attack_s"] = time.perf_counter() - t0
+    launches = read_launches()
+    plan = res["plan"]
+    n_q, n_s = files["pos"] + files["neg"], PIPE_GENERATED + PIPE_PLANT
+    taps = 5  # VGG16's taps: one K2 launch each per featurised block
+    want = taps * (-(-n_q // plan["q_block"])
+                   + plan["sweeps"] * -(-n_s // plan["s_block"]))
+    for name, n in launches.items():
+        w = want if name == "tap_epilogue" else 0
+        check(n == w, f"pipeline attack: {name} launched {n} times, want "
+                      f"{w} (plan {plan})")
+    roc = evaluate(EvalConfig(result_load_dir=res["save_dir"]))
+    caught = int((res["pos_loss"][:PIPE_PLANT] < res["neg_loss"].min())
+                 .sum())
+    check(bool(np.isfinite(res["pos_loss"]).all()
+               and np.isfinite(res["neg_loss"]).all())
+          and caught == PIPE_PLANT,
+          f"pipeline attack: {caught} of {PIPE_PLANT} planted members "
+          f"below every non-member")
+    emit({"phase": "pipeline", "train_images": files["train"],
+          "batch": PIPE_BATCH, "steps": state.step,
+          "generated": PIPE_GENERATED, "planted": PIPE_PLANT,
+          "n_pos": files["pos"], "n_neg": files["neg"],
+          "ingest_s": res["ingest_s"],
+          "query_pairs_per_sec": res["query_pairs_per_sec"],
+          "plan": {k: plan[k] for k in ("q_block", "s_block", "sweeps")},
+          "planted_below_all_nonmembers": caught, "auroc": roc["auc"],
+          "kernel_launches": launches, **sec})
+
+    try:
+        import matplotlib  # noqa: F401
+    except ImportError:
+        emit({"phase": "pipeline_plots", "plots": "matplotlib absent",
+              "note": "host-side helper, not the device path"})
+    else:
+        from ganleaks_tpu_torch.attack.viz import (visualize_gt,
+                                                   visualize_samples)
+        from ganleaks_tpu_torch.io.native import decode_exact
+        gt = decode_exact([os.path.join(dirs["pos"], f)
+                           for f in members[:10]], 128)[0]
+        paths = [visualize_samples(fake[:64].transpose(0, 2, 3, 1), tmp),
+                 visualize_gt(gt / 127.5 - 1.0, tmp)]
+        check(all(os.path.getsize(p) > 0 for p in paths),
+              f"pipeline plots: {paths}")
+        emit({"phase": "pipeline_plots", "plots": paths})
+
+    t0 = time.perf_counter()
+    prof = profile_attack.profile(
+        engine="auto", device=DEVICE,
+        emit=lambda rec: emit({"phase": "pipeline_profile", **rec}))
+    sec["profile_s"] = time.perf_counter() - t0
+    p = prof["profile"]
+    check(p["launches_counted"]["tap_epilogue"] > 0
+          and p["launches_profiled"]["tap_epilogue"]
+          == p["launches_counted"]["tap_epilogue"],
+          f"pipeline profile: the profiler saw {p['launches_profiled']} "
+          f"launches, the counters {p['launches_counted']}")
+    e2e = prof["end_to_end"]
+
+    t0 = time.perf_counter()
+    proj = hbm_projection.project(
+        2 * NS_POS, NS_SYN, RES, engine="auto", store="uint8",
+        q_block=NS_BLOCK, s_block=NS_BLOCK,
+        capacity_bytes=north_plan["capacity_bytes"])
+    sec["projection_s"] = time.perf_counter() - t0
+    got = {k: proj[k] for k in ("cache_bytes", "s_block", "q_block",
+                                "sweeps")}
+    check(got == {k: north_plan[k] for k in got},
+          f"pipeline projection: {got}, phase 10 planned {north_plan}")
+    sec["phase_s"] = time.perf_counter() - t_phase
+    r = {"phase": "pipeline_summary", "auroc": roc["auc"],
+         "profile_projected_s": e2e["projected_s"],
+         "profile_measured_s": e2e["measured_s"],
+         "profile_gap_s": e2e["gap_s"],
+         "profile_idle_share": p["idle_share"],
+         "profile_k2_launches": p["launches_counted"]["tap_epilogue"],
+         "profile_top_kernels": [[k["name"], k["launches"], k["total_ms"]]
+                                 for k in p["kernels"][:5]],
+         "projection": got,
+         "projection_capacity_bytes": north_plan["capacity_bytes"], **sec}
+    emit(r)
+    return r
+
+
 def main() -> int:
     try:
         import torch
@@ -3770,6 +4075,9 @@ def main() -> int:
             "pggan_64px_float32_steps_per_sec":
                 v2["rates"]["pggan_64px_float32_steps_per_sec"]})
         lap("privgan")
+    with tempfile.TemporaryDirectory() as tmp:
+        phase_pipeline(torch, tmp, north["plan"])
+        lap("pipeline")
     emit({"phase": "seconds", "build_s": build_s, **phase_s})
 
     # launches: each kernel's count in the run of the path it serves — K1

@@ -51,7 +51,8 @@ from ganleaks_tpu_torch.ops.knn import (PARTS_ENGINES, PhaseTimer,
                                         knn_argmin_two_pass,
                                         stream_need_bytes,
                                         truncate_to_batches)
-from ganleaks_tpu_torch.ops.stream_plan import GIB, device_capacity
+from ganleaks_tpu_torch.ops.stream_plan import (GIB, device_capacity,
+                                                sets_fit)
 from ganleaks_tpu_torch.utils.logging import MetricsLogger, Throughput
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -206,7 +207,7 @@ def _stage_sets(cfg: AttackConfig, embed, queries: np.ndarray,
             query_cache_bytes=int(cfg.query_cache_gb * GIB),
             auto_plan=cfg.auto_plan, device=device)
         sets, cap = queries.nbytes + syn.nbytes, device_capacity(device)
-        if sets + need > cap:
+        if not sets_fit(sets, need, cap):
             print(f"[fbb] the image sets ({sets / GIB:.2f} GiB) do not fit "
                   f"beside the search's {need / GIB:.2f} GiB (of "
                   f"{cap / GIB:.2f}): streaming blocks from host memory")
@@ -300,6 +301,8 @@ def attack_arrays(cfg: AttackConfig, syn, pos, neg,
     search = info.get("pass1", info)
     plan = {k: search[k] for k in ("cache_bytes", "s_block", "q_block",
                                    "sweeps", "query_reused")}
+    # the planner's budget (None on the CPU or with auto_plan off)
+    plan["capacity_bytes"] = search.get("capacity_bytes")
     n_pos = len(pos)
     out = {"pos_loss": loss[:n_pos], "pos_nn_idx": nn[:n_pos],
            "neg_loss": loss[n_pos:], "neg_nn_idx": nn[n_pos:],

@@ -1,9 +1,10 @@
-"""Typed configuration (copy of the attack, evaluation, FID, LPIPS scoring
-and victim training part of ``ganleaks_tpu.config``: DCGAN, WGAN-GP,
-PGGAN, VAE-GAN, medGAN and the privGAN extras): one dataclass per entry
-point, a YAML loader (PyYAML imported only when a file or a raw string
-needs parsing), ``key=value`` overrides whose unknown keys raise, and the
-privGAN grid sweep's :func:`expand_grid` / :func:`sweep_tag`.
+"""Typed configuration (copy of ``ganleaks_tpu.config``'s attack,
+evaluation, FID, LPIPS scoring, victim training — DCGAN, WGAN-GP, PGGAN,
+VAE-GAN, medGAN and the privGAN extras — and data split parts): one
+dataclass per entry point, a YAML loader (PyYAML imported only when a
+file or a raw string needs parsing), ``key=value`` overrides whose unknown
+keys raise, and the privGAN grid sweep's :func:`expand_grid` /
+:func:`sweep_tag`.
 
 The fields are the JAX package's, so existing YAML configs load unchanged.
 Fields that select a layout this port does not have yet (``n_chips > 1``,
@@ -408,3 +409,19 @@ class PrivGANConfig:
     privacy_ratio: float = 0.5
     dp_delay: int = 100   # epoch gate for DCGAN; resolution gate for PGGAN
     disc_epochs: int = 2  # private-discriminator pretrain epochs
+
+
+@dataclass
+class SplitConfig:
+    """CelebA member / non-member split (reference ``z_split.py:10-28``;
+    ``tools/z_split``)."""
+
+    num_images: int = 10020
+    identity_annotations: str = "data/identities_ann.txt"
+    input_dir: str = "data/img_align_celeba"
+    output_dir0: str = "data/train"
+    output_dir1: str = "data/celebAhuge_positive"
+    output_dir2: str = "data/celebAhuge_negative"
+    img_size: int = 64
+    num_same_id: int = 30
+    seed: int = 0

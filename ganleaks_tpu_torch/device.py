@@ -29,3 +29,16 @@ def resolve_device(device: str | torch.device | None = None) -> torch.device:
         raise ValueError(f"unsupported device {dev}; expected cuda or cpu")
     set_f32_numerics()
     return dev
+
+
+def card_line(device: str | torch.device) -> str | None:
+    """The card's name and power limit as ``nvidia-smi --query-gpu=name,
+    power.limit --format=csv,noheader`` prints them (every time a tool
+    reports is taken beside it); None on the CPU."""
+    if torch.device(device).type != "cuda":
+        return None
+    import subprocess
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60, check=True)
+    return out.stdout.strip().splitlines()[0]

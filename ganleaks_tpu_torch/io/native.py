@@ -139,20 +139,22 @@ def decode_png(path: str) -> np.ndarray:
         lib.gl_free(buf)
 
 
-def decode_exact(paths: list, resolution: int,
+def decode_exact(paths: list, resolution: int | tuple[int, int],
                  num_threads: int | None = None
                  ) -> tuple[np.ndarray, np.ndarray]:
-    """Decode ``paths`` on the codec's threads into an (n, resolution,
-    resolution, 3) uint8 array; returns it and the rows whose PNG has
-    another size (left unwritten for the caller's resize). Any other
-    failure raises, naming the file."""
+    """Decode ``paths`` on the codec's threads into an (n, H, W, 3) uint8
+    array (``resolution``: H = W, or ``(H, W)``); returns it and the rows
+    whose PNG has another size (left unwritten for the caller's resize).
+    Any other failure raises, naming the file."""
     n = len(paths)
-    out = np.empty((n, resolution, resolution, 3), np.uint8)
+    h, w = ((resolution, resolution) if isinstance(resolution, int)
+            else resolution)
+    out = np.empty((n, h, w, 3), np.uint8)
     status = np.zeros(n, np.int32)
     info = np.zeros((n, 5), np.int32)
     if n:
         _library().gl_decode_batch(
-            _c_paths(paths), n, resolution, resolution, out.ctypes.data,
+            _c_paths(paths), n, h, w, out.ctypes.data,
             status.ctypes.data, info.ctypes.data, _threads(num_threads))
     bad = np.nonzero((status != _OK) & (status != _ERR_SIZE))[0]
     if bad.size:

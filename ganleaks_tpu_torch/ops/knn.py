@@ -35,11 +35,12 @@ from __future__ import annotations
 
 import hashlib
 import time
-from typing import Callable
+from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
 
+from ganleaks_tpu_torch.ops import stream_plan
 from ganleaks_tpu_torch.ops.knn_fused import (knn_argmin_fused,
                                               knn_topk_fused, sq_norms)
 from ganleaks_tpu_torch.ops.stream_plan import (FOLD_BYTES_PER_PAIR,
@@ -48,6 +49,15 @@ from ganleaks_tpu_torch.ops.stream_plan import (FOLD_BYTES_PER_PAIR,
 
 ENGINES = ("gemm", "pallas", "exact")
 PARTS_ENGINES = ("taps", "taps-int8")
+# the fused kernels tile a synthetic block themselves: the streamed
+# searches cap their blocks here, since a larger one buys nothing
+FUSED_S_BLOCK = 2048
+
+
+def fold_s_block(s_block: int, fused_fold: bool) -> int:
+    """The synthetic block a streamed search folds at when asked for
+    ``s_block``: at most :data:`FUSED_S_BLOCK` for a fused fold."""
+    return min(s_block, FUSED_S_BLOCK) if fused_fold else s_block
 
 
 def truncate_to_batches(n_syn: int, batch_size: int) -> int:
@@ -121,6 +131,17 @@ def knn_argmin(emb_q: torch.Tensor, emb_s: torch.Tensor, *,
         outs_d.append(run_min)
         outs_i.append(run_idx)
     return torch.cat(outs_d), torch.cat(outs_i)
+
+
+def knn_argmin_reference_batched(emb_q: torch.Tensor, emb_s: torch.Tensor,
+                                 batch_size: int
+                                 ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Strict-parity variant of :func:`knn_argmin`: the reference's
+    remainder drop (``fbb.py:77``, :func:`truncate_to_batches`), then the
+    elementwise 'exact' engine in blocks of ``batch_size``."""
+    n_eff = truncate_to_batches(emb_s.shape[0], batch_size)
+    return knn_argmin(emb_q, emb_s[:n_eff], engine="exact",
+                      s_block=min(batch_size, n_eff) or 1)
 
 
 class PhaseTimer:
@@ -221,11 +242,59 @@ def _halved(info: dict, dim: str, size: int, msg: str) -> None:
     print(f"[knn] {msg}")
 
 
+def chunk_rows_for(cache_bytes: int, row_bytes: int, q_block: int) -> int:
+    """Query rows a cache of ``cache_bytes`` holds per chunk: rounded DOWN
+    to a ``q_block`` multiple (at least one block), so full featurise
+    blocks tile each chunk and padding only appears at n_q."""
+    return max(q_block, int(cache_bytes // row_bytes) // q_block * q_block)
+
+
+def _padded(n_rows: int, q_block: int) -> int:
+    """Rows of the cache that holds a chunk of ``n_rows``: whole
+    ``q_block`` s."""
+    return n_rows + (-n_rows) % q_block
+
+
+class SearchPlan(NamedTuple):
+    """The schedule of a streamed search (:func:`plan_search`): the query
+    cache requested, the blocks, the query rows per chunk, and what they
+    give over ``n_q`` rows, the rows of the first (largest) chunk's cache
+    and the synthetic sweeps."""
+
+    cache_bytes: int
+    s_block: int
+    q_block: int
+    chunk_rows: int
+    cache_rows: int
+    sweeps: int
+
+
+def plan_search(n_q: int, n_s: int, row_bytes: int, *, q_block: int,
+                s_block: int, cache_bytes: int, charges: dict,
+                capacity: int | None = None) -> SearchPlan:
+    """The schedule :func:`_stream_search` starts from for ``n_q`` query
+    rows of ``row_bytes`` over ``n_s`` synthetic rows: the blocks clamped
+    to the sets (a fused fold's synthetic block also by
+    :func:`fold_s_block`); with a ``capacity`` (bytes), the planner's
+    cache and blocks (``ops/stream_plan.plan_stream``, charged
+    ``charges``, :func:`_plan_charges`); then the chunks. Without one the
+    request stands."""
+    q_block = max(1, min(q_block, n_q))
+    s_block = max(1, min(fold_s_block(s_block, charges["fused_fold"]), n_s))
+    if capacity is not None:
+        cache_bytes, s_block, q_block = plan_stream(
+            n_q, row_bytes, q_block=q_block, s_block=s_block,
+            cache_bytes=cache_bytes, capacity_bytes=capacity, **charges)
+    chunk = chunk_rows_for(cache_bytes, row_bytes, q_block)
+    return SearchPlan(cache_bytes, s_block, q_block, chunk,
+                      _padded(min(chunk, n_q), q_block), -(-n_q // chunk))
+
+
 def _stream_search(block_norms: Callable, k_dim: int, cdtype: torch.dtype,
                    queries, syn, *, q_block: int, s_block: int,
                    query_cache_bytes: int, device: torch.device,
                    timer: PhaseTimer, init_state: Callable, fold: Callable,
-                   take: Callable, plan: dict | None = None,
+                   take: Callable, charges: dict, auto_plan: bool = True,
                    query_reuse: dict | None = None,
                    reuse_signature: tuple = (), reuse_siblings: tuple = (),
                    info: dict | None = None) -> tuple:
@@ -242,10 +311,11 @@ def _stream_search(block_norms: Callable, k_dim: int, cdtype: torch.dtype,
     one intact); ``take(state, n_rows) -> tuple of per-query outputs``,
     which are concatenated over the chunks.
 
-    ``plan``: the charges of ``ops/stream_plan.plan_stream``
-    (``act_bytes_per_row``, ``fold_bytes_per_pair``,
-    ``state_bytes_per_row``); the planner sets ``query_cache_bytes``,
-    ``s_block`` and ``q_block`` first. None keeps them as given.
+    ``charges``: the fold's charges (:func:`_plan_charges`). With
+    ``auto_plan`` the planner sets ``query_cache_bytes``, ``s_block`` and
+    ``q_block`` first, from the budget the card reports
+    (:func:`plan_search`); without it, or off the card, they stay as
+    given.
 
     OOM resume (``torch.cuda.OutOfMemoryError`` only; every other error
     propagates). The caching allocator raises at the allocation that does
@@ -278,32 +348,28 @@ def _stream_search(block_norms: Callable, k_dim: int, cdtype: torch.dtype,
     ``info`` (a dict) receives ``oom_resumes``, ``halvings`` (dimension
     and size reached, in order), the planned and the final blocks, the
     largest cache it held (``cache_bytes``), the number of synthetic
-    ``sweeps`` and ``query_reused``."""
+    ``sweeps``, ``query_reused`` and the planner's budget
+    (``capacity_bytes``: what the card reported plus a held cache of these
+    queries; None without the planner)."""
     n_q, n_s = len(queries), len(syn)
     if n_s == 0:
         raise ValueError("empty synthetic set")
     info = {} if info is None else info
     info.update(oom_resumes=0, halvings=[])
-    q_block = max(1, min(q_block, n_q))
-    s_block = max(1, min(s_block, n_s))
     row_bytes = k_dim * torch.empty((), dtype=cdtype).element_size()
     fp = (_fingerprint(queries, (reuse_signature, str(cdtype), k_dim))
           if query_reuse is not None else None)
     if query_reuse and query_reuse.get("fp") != fp:
         query_reuse.clear()  # another set's cache: free it before planning
-    if plan is not None:
+    capacity = stream_plan.device_capacity(device) if auto_plan else None
+    if capacity is not None and query_reuse:
         # a held cache of these queries is already allocated, so the card
         # no longer counts it as free: credit it back to the budget
-        held = (query_reuse["cache"].nbytes + query_reuse["rq"].nbytes
-                if query_reuse else 0)
-        query_cache_bytes, s_block, q_block = plan_stream(
-            n_q, row_bytes, q_block=q_block, s_block=s_block,
-            cache_bytes=query_cache_bytes, device=device, credit_bytes=held,
-            **plan)
-    # chunk_rows rounds DOWN to a q_block multiple, so full featurize
-    # blocks tile each chunk and padding only appears at n_q
-    chunk_rows = max(q_block,
-                     int(query_cache_bytes // row_bytes) // q_block * q_block)
+        capacity += query_reuse["cache"].nbytes + query_reuse["rq"].nbytes
+    info.update(capacity_bytes=capacity)
+    query_cache_bytes, s_block, q_block, chunk_rows, _, _ = plan_search(
+        n_q, n_s, row_bytes, q_block=q_block, s_block=s_block,
+        cache_bytes=query_cache_bytes, charges=charges, capacity=capacity)
     info.update(planned_cache_bytes=int(query_cache_bytes),
                 planned_s_block=s_block, planned_q_block=q_block)
     holders = (query_reuse,) + tuple(reuse_siblings)
@@ -314,7 +380,7 @@ def _stream_search(block_norms: Callable, k_dim: int, cdtype: torch.dtype,
         while qs0 < n_q:
             end = min(n_q, qs0 + chunk_rows)
             n_rows = end - qs0
-            padded = n_rows + (-n_rows) % q_block
+            padded = _padded(n_rows, q_block)
             one_chunk = qs0 == 0 and end == n_q
             reused = (query_reuse is not None and one_chunk
                       and query_reuse.get("fp") == fp)
@@ -443,21 +509,35 @@ def stream_need_bytes(embed_fn: Callable, queries, *, engine: str,
     stream's blocks and activations and, for the fused engines on rows
     that are not 16-byte multiples, K1's padded copies. One query is
     featurised to learn the row width."""
-    probe = _probe(embed_fn, queries, device)
-    if engine in PARTS_ENGINES:
-        size = 1 if engine == "taps-int8" else probe[0].element_size()
-        row_bytes = sum(int(p[0].numel()) for p in probe) * size
-    else:
-        row_bytes = probe.shape[1] * probe.element_size()
+    row_bytes = stream_row_bytes(embed_fn, queries, engine=engine,
+                                 device=device)
     n_q = len(queries)
     q_block = max(1, min(q_block, n_q))
     rows = n_q + (-n_q) % q_block
     if not auto_plan:
         rows = min(rows, max(q_block, query_cache_bytes // row_bytes))
-    fold = ("int8" if engine == "taps-int8"
-            else "fused" if engine in ("pallas", "taps") else "gemm")
     return plan_bytes(rows, row_bytes, s_block=s_block, q_block=q_block,
-                      **_plan_charges(embed_fn, queries, fold, 8))
+                      **_plan_charges(embed_fn, queries,
+                                      stream_fold_kind(engine), 8))
+
+
+def stream_row_bytes(embed_fn: Callable, queries, *, engine: str,
+                     device: torch.device | str) -> int:
+    """Bytes of one cached query row of the streamed search through
+    ``embed_fn`` (flat, or parts for the 'taps' engines; int8 parts for
+    'taps-int8'), from one featurised query."""
+    probe = _probe(embed_fn, queries, torch.device(device))
+    if engine in PARTS_ENGINES:
+        size = 1 if engine == "taps-int8" else probe[0].element_size()
+        return sum(int(p[0].numel()) for p in probe) * size
+    return probe.shape[1] * probe.element_size()
+
+
+def stream_fold_kind(engine: str) -> str:
+    """The ``stream_plan.FOLD_BYTES_PER_PAIR`` kind of an argmin search on
+    ``engine``."""
+    return ("int8" if engine == "taps-int8"
+            else "fused" if engine in ("pallas", "taps") else "gemm")
 
 
 def _probe(embed_fn: Callable, queries, device: torch.device):
@@ -523,9 +603,6 @@ def knn_argmin_streamed(embed_fn: Callable[[torch.Tensor], torch.Tensor],
     are float32, taken from the embedding before the cache write."""
     _check_engine(engine)
     device = torch.device(device)
-    if engine == "pallas":
-        # the kernel tiles the block itself; a larger block buys nothing
-        s_block = min(s_block, 2048)
     if len(syn) == 0:
         raise ValueError("empty synthetic set")
     timer = timer or PhaseTimer(device)
@@ -538,14 +615,14 @@ def knn_argmin_streamed(embed_fn: Callable[[torch.Tensor], torch.Tensor],
             return _fold_block(state[0], state[1], cache, rq, s_emb, ss,
                                n_valid, engine, rs)
     init_state, take = _argmin_state_hooks(device)
-    plan = (_plan_charges(embed_fn, queries,
-                          "fused" if engine == "pallas" else "gemm", 8)
-            if auto_plan else None)
+    charges = _plan_charges(embed_fn, queries,
+                            "fused" if engine == "pallas" else "gemm", 8)
     return _stream_search(
         _flat_block_fn(embed_fn, device, timer), probe.shape[1], probe.dtype,
         queries, syn, q_block=q_block, s_block=s_block,
         query_cache_bytes=query_cache_bytes, device=device, timer=timer,
-        init_state=init_state, fold=fold, take=take, plan=plan,
+        init_state=init_state, fold=fold, take=take,
+        charges=charges, auto_plan=auto_plan,
         query_reuse=query_reuse, reuse_signature=("flat",),
         reuse_siblings=reuse_siblings, info=info)
 
@@ -661,8 +738,6 @@ def knn_topk_streamed(embed_fn: Callable[[torch.Tensor], torch.Tensor],
     two-pass certificate."""
     _check_engine(engine)
     device = torch.device(device)
-    if engine == "pallas":
-        s_block = min(s_block, 2048)
     if len(syn) == 0:
         raise ValueError("empty synthetic set")
     timer = timer or PhaseTimer(device)
@@ -678,14 +753,14 @@ def knn_topk_streamed(embed_fn: Callable[[torch.Tensor], torch.Tensor],
                                     n_valid, k, engine, rs)
     init_state, fold, take = _topk_state_hooks(fold_one, k, with_info,
                                                device)
-    plan = (_plan_charges(embed_fn, queries, "topk_fused"
-                          if engine == "pallas" else "topk_gemm", 8 * k + 4)
-            if auto_plan else None)
+    charges = _plan_charges(embed_fn, queries, "topk_fused"
+                            if engine == "pallas" else "topk_gemm", 8 * k + 4)
     return _stream_search(
         _flat_block_fn(embed_fn, device, timer), probe.shape[1], probe.dtype,
         queries, syn, q_block=q_block, s_block=s_block,
         query_cache_bytes=query_cache_bytes, device=device, timer=timer,
-        init_state=init_state, fold=fold, take=take, plan=plan,
+        init_state=init_state, fold=fold, take=take,
+        charges=charges, auto_plan=auto_plan,
         query_reuse=query_reuse, reuse_signature=("flat",),
         reuse_siblings=reuse_siblings, info=info)
 
@@ -864,8 +939,6 @@ def knn_argmin_streamed_parts(embed_fn: Callable, queries, syn, *,
     rigorously bounded error (:func:`_quant_abs_err`); for exact results
     run it as pass 1 of :func:`knn_argmin_two_pass` (``taps-int8``)."""
     device = torch.device(device)
-    if not quantize:  # the fused kernel tiles the block itself
-        s_block = min(s_block, 2048)
     if len(syn) == 0:
         raise ValueError("empty synthetic set")
     timer = timer or PhaseTimer(device)
@@ -878,13 +951,13 @@ def knn_argmin_streamed_parts(embed_fn: Callable, queries, syn, *,
     else:
         fold = _fold_fused
     init_state, take = _argmin_state_hooks(device)
-    plan = (_plan_charges(embed_fn, queries,
-                          "int8" if quantize else "fused", 8)
-            if auto_plan else None)
+    charges = _plan_charges(embed_fn, queries,
+                            "int8" if quantize else "fused", 8)
     return _stream_search(
         block_norms, k_dim, cdtype, queries, syn, q_block=q_block,
         s_block=s_block, query_cache_bytes=query_cache_bytes, device=device,
-        timer=timer, init_state=init_state, fold=fold, take=take, plan=plan,
+        timer=timer, init_state=init_state, fold=fold, take=take,
+        charges=charges, auto_plan=auto_plan,
         query_reuse=query_reuse, reuse_signature=sig,
         reuse_siblings=reuse_siblings, info=info)
 
@@ -904,8 +977,6 @@ def knn_topk_streamed_parts(embed_fn: Callable, queries, syn, *, k: int = 8,
     buffer) or ``'taps-int8'`` (``quantize=True``). ``with_info`` appends
     ``(rq, rs_max)`` for the certificate."""
     device = torch.device(device)
-    if not quantize:
-        s_block = min(s_block, 2048)
     if len(syn) == 0:
         raise ValueError("empty synthetic set")
     timer = timer or PhaseTimer(device)
@@ -922,13 +993,13 @@ def knn_topk_streamed_parts(embed_fn: Callable, queries, syn, *, k: int = 8,
                                     n_valid, k)
     init_state, fold, take = _topk_state_hooks(fold_one, k, with_info,
                                                device)
-    plan = (_plan_charges(embed_fn, queries, "topk_int8" if quantize
-                          else "topk_fused", 8 * k + 4)
-            if auto_plan else None)
+    charges = _plan_charges(embed_fn, queries, "topk_int8" if quantize
+                            else "topk_fused", 8 * k + 4)
     return _stream_search(
         block_norms, k_dim, cdtype, queries, syn, q_block=q_block,
         s_block=s_block, query_cache_bytes=query_cache_bytes, device=device,
-        timer=timer, init_state=init_state, fold=fold, take=take, plan=plan,
+        timer=timer, init_state=init_state, fold=fold, take=take,
+        charges=charges, auto_plan=auto_plan,
         query_reuse=query_reuse, reuse_signature=sig,
         reuse_siblings=reuse_siblings, info=info)
 

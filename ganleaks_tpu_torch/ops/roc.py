@@ -71,3 +71,8 @@ def roc_curve_auc(pos_scores, neg_scores,
     thr = np.concatenate([[np.inf], s]).astype(np.float32)
     return RocResult(fpr=fpr_k, tpr=tpr_k, thresholds=thr, auc=float(auc),
                      ap=float(ap), precision=precision, mask=is_last)
+
+
+def auroc(pos_scores, neg_scores) -> float:
+    """The ROC AUC of member vs non-member scores."""
+    return roc_curve_auc(pos_scores, neg_scores).auc

@@ -123,9 +123,21 @@ def device_capacity(device: torch.device) -> int | None:
     if device.type != "cuda":
         return None
     free, _total = torch.cuda.mem_get_info(device)
-    available = free + (torch.cuda.memory_reserved(device)
-                        - torch.cuda.memory_allocated(device))
+    return capacity_of(free + (torch.cuda.memory_reserved(device)
+                               - torch.cuda.memory_allocated(device)))
+
+
+def capacity_of(available: int) -> int:
+    """The planner's budget on a card with ``available`` bytes to hand
+    out: those less :func:`margin_bytes`."""
     return max(0, available - margin_bytes(available))
+
+
+def sets_fit(sets_bytes: int, need_bytes: int, capacity_bytes: int) -> bool:
+    """Whether image sets of ``sets_bytes`` go to the card beside a search
+    that plans ``need_bytes`` (``ops/knn.stream_need_bytes``) within
+    ``capacity_bytes``."""
+    return sets_bytes + need_bytes <= capacity_bytes
 
 
 def pad_copy_bytes(row_bytes: int, fused_fold: bool) -> int:
@@ -172,22 +184,19 @@ def plan_stream(n_q: int, row_bytes: int, *, q_block: int, s_block: int,
                 fold_bytes_per_pair: int = 0,
                 fused_fold: bool = False,
                 capacity_bytes: int | None = None,
-                device: torch.device | str | None = None,
-                credit_bytes: int = 0) -> tuple[int, int, int]:
+                device: torch.device | str | None = None
+                ) -> tuple[int, int, int]:
     """``(cache_bytes, s_block, q_block)`` for a search of ``n_q`` query
     rows of ``row_bytes`` each (module docstring). ``fused_fold``: the
     fold runs K1 / K3 (charged their padded copies). ``capacity_bytes``: the
     budget; None reads it from ``device`` (:func:`device_capacity`), and
-    without a card the request comes back unchanged. ``credit_bytes``:
-    memory the search already holds and will use for this plan (a held
-    query cache it reuses), added to the budget. Prints one line when it
-    changes the request."""
+    without a card the request comes back unchanged. Prints one line when
+    it changes the request."""
     if capacity_bytes is None:
         capacity_bytes = (device_capacity(device) if device is not None
                           else None)
         if capacity_bytes is None:
             return cache_bytes, s_block, q_block
-    capacity_bytes += credit_bytes
     padded = n_q + (-n_q) % q_block
     pad = pad_copy_bytes(row_bytes, fused_fold)
 

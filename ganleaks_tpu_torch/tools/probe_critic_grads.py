@@ -21,13 +21,12 @@ from __future__ import annotations
 
 import argparse
 import json
-import subprocess
 
 import numpy as np
 import torch
 
 from ganleaks_tpu_torch.config import DCGANConfig, WGANGPConfig
-from ganleaks_tpu_torch.device import resolve_device
+from ganleaks_tpu_torch.device import card_line, resolve_device
 from ganleaks_tpu_torch.train import dcgan, wgangp
 from ganleaks_tpu_torch.train.gan import bce_with_logits
 
@@ -99,12 +98,7 @@ def main(argv=None) -> list[dict]:
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--steps", type=int, default=3)
     args = ap.parse_args(argv)
-    card = None
-    if resolve_device(args.device).type == "cuda":
-        card = subprocess.run(
-            ["nvidia-smi", "--query-gpu=name,power.limit",
-             "--format=csv,noheader"], capture_output=True, text=True,
-            timeout=60, check=True).stdout.strip().splitlines()[0]
+    card = card_line(resolve_device(args.device))
     recs = []
     for kind in KINDS:
         rec = probe(kind, args.device, args.batch, args.steps)

@@ -188,7 +188,7 @@ def test_attack_config_switches_the_planner_off(monkeypatch):
     real = knn._stream_search
 
     def spy(*a, **kw):
-        seen.append(kw["plan"])
+        seen.append(kw["auto_plan"])
         return real(*a, **kw)
 
     monkeypatch.setattr(knn, "_stream_search", spy)
@@ -197,7 +197,7 @@ def test_attack_config_switches_the_planner_off(monkeypatch):
         attack_arrays(AttackConfig(distance="l2", resolution=8,
                                    auto_plan=flag), imgs, imgs[:3],
                       imgs[3:], device="cpu")
-    assert seen[0] is not None and seen[1] is None
+    assert seen == [True, False]
 
 
 @pytest.mark.parametrize("cache_gib,sb,qb,row,act,fold", [
