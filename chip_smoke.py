@@ -199,6 +199,20 @@ Phases, each printing JSON lines:
    seconds and the device's idle share printed; ``tools.hbm_projection``
    at phase 10's configuration with the budget phase 10's plan read must
    give phase 10's plan (cache bytes, blocks, sweeps).
+16. ranks (run right after phase 5b, on phase 5's sets): the attack on a
+   mesh (``parallel/knn_shard`` through ``attack_arrays(..., mesh=)``),
+   VGG16 l2-lpips at 64 px — one ``parallel/multihost.launch`` of 2 ranks
+   on cuda:0 over ``gloo`` (collectives staged through host memory):
+   sharded 'auto' (K2, int8 products), sharded 'pallas' (K1 on the 3xTF32
+   tile), sharded 'pallas' two-pass (K3 bf16 in pass 1, K1 in the
+   re-rank), ring 'auto', ring 'taps' on a bf16 tower (K1 on the wgmma
+   tile); one launch of 1 rank over NCCL (sharded 'auto'); then
+   ``dryrun_multichip(2)``. Every run against phase 5's one-process run
+   of the same search: the indices (where they differ, a near-tie within
+   the engine's bar), every loss within the engine's bar of its pair's
+   float64 distance, every planted member below every non-member, each
+   rank's K1 / K2 / K3 launches against the plan; seconds per rank
+   beside one process's, and the host-staging seconds and bytes.
 
 Phase 12 and phase 14's privDCGAN hold also print each convolution's
 gradient error against float64 with cuDNN and without it
@@ -1092,14 +1106,14 @@ def attack_runs(torch, data: dict, net: str, run_list, ref: str):
     return runs, embed
 
 
-def phase_attack(torch, data: dict) -> dict:
+def phase_attack(torch, data: dict) -> tuple[dict, dict]:
     """Phase 5: VGG16 through every engine, then the float32 top-k
-    search; returns each run's launches."""
+    search; returns each run's launches and each run's record."""
     runs, embed = attack_runs(torch, data, "vgg", ATTACK_RUNS, "pallas")
     launches = {label: r["launches"] for label, r in runs.items()}
     launches["topk_f32"] = topk_search(torch, embed, data["queries"],
                                        data["syn"], runs["pallas"])
-    return launches
+    return launches, runs
 
 
 def phase_attack_towers(torch, data: dict) -> dict:
@@ -3988,6 +4002,252 @@ def phase_pipeline(torch, tmp: str, north_plan: dict) -> dict:
     return r
 
 
+# ---------------------------------------------------------------------------
+# phase 16: the attack on ranks (parallel/knn_shard through attack_arrays)
+# ---------------------------------------------------------------------------
+
+RANKS = 2           # ranks of the gloo launch, all on cuda:0
+RANK_LAUNCH_S = 600
+# (label, layout, engine, two_pass, extra config, phase 5's run of the
+# same search on one process)
+RANK_RUNS = [
+    ("sharded_auto", "sharded", "auto", False, {}, "auto"),
+    ("sharded_pallas", "sharded", "pallas", False, {}, "pallas"),
+    ("sharded_pallas_two_pass", "sharded", "pallas", True, {},
+     "pallas_two_pass"),
+    ("ring_auto", "ring", "auto", False, {}, "auto"),
+    ("ring_taps_bf16", "ring", "taps", False, BF16, "taps_bf16"),
+]
+NCCL_RUNS = [("nccl_sharded_auto", "sharded", "auto", False, {}, "auto")]
+# the kernels each rank runs per search (K1 and K3 per tile, K2)
+RANK_WANT = {
+    "sharded_auto": ("tap_epilogue",),
+    "sharded_pallas": ("knn_argmin.tf32x3",),
+    "sharded_pallas_two_pass": ("knn_topk.wgmma", "knn_argmin.tf32x3"),
+    "ring_auto": ("tap_epilogue",),
+    "ring_taps_bf16": ("tap_epilogue", "knn_argmin.wgmma"),
+    "nccl_sharded_auto": ("tap_epilogue",),
+}
+TAPS = 5  # VGG16's LPIPS taps: K2 launches per featurised block
+
+
+def rank_attacks(paths: dict, runs: list, base: dict, device: str) -> dict:
+    """On each rank of a launch: ``attack_arrays`` on the group's mesh
+    for every run (each rank's launches counted from 0, the ranks lined
+    up by a barrier first); returns, from rank 0, each run's results and
+    every rank's launches, seconds, plan and shard."""
+    import torch
+    import torch.distributed as dist
+
+    from ganleaks_tpu_torch.attack.fbb import attack_arrays
+    from ganleaks_tpu_torch.config import AttackConfig
+    from ganleaks_tpu_torch.parallel import mesh as pmesh
+    from ganleaks_tpu_torch.parallel.multihost import local_device
+
+    mesh = pmesh.mesh_of(local_device())
+
+    def sync() -> None:
+        if device == "cuda":
+            torch.cuda.synchronize()
+
+    pos, neg, syn = (np.load(paths[k])["images"] for k in ("pos", "neg",
+                                                          "syn"))
+    out = {"mesh": {"size": mesh.size, "backend": mesh.backend,
+                    "share": mesh.share, "device": str(mesh.device)}}
+    for label, layout, engine, two_pass, extra, _ in runs:
+        cfg = AttackConfig(exp_name=f"ranks_{label}", engine=engine,
+                           two_pass=two_pass, shard_layout=layout,
+                           **{**base, **extra})
+        sync()
+        reset_launches()
+        dist.barrier()
+        t0 = time.perf_counter()
+        r = attack_arrays(cfg, syn, pos, neg, device=device, mesh=mesh)
+        sync()
+        call_s = time.perf_counter() - t0
+        n_q = len(pos) + len(neg)
+        q_rows = pmesh.shard_rows(n_q, mesh, cfg.query_block)
+        s_rows = pmesh.shard_rows(len(syn), mesh, cfg.syn_block)
+        ranks = pmesh.gather_objects({
+            "rank": mesh.rank, "launches": read_launches(), "call_s": call_s,
+            "search_s": n_q * len(syn) / r["query_pairs_per_sec"],
+            "plan": r["plan"], "oom_resumes": r["oom_resumes"],
+            "featurize_s": r["featurize_s"], "fold_s": r["fold_s"],
+            "q_rows": q_rows, "s_rows": s_rows, **r["ranks"]}, mesh)
+        out[label] = {"idx": np.concatenate([r["pos_nn_idx"],
+                                             r["neg_nn_idx"]]),
+                      "loss": np.concatenate([r["pos_loss"],
+                                              r["neg_loss"]]),
+                      "fallbacks": r.get("two_pass_fallbacks"),
+                      "ranks": ranks}
+    return out
+
+
+def rank_want_launches(label: str, rank: dict, n_q: int, size: int) -> dict:
+    """The launches the plan gives one rank: K2 per featurised block
+    (its shares of the query blocks, or its query shard's blocks on the
+    ring, then its home synthetic blocks per sweep), K1 per synthetic
+    block on the sharded 'pallas' search and per hop holding rows on the
+    ring, K3 per synthetic block of two-pass's pass 1; None where the
+    count depends on the data (two-pass's re-rank)."""
+    plan = rank["plan"]
+    qb, sb, sweeps = plan["q_block"], plan["s_block"], plan["sweeps"]
+    s_local = rank["s_rows"][1] - rank["s_rows"][0]
+    s_blocks = sweeps * -(-s_local // sb)
+    if label.startswith("ring"):
+        q_blocks = -(-rank["q_rows"][2] // qb)
+    else:  # each query block's share of this rank, where it holds rows
+        per = -(-qb // size)
+        q_blocks = sum(1 for qs in range(0, n_q, qb)
+                       if qs + rank["rank"] * per < n_q)
+    want = {}
+    if "tap_epilogue" in RANK_WANT[label]:
+        want["tap_epilogue"] = TAPS * (q_blocks + s_blocks)
+    if label == "sharded_pallas":
+        want["knn_argmin.tf32x3"] = s_blocks
+    if label == "sharded_pallas_two_pass":
+        want["knn_topk.wgmma"] = s_blocks
+        want["knn_argmin.tf32x3"] = None
+    if label == "ring_taps_bf16":
+        # every hop of every home step folds a block holding rows
+        want["knn_argmin.wgmma"] = sweeps * size * -(-rank["s_rows"][2]
+                                                     // sb)
+    return want
+
+
+def hold_rank_run(torch, label: str, got: dict, single: dict, embed,
+                  data: dict, cfg, smi: str) -> dict:
+    """One rank run against its one-process run of phase 5: the indices
+    (where they differ, both picks' float64 distances within the engine's
+    bar of each other: a near-tie), every loss within the engine's bar of
+    its pair's float64 distance, every planted member below every
+    non-member, each rank's launches against the plan."""
+    idx, loss = got["idx"], got["loss"]
+    mm = idx != single["idx"]
+    d64, norms = single["d64"].copy(), single["norms"].copy()
+    if mm.any():  # the float64 distances of the picks that differ
+        d64[mm], rq, rs = pair_distances(torch, embed, data["queries"][mm],
+                                         data["syn"], idx[mm], DEVICE)
+        norms[mm] = rq + rs
+    bounded = "eps" in single  # bf16 or int8 single pass: bounded error
+    if bounded:
+        eps = single["eps"].copy()
+        if mm.any():
+            eps[mm] = cert_error_bound(torch, cfg, rq, rs,
+                                       cfg.engine == "taps-int8")[0]
+        bar = eps
+        near = eps + single["eps"]
+    else:
+        bar = TOL * norms
+        near = 2.0 * TOL * np.maximum(norms, single["norms"])
+    gap = np.abs(d64 - single["d64"])
+    check(bool((gap[mm] <= near[mm]).all()),
+          f"ranks {label}: {int(mm.sum())} index mismatches with the "
+          f"one-process run, not all near-ties")
+    err = np.abs(loss - d64)
+    check(bool((err <= bar).all()),
+          f"ranks {label}: losses off float64 by up to "
+          f"{float((err / bar).max()):.3g} x the engine's bar")
+    n_pos = N_POS
+    check(float(loss[:n_pos].max()) < float(loss[n_pos:].min()),
+          f"ranks {label}: a planted member's loss "
+          f"{float(loss[:n_pos].max()):.4g} not below every non-member's "
+          f"{float(loss[n_pos:].min()):.4g}")
+    size = len(got["ranks"])
+    launches = []
+    for r, rank in enumerate(got["ranks"]):
+        check(rank["oom_resumes"] == 0,
+              f"ranks {label}: rank {r} resumed {rank['oom_resumes']} OOMs")
+        want = rank_want_launches(label, rank, len(idx), size)
+        for name, n in rank["launches"].items():
+            if name not in RANK_WANT[label]:
+                check(n == 0, f"ranks {label}: rank {r} launched {name} "
+                              f"{n} times")
+            elif want.get(name) is None:
+                check(n > 0, f"ranks {label}: rank {r} never launched "
+                             f"{name}")
+            else:
+                check(n == want[name], f"ranks {label}: rank {r} launched "
+                                       f"{name} {n} times, the plan "
+                                       f"{want[name]}")
+        launches.append(rank["launches"])
+    single_s = len(idx) * N_SYN / single["out"]["query_pairs_per_sec"]
+    record = {
+        "phase": "ranks", "run": label, "card": smi, "ranks": size,
+        "backend": got["ranks"][0]["backend"],
+        "layout": got["ranks"][0]["layout"],
+        "index_mismatches": int(mm.sum()),
+        "max_loss_diff_vs_one_process": float(
+            np.abs(loss - single["loss"]).max()),
+        "max_err_over_bar": float((err / bar).max()),
+        "two_pass_fallbacks": got["fallbacks"],
+        "kernel_launches_per_rank": launches,
+        "search_s_per_rank": [r["search_s"] for r in got["ranks"]],
+        "call_s_per_rank": [r["call_s"] for r in got["ranks"]],
+        "one_process_search_s": single_s,
+        "featurize_s_per_rank": [r["featurize_s"] for r in got["ranks"]],
+        "fold_s_per_rank": [r["fold_s"] for r in got["ranks"]],
+        "staging_s_per_rank": [r["staging_s"] for r in got["ranks"]],
+        "staged_gb_per_rank": [r["staged_bytes"] / 1e9
+                               for r in got["ranks"]],
+        "collective_s_per_rank": [r["collective_s"]
+                                  for r in got["ranks"]],
+        "collectives_per_rank": [r["collectives"] for r in got["ranks"]],
+        "plan_rank0": got["ranks"][0]["plan"]}
+    emit(record)
+    return record
+
+
+def phase_ranks(torch, data: dict, single: dict, smi: str) -> dict:
+    """Phase 16: phase 5's sets through ``attack_arrays`` on a mesh — one
+    ``launch`` of ``RANKS`` ranks on cuda:0 over ``gloo`` (its collectives
+    staged through host memory) running every ``RANK_RUNS`` search, one
+    NCCL launch at world size 1, then ``dryrun_multichip`` on two ranks
+    of the card; each run held against its one-process run of phase 5."""
+    from dataclasses import replace
+
+    from ganleaks_tpu_torch.attack.fbb import build_embed_fn
+    from ganleaks_tpu_torch.config import AttackConfig
+    from ganleaks_tpu_torch.dryrun import dryrun_multichip
+    from ganleaks_tpu_torch.parallel.multihost import launch
+
+    base = dict(resolution=RES, distance="l2-lpips", lpips_net="vgg",
+                dtype="float32", query_block=2048, syn_block=2048,
+                two_pass_k=TOPK_K, save_plots=False)
+    embed = build_embed_fn(AttackConfig(distance="l2-lpips",
+                                        dtype="float32"), DEVICE)
+    if DEVICE == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()  # the ranks plan from what the card has
+    seconds = {}
+    results = {}
+    nccl = "nccl" if DEVICE == "cuda" else "gloo"
+    for name, n, runs, backend in (("gloo", RANKS, RANK_RUNS, "gloo"),
+                                   ("nccl", 1, NCCL_RUNS, nccl)):
+        t0 = time.perf_counter()
+        out = launch(rank_attacks, n, data["paths"], runs, base, DEVICE,
+                     devices=[f"{DEVICE}:0" if DEVICE == "cuda" else DEVICE]
+                     * n, backend=backend, timeout_s=RANK_LAUNCH_S)
+        seconds[f"launch_{name}_s"] = time.perf_counter() - t0
+        check(out["mesh"]["backend"] == backend and out["mesh"]["size"] == n
+              and out["mesh"]["share"] == n,
+              f"ranks: the {name} launch ran on {out['mesh']}")
+        for label, layout, engine, two_pass, extra, ref in runs:
+            cfg = AttackConfig(engine=engine, two_pass=two_pass,
+                               **{**base, **extra})
+            if engine == "auto":
+                cfg = replace(cfg, engine="taps-int8", **BF16)
+            results[label] = hold_rank_run(torch, label, out[label],
+                                           single[ref], embed, data, cfg,
+                                           smi)
+    t0 = time.perf_counter()
+    dry = dryrun_multichip(RANKS, device=DEVICE, timeout_s=RANK_LAUNCH_S)
+    seconds["dryrun_s"] = time.perf_counter() - t0
+    emit({"phase": "ranks", "run": "dryrun_multichip", "card": smi, **dry,
+          **seconds})
+    return results
+
+
 def main() -> int:
     try:
         import torch
@@ -4035,11 +4295,13 @@ def main() -> int:
     lap("epilogue")
     with tempfile.TemporaryDirectory() as tmp:
         data = attack_data(tmp)
-        launches = phase_attack(torch, data)
+        launches, single = phase_attack(torch, data)
         lap("attack")
         phase_attack_towers(torch, data)
         lap("attack_towers")
-        del data
+        phase_ranks(torch, data, single, smi)
+        lap("ranks")
+        del data, single
     t_k1 = {name: timing_k1(torch, dt) for name, dt in
             (("float32", torch.float32), ("bfloat16", torch.bfloat16))}
     t_k3 = {name: timing_k3(torch, dt) for name, dt in

@@ -13,6 +13,13 @@ CUDA the JAX package's accelerator recipe: taps-int8 with a bf16 tower).
 ``two_pass=True`` re-ranks each engine's top-k candidates in float32 under
 a runtime exactness certificate (``ops/knn.knn_argmin_two_pass``).
 
+On several GPUs (``n_chips > 1`` under ``torchrun``, ``multihost=true``, or
+the CLI's local launch; ``parallel/multihost``) the search runs on a mesh,
+one process per device (``parallel/knn_shard``): ``shard_layout='sharded'``
+(the synthetic set split; with ``two_pass``, the mesh two-pass mode) or
+``'ring'`` (both sets split, embedded blocks rotating). Every rank gets
+the results; rank 0 alone writes the artifacts and the metrics.
+
 Artifacts (byte-compatible with the reference):
   ``pos_loss.npy``/``neg_loss.npy``  (N, 1) float64 nearest distances;
   ``pos_idx.npy``/``neg_idx.npy``    sequential 0..N-1 — the reference
@@ -21,9 +28,6 @@ Artifacts (byte-compatible with the reference):
       as ``pos_nn_idx.npy``/``neg_nn_idx.npy``;
   closest-pair PNGs for the first 20 queries (``fbb.py:91-106``);
   ``params.txt``/``params.pkl``, ``metrics.jsonl``.
-
-Only the single-device layout is ported so far; multi-GPU layouts raise
-``NotImplementedError`` naming the ROADMAP item.
 """
 
 from __future__ import annotations
@@ -53,6 +57,8 @@ from ganleaks_tpu_torch.ops.knn import (PARTS_ENGINES, PhaseTimer,
                                         truncate_to_batches)
 from ganleaks_tpu_torch.ops.stream_plan import (GIB, device_capacity,
                                                 sets_fit)
+from ganleaks_tpu_torch.parallel import multihost
+from ganleaks_tpu_torch.parallel.mesh import Mesh
 from ganleaks_tpu_torch.utils.logging import MetricsLogger, Throughput
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -135,14 +141,15 @@ def resolve_auto_engine(cfg: AttackConfig,
     return cfg
 
 
-def _check_ported(cfg: AttackConfig) -> None:
-    """Refuse the layouts this port does not have yet (ROADMAP queue A)."""
+def _check_layout(cfg: AttackConfig, mesh: Mesh | None) -> None:
+    """Refuse a layout name that does not exist, and two-pass on the ring
+    (silently dropping either flag would betray the config)."""
     if cfg.shard_layout not in ("sharded", "ring"):
         raise ValueError(f"shard_layout must be 'sharded' or 'ring', "
                          f"got {cfg.shard_layout!r}")
-    if cfg.n_chips > 1 or cfg.multihost:
-        raise NotImplementedError(
-            "multi-GPU attack layouts are not ported yet (ROADMAP M12)")
+    if mesh is not None and cfg.shard_layout == "ring" and cfg.two_pass:
+        raise ValueError("two_pass + shard_layout='ring' is not supported; "
+                         "use shard_layout='sharded'")
 
 
 def _embeds(cfg: AttackConfig, device: torch.device, structured: bool,
@@ -175,19 +182,30 @@ def _embeds(cfg: AttackConfig, device: torch.device, structured: bool,
     return embed, embed_lo, embed_hi
 
 
-def _host_stream(cfg: AttackConfig) -> bool | None:
-    """``cfg.host_stream`` as True, False or None ('auto')."""
+def _host_stream(cfg: AttackConfig, mesh: Mesh | None = None
+                 ) -> bool | None:
+    """``cfg.host_stream`` as True, False or None ('auto'). On a mesh
+    (``n_chips > 1`` or ``multihost``) 'auto' is False — each rank copies
+    the arrays to its device once, as the JAX package's mesh places them
+    — and a pinned True raises (the mesh searches read arrays; dropping
+    the pin would betray the config)."""
+    on_mesh = mesh is not None or cfg.n_chips > 1 or cfg.multihost
     hs = cfg.host_stream
     if isinstance(hs, str):
         if hs.strip().lower() != "auto":
             raise ValueError(f"host_stream must be true/false/'auto', "
                              f"got {hs!r}")
-        return None
+        return False if on_mesh else None
+    if hs and on_mesh:
+        raise ValueError("host_stream=true is single-device only (the mesh "
+                         "searches read arrays); use host_stream='auto' or "
+                         "n_chips=1")
     return bool(hs)
 
 
 def _stage_sets(cfg: AttackConfig, embed, queries: np.ndarray,
-                syn, device: torch.device) -> tuple:
+                syn, device: torch.device, mesh: Mesh | None = None
+                ) -> tuple:
     """``(queries, syn, on_device)``: the image sets where the search reads
     them. On the card they are copied once when ``host_stream`` is False,
     or when it is 'auto' and they fit beside what the search plans
@@ -197,7 +215,7 @@ def _stage_sets(cfg: AttackConfig, embed, queries: np.ndarray,
     search ships one block at a time. A :class:`HostImageSet` (decoded
     block by block as the search reads it) always stays in host memory.
     On the CPU the arrays themselves."""
-    hs = _host_stream(cfg)
+    hs = _host_stream(cfg, mesh)
     if device.type != "cuda" or hs or isinstance(syn, HostImageSet):
         return queries, syn, False
     if hs is None:
@@ -219,7 +237,8 @@ def _stage_sets(cfg: AttackConfig, embed, queries: np.ndarray,
 def attack_arrays(cfg: AttackConfig, syn, pos, neg,
                   device: torch.device | str | None = None,
                   logger: MetricsLogger | None = None,
-                  sweep_cache: dict | None = None) -> dict:
+                  sweep_cache: dict | None = None,
+                  mesh: Mesh | None = None) -> dict:
     """Run the attack on NHWC image arrays (uint8 bytes or [-1, 1] floats;
     ``syn`` may be a :class:`HostImageSet`, decoded as the search reads
     it). Returns losses and true NN indices for both query
@@ -239,13 +258,23 @@ def attack_arrays(cfg: AttackConfig, syn, pos, neg,
     share: the featurisers and the featurised query caches
     (``ops/knn`` ``query_reuse``; separate holders for the two-pass pass
     1 and re-rank). The caller passes the same pos/neg every call; the
-    searches check shapes and a content fingerprint."""
+    searches check shapes and a content fingerprint.
+
+    ``mesh`` (``parallel/mesh.Mesh``, every rank calling with the same
+    arrays): the search runs on the mesh's ranks, on this rank's device,
+    in ``cfg.shard_layout`` (``parallel/knn_shard``); every rank returns
+    the whole result."""
     device = resolve_device(device)
+    if mesh is not None:
+        if mesh.device.type != device.type:
+            raise ValueError(f"the mesh is on {mesh.device}, the attack on "
+                             f"{device}")
+        device = mesh.device
     logger = logger or MetricsLogger(echo=False)
     if cfg.engine == "auto":
         cfg = resolve_auto_engine(cfg, device)
         logger.log({"engine_resolved": cfg.engine, "dtype": cfg.dtype})
-    _check_ported(cfg)
+    _check_layout(cfg, mesh)
     structured = cfg.engine in PARTS_ENGINES
 
     if cfg.drop_remainder:  # strict parity with fbb.py:77
@@ -269,7 +298,8 @@ def attack_arrays(cfg: AttackConfig, syn, pos, neg,
     queries, syn_d, on_device = _stage_sets(
         cfg, embed or embed_lo,
         np.concatenate([np.asarray(pos), np.asarray(neg)], axis=0),
-        syn if isinstance(syn, HostImageSet) else np.asarray(syn), device)
+        syn if isinstance(syn, HostImageSet) else np.asarray(syn), device,
+        mesh)
     sync()
     t2 = time.perf_counter()
     holder = (lambda name: None if sweep_cache is None
@@ -277,23 +307,39 @@ def attack_arrays(cfg: AttackConfig, syn, pos, neg,
     info: dict = {}
     common = dict(q_block=cfg.query_block, s_block=cfg.syn_block,
                   query_cache_bytes=int(cfg.query_cache_gb * (1 << 30)),
-                  device=device, timer=timer, auto_plan=cfg.auto_plan,
-                  info=info)
+                  timer=timer, auto_plan=cfg.auto_plan, info=info)
     n_fallback = None
-    if cfg.two_pass:
+    stats0 = dict(mesh.stats) if mesh is not None else None
+    if mesh is not None:
+        from ganleaks_tpu_torch.parallel import knn_shard
+        if cfg.shard_layout == "ring":
+            d, i = knn_shard.knn_argmin_ring_streamed(
+                embed, queries, syn_d, mesh, engine=cfg.engine,
+                query_reuse=holder("query_reuse"), **common)
+        elif cfg.two_pass:
+            d, i, _cert, n_fallback = knn_shard.knn_argmin_two_pass_mesh(
+                embed_lo, embed_hi, queries, syn_d, mesh,
+                k=cfg.two_pass_k, engine=cfg.engine, return_cert=True,
+                query_reuse=holder("query_reuse_lo"),
+                rerank_reuse=holder("query_reuse_hi"), **common)
+        else:
+            d, i = knn_shard.knn_argmin_sharded_streamed(
+                embed, queries, syn_d, mesh, engine=cfg.engine,
+                query_reuse=holder("query_reuse"), **common)
+    elif cfg.two_pass:
         d, i, _cert, n_fallback = knn_argmin_two_pass(
             embed_lo, embed_hi, queries, syn_d, k=cfg.two_pass_k,
             engine=cfg.engine, return_cert=True,
             query_reuse=holder("query_reuse_lo"),
-            rerank_reuse=holder("query_reuse_hi"), **common)
+            rerank_reuse=holder("query_reuse_hi"), device=device, **common)
     elif structured:
         d, i = knn_argmin_streamed_parts(
             embed, queries, syn_d, quantize=cfg.engine == "taps-int8",
-            query_reuse=holder("query_reuse"), **common)
+            query_reuse=holder("query_reuse"), device=device, **common)
     else:
         d, i = knn_argmin_streamed(embed, queries, syn_d, engine=cfg.engine,
                                    query_reuse=holder("query_reuse"),
-                                   **common)
+                                   device=device, **common)
     loss = d.cpu().numpy().astype(np.float64)  # waits for the device
     nn = i.cpu().numpy()
     meter.add(n_q * len(syn))
@@ -317,6 +363,11 @@ def attack_arrays(cfg: AttackConfig, syn, pos, neg,
                                   "oom_resumes", "sets_on_device")}
     record.update(plan=plan, n_syn=len(syn), n_pos=n_pos, n_neg=len(neg),
                   engine=cfg.engine, device=str(device))
+    if mesh is not None:
+        out["ranks"] = record["ranks"] = {
+            "size": mesh.size, "layout": cfg.shard_layout,
+            "backend": mesh.backend,
+            **{k: v - stats0[k] for k, v in mesh.stats.items()}}
     if n_fallback is not None:
         out["two_pass_fallbacks"] = record["two_pass_fallbacks"] = n_fallback
     logger.log(record)
@@ -369,9 +420,22 @@ def run_attack(cfg: AttackConfig,
     loaded once and, across several subdirs, featurised once
     (``attack_arrays``' ``sweep_cache``). Each result and its
     ``metrics.jsonl`` also carry ``ingest_s``, the seconds spent loading
-    that subdir's images (and, for the first, the query sets)."""
+    that subdir's images (and, for the first, the query sets).
+
+    ``multihost`` or ``n_chips > 1`` joins the process group first
+    (``parallel/multihost.initialize``: the ``GANLEAKS_*`` variables or
+    ``torchrun``'s); ``n_chips > 1`` runs the search on the group's mesh
+    of that many ranks, one per device (:func:`launch_attack` starts them
+    on this host). Every rank runs the same attack on the same data; rank
+    0 alone writes the artifacts and the metrics (the other ranks'
+    ``save_dir`` is '')."""
     device = resolve_device(device)
-    _check_ported(cfg)
+    if cfg.multihost or cfg.n_chips > 1:
+        multihost.initialize()  # a no-op without a launcher's world
+    mesh = multihost.global_mesh(cfg.n_chips, device=device) \
+        if cfg.n_chips > 1 else None
+    _check_layout(cfg, mesh)
+    is_main = multihost.process_index() == 0
     if cfg.hyperparameter_search:
         root = cfg.syn_data_path
         # hidden dirs are caches, never sweep experiments
@@ -394,9 +458,11 @@ def run_attack(cfg: AttackConfig,
         # the configuration that produced the results
         was_auto = sub_cfg.engine == "auto"
         sub_cfg = resolve_auto_engine(sub_cfg, device)
-        save_dir = resolve_save_dir(sub_cfg)
-        dump_params(save_dir, sub_cfg)
-        logger = MetricsLogger(os.path.join(save_dir, "metrics.jsonl"))
+        save_dir = resolve_save_dir(sub_cfg) if is_main else ""
+        if is_main:
+            dump_params(save_dir, sub_cfg)
+        logger = MetricsLogger(os.path.join(save_dir, "metrics.jsonl")
+                               if is_main else None, echo=is_main)
         if was_auto:
             logger.log({"engine_resolved": sub_cfg.engine,
                         "dtype": sub_cfg.dtype})
@@ -412,8 +478,14 @@ def run_attack(cfg: AttackConfig,
         logger.log({"ingest_s": ingest_s})
 
         out = attack_arrays(sub_cfg, syn, pos, neg, device=device,
-                            logger=logger, sweep_cache=sweep_cache)
+                            logger=logger, sweep_cache=sweep_cache,
+                            mesh=mesh)
         out["ingest_s"] = ingest_s
+        out["save_dir"] = save_dir
+        results.append(out)
+        if not is_main:
+            logger.close()
+            continue
 
         seq_pos = np.arange(len(out["pos_loss"])).reshape(-1, 1)
         save_files(save_dir,
@@ -428,7 +500,20 @@ def run_attack(cfg: AttackConfig,
         if sub_cfg.save_plots:
             plot_closest_images(out["pos_nn_idx"], pos, syn, save_dir, "pos")
             plot_closest_images(out["neg_nn_idx"], neg, syn, save_dir, "neg")
-        out["save_dir"] = save_dir
-        results.append(out)
         logger.close()
     return results
+
+
+def launch_attack(cfg: AttackConfig,
+                  device: torch.device | str | None = None,
+                  timeout_s: float = multihost.DEFAULT_TIMEOUT_S
+                  ) -> list[dict]:
+    """:func:`run_attack` on ``cfg.n_chips`` processes of this host, one
+    per device (``parallel/multihost.launch``): on the card NCCL over
+    ``cuda:0..n-1`` (refused where fewer cards are visible), on the CPU
+    ``gloo``. Returns rank 0's results."""
+    device = resolve_device(device)
+    return multihost.launch(
+        run_attack, cfg.n_chips, cfg, device.type,
+        devices=multihost.local_devices(cfg.n_chips, device),
+        timeout_s=timeout_s)

@@ -7,10 +7,9 @@ keys raise, and the privGAN grid sweep's :func:`expand_grid` /
 :func:`sweep_tag`.
 
 The fields are the JAX package's, so existing YAML configs load unchanged.
-Fields that select a layout this port does not have yet (``n_chips > 1``,
-``multihost``, a trainer's ``mesh_shape`` other than ``(1,)``) are
-accepted here and refused by the entry point with a pointer to the
-ROADMAP item.
+A trainer's ``mesh_shape`` other than ``(1,)`` (data-parallel training,
+not ported yet) is accepted here and refused by the trainer with a
+pointer to the ROADMAP item.
 """
 
 from __future__ import annotations
@@ -186,9 +185,9 @@ class AttackConfig:
                                    # (io/diskcache): 'auto' beside the data,
                                    # False/'off' none, a path pins the dir
     drop_remainder: bool = False   # replicate fbb.py:77 remainder drop
-    n_chips: int = 1               # >1 not ported yet (ROADMAP)
-    shard_layout: str = "sharded"  # 'sharded' | 'ring' (multi-GPU, later)
-    multihost: bool = False        # not ported yet (ROADMAP)
+    n_chips: int = 1               # devices of the mesh, one rank each
+    shard_layout: str = "sharded"  # 'sharded' | 'ring' (parallel/knn_shard)
+    multihost: bool = False        # join the process group first
     save_plots: bool = True        # the 20 closest-pair PNGs
     wandb: str | None = None
     seed: int = 0

@@ -60,13 +60,22 @@ def init_inception_params(seed: int = 0) -> InceptionV3Pool3:
 
 def get_activations(model: torch.nn.Module, images: np.ndarray,
                     batch_size: int = 50, drop_remainder: bool = True,
-                    device: torch.device | str | None = None) -> np.ndarray:
+                    device: torch.device | str | None = None,
+                    mesh=None) -> np.ndarray:
     """pool_3 activations (float32 (N, 2048) numpy) of NHWC [0, 255] images
     (float or uint8), uploaded one batch at a time. ``drop_remainder`` drops
     the final partial batch (``z_fid.py:88``: 5 images at batch 2 give 4
     rows); otherwise the last batch is padded and sliced back. The model
-    moves to ``device``."""
+    moves to ``device``.
+
+    ``mesh`` (``parallel/mesh.Mesh``, every rank calling with the same
+    images and weights): each batch is split over the ranks, a contiguous
+    share each (the batch padded to a multiple of the ranks), each rank
+    runs the tower on its share on its device, and the activations are
+    all-gathered in image order; every rank returns them all."""
     device = resolve_device(device)
+    if mesh is not None:
+        device = mesh.device
     model = model.to(device).eval()
     n = len(images)
     batch_size = min(batch_size, n)
@@ -79,8 +88,19 @@ def get_activations(model: torch.nn.Module, images: np.ndarray,
             if rows < batch_size:  # pad the final partial batch to one shape
                 batch = np.concatenate([batch, np.zeros(
                     (batch_size - rows,) + batch.shape[1:], batch.dtype)])
-            x = torch.from_numpy(batch).to(device)
-            outs.append(model(preprocess(x))[:rows].float().cpu().numpy())
+            if mesh is None:
+                x = torch.from_numpy(batch).to(device)
+                outs.append(model(preprocess(x))[:rows].float().cpu()
+                            .numpy())
+                continue
+            from ganleaks_tpu_torch.parallel.mesh import (all_gather_rows,
+                                                          shard_rows)
+            start, stop, per = shard_rows(len(batch), mesh)
+            share = np.zeros((per,) + batch.shape[1:], batch.dtype)
+            share[:stop - start] = batch[start:stop]
+            act = model(preprocess(torch.from_numpy(share).to(device)))
+            outs.append(all_gather_rows(act.float(), mesh)[:rows].cpu()
+                        .numpy())
     return np.concatenate(outs)
 
 
@@ -194,14 +214,20 @@ frechet_distance.scipy_fallbacks = 0
 def fid_from_image_sets(model: torch.nn.Module, images1: np.ndarray,
                         images2: np.ndarray, batch_size: int = 50,
                         method: str = "newton-schulz",
-                        device: torch.device | str | None = None) -> float:
+                        device: torch.device | str | None = None,
+                        mesh=None) -> float:
     """FID between two [0, 255] NHWC image sets
-    (``calculate_fid_given_paths``, ``z_fid.py:303-317``)."""
+    (``calculate_fid_given_paths``, ``z_fid.py:303-317``); ``mesh``
+    splits the featurisation over the ranks (:func:`get_activations`)."""
     device = resolve_device(device)
+    if mesh is not None:
+        device = mesh.device
     m1, s1 = activation_statistics(
-        get_activations(model, images1, batch_size, device=device))
+        get_activations(model, images1, batch_size, device=device,
+                        mesh=mesh))
     m2, s2 = activation_statistics(
-        get_activations(model, images2, batch_size, device=device))
+        get_activations(model, images2, batch_size, device=device,
+                        mesh=mesh))
     return frechet_distance(m1, s1, m2, s2, method=method, device=device)
 
 
@@ -240,11 +266,15 @@ def _load_path_images(path: str) -> np.ndarray:
 
 def fid_from_paths(model: torch.nn.Module, path1: str, path2: str,
                    batch_size: int = 50, method: str = "newton-schulz",
-                   device: torch.device | str | None = None) -> float:
+                   device: torch.device | str | None = None,
+                   mesh=None) -> float:
     """Path flavour: each argument is an image directory (jpg + png), a
     precomputed ``.npz`` with ``mu``/``sigma`` (``z_fid.py:286-300``), or
-    an image npz (``npz_images/``, ``generated.npz``)."""
+    an image npz (``npz_images/``, ``generated.npz``); ``mesh`` splits the
+    featurisation over the ranks (:func:`get_activations`)."""
     device = resolve_device(device)
+    if mesh is not None:
+        device = mesh.device
     stats = []
     for p in (path1, path2):
         if p.endswith(".npz"):
@@ -253,6 +283,7 @@ def fid_from_paths(model: torch.nn.Module, path1: str, path2: str,
                     stats.append((f["mu"][:], f["sigma"][:]))
                     continue
         stats.append(activation_statistics(get_activations(
-            model, _load_path_images(p), batch_size, device=device)))
+            model, _load_path_images(p), batch_size, device=device,
+            mesh=mesh)))
     (m1, s1), (m2, s2) = stats
     return frechet_distance(m1, s1, m2, s2, method=method, device=device)

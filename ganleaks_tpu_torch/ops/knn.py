@@ -33,8 +33,10 @@ over flat embeddings and over tap-structured parts.
 
 from __future__ import annotations
 
+import functools
 import hashlib
 import time
+import traceback
 from typing import Callable, NamedTuple
 
 import numpy as np
@@ -290,32 +292,74 @@ def plan_search(n_q: int, n_s: int, row_bytes: int, *, q_block: int,
                       _padded(min(chunk, n_q), q_block), -(-n_q // chunk))
 
 
-def _stream_search(block_norms: Callable, k_dim: int, cdtype: torch.dtype,
-                   queries, syn, *, q_block: int, s_block: int,
-                   query_cache_bytes: int, device: torch.device,
-                   timer: PhaseTimer, init_state: Callable, fold: Callable,
-                   take: Callable, charges: dict, auto_plan: bool = True,
+class SearchSpec(NamedTuple):
+    """What a streamed search folds (:func:`_stream_search`):
+    ``block_norms(x, start, block) -> (emb, f32 norms, n_valid)``; the
+    cached row width ``k_dim`` and dtype ``cdtype``; the state hooks
+    ``init_state(padded_rows)``, ``fold(state, cache, rq, s_emb, rs, col0,
+    n_valid)`` (a new state; a fold that fails leaves the old one intact)
+    and ``take(state, n_rows) -> tuple of per-query outputs``; the
+    planner's ``charges`` (:func:`_plan_charges`); and the signature a held
+    query cache is reused under."""
+
+    block_norms: Callable
+    k_dim: int
+    cdtype: torch.dtype
+    init_state: Callable
+    fold: Callable
+    take: Callable
+    charges: dict
+    signature: tuple
+
+
+class RankHooks(NamedTuple):
+    """What one rank of a search spread over several adds to
+    :func:`_stream_search` (``parallel/knn_shard`` builds them).
+
+    ``col_offset``: the global index of this rank's first synthetic row;
+    ``sweep_rows``: the synthetic rows every rank walks (its shard, padded
+    to the largest: past its own rows a rank's blocks hold none);
+    ``gather``: with queries replicated, each query block is featurised a
+    ``1/size`` share per rank and ``gather(rows)`` all-gathers the shares
+    in rank order; ``combine(state)``: the state merged over the ranks at
+    each chunk's end; ``agree(flag)``: whether ``flag`` holds on any rank;
+    ``budget(capacity)``: the planner's budget agreed over the ranks;
+    ``empty_blocks``: call ``fold`` on blocks past this rank's rows too
+    (zeros, ``n_valid`` 0), for a fold that exchanges blocks with the
+    others."""
+
+    rank: int
+    size: int
+    agree: Callable[[bool], bool]
+    budget: Callable
+    col_offset: int = 0
+    sweep_rows: int | None = None
+    gather: Callable | None = None
+    combine: Callable | None = None
+    empty_blocks: bool = False
+
+
+def _stream_search(spec: SearchSpec, queries, syn, *, q_block: int,
+                   s_block: int, query_cache_bytes: int,
+                   device: torch.device, timer: PhaseTimer,
+                   auto_plan: bool = True,
                    query_reuse: dict | None = None,
-                   reuse_signature: tuple = (), reuse_siblings: tuple = (),
-                   info: dict | None = None) -> tuple:
+                   reuse_siblings: tuple = (), info: dict | None = None,
+                   ranks: RankHooks | None = None) -> tuple:
     """The loop of every streamed search (flat or parts, argmin or
-    top-k): featurise the queries chunk by chunk into a (rows, ``k_dim``)
-    cache of ``cdtype`` with float32 norms ``rq``, sweep the synthetic set
-    once per chunk (``N_q + N_s * ceil(N_q / chunk_rows)`` forwards), and
-    fold every block into a running state. Blocks are zero-padded to their
-    block size and the padded tail masked by its valid-row count.
+    top-k): featurise the queries chunk by chunk into a (rows,
+    ``spec.k_dim``) cache of ``spec.cdtype`` with float32 norms ``rq``,
+    sweep the synthetic set once per chunk (``N_q + N_s * ceil(N_q /
+    chunk_rows)`` forwards), and fold every block into a running state
+    (``spec``'s hooks; the folds are timed as 'fold'). Blocks are
+    zero-padded to their block size and the padded tail masked by its
+    valid-row count; the per-query outputs are concatenated over the
+    chunks.
 
-    Hooks: ``init_state(padded_rows) -> state``;
-    ``fold(state, cache, rq, s_emb, rs, col0, n_valid) -> state`` (timed as
-    'fold'; it builds a new state, so a fold that fails leaves the old
-    one intact); ``take(state, n_rows) -> tuple of per-query outputs``,
-    which are concatenated over the chunks.
-
-    ``charges``: the fold's charges (:func:`_plan_charges`). With
-    ``auto_plan`` the planner sets ``query_cache_bytes``, ``s_block`` and
-    ``q_block`` first, from the budget the card reports
-    (:func:`plan_search`); without it, or off the card, they stay as
-    given.
+    With ``auto_plan`` the planner sets ``query_cache_bytes``, ``s_block``
+    and ``q_block`` first, from the budget the card reports
+    (:func:`plan_search`, charged ``spec.charges``); without it, or off
+    the card, they stay as given.
 
     OOM resume (``torch.cuda.OutOfMemoryError`` only; every other error
     propagates). The caching allocator raises at the allocation that does
@@ -338,9 +382,16 @@ def _stream_search(block_norms: Callable, k_dim: int, cdtype: torch.dtype,
     surfaces at allocation, and the one stream reuses freed blocks in
     order.
 
+    ``ranks`` (:class:`RankHooks`): this search is one rank of several.
+    Ranks that disagree on a block size call their collectives in another
+    order and hang, so every rank plans from the budget agreed over them
+    (``ranks.budget``), the reuse decision is agreed, and every step that
+    can run out of memory is agreed before the next collective: an OOM on
+    any rank makes every rank halve alike (``ranks.agree``).
+
     ``query_reuse`` (a dict the caller keeps): when every query row fits
     one chunk, the verified cache is held there under
-    :func:`_fingerprint` (with ``reuse_signature``), and a later call over
+    :func:`_fingerprint` (with ``spec.signature``), and a later call over
     the same queries skips their featurisation. The planner counts a held
     cache of the same queries as budget (it is allocated, so the card does
     not report it free); one held for other queries is freed first.
@@ -352,12 +403,15 @@ def _stream_search(block_norms: Callable, k_dim: int, cdtype: torch.dtype,
     (``capacity_bytes``: what the card reported plus a held cache of these
     queries; None without the planner)."""
     n_q, n_s = len(queries), len(syn)
-    if n_s == 0:
+    n_sweep = n_s if ranks is None or ranks.sweep_rows is None \
+        else ranks.sweep_rows
+    if n_sweep == 0:
         raise ValueError("empty synthetic set")
+    block_norms, k_dim, cdtype = spec.block_norms, spec.k_dim, spec.cdtype
     info = {} if info is None else info
     info.update(oom_resumes=0, halvings=[])
     row_bytes = k_dim * torch.empty((), dtype=cdtype).element_size()
-    fp = (_fingerprint(queries, (reuse_signature, str(cdtype), k_dim))
+    fp = (_fingerprint(queries, (spec.signature, str(cdtype), k_dim))
           if query_reuse is not None else None)
     if query_reuse and query_reuse.get("fp") != fp:
         query_reuse.clear()  # another set's cache: free it before planning
@@ -366,14 +420,64 @@ def _stream_search(block_norms: Callable, k_dim: int, cdtype: torch.dtype,
         # a held cache of these queries is already allocated, so the card
         # no longer counts it as free: credit it back to the budget
         capacity += query_reuse["cache"].nbytes + query_reuse["rq"].nbytes
+    if ranks is not None:
+        capacity = ranks.budget(capacity)
     info.update(capacity_bytes=capacity)
     query_cache_bytes, s_block, q_block, chunk_rows, _, _ = plan_search(
-        n_q, n_s, row_bytes, q_block=q_block, s_block=s_block,
-        cache_bytes=query_cache_bytes, charges=charges, capacity=capacity)
+        n_q, n_sweep, row_bytes, q_block=q_block, s_block=s_block,
+        cache_bytes=query_cache_bytes, charges=spec.charges,
+        capacity=capacity)
     info.update(planned_cache_bytes=int(query_cache_bytes),
                 planned_s_block=s_block, planned_q_block=q_block)
     holders = (query_reuse,) + tuple(reuse_siblings)
     s_block0 = s_block
+    col_offset = 0 if ranks is None else ranks.col_offset
+    gather = None if ranks is None else ranks.gather
+
+    def agreed(fn):
+        """``(fn(), None)``, or ``(None, the OOM)`` when it ran out of
+        memory — on one rank of several, when any rank did."""
+        try:
+            out, err = fn(), None
+        except torch.cuda.OutOfMemoryError as e:
+            # keep the error, not the failed attempt's tensors: its frames
+            # would pin them through the retry
+            traceback.clear_frames(e.__traceback__)
+            out, err = None, e
+        if ranks is not None and ranks.agree(err is not None) \
+                and err is None:
+            err = torch.cuda.OutOfMemoryError("another rank ran out of "
+                                              "device memory")
+        return out, err
+
+    def query_share(qs: int, q_block: int):
+        """This rank's featurised rows of the query block at ``qs``: the
+        whole block, or its ``1/size`` share where ``gather`` joins the
+        shares (zeros past the queries)."""
+        if gather is None:
+            return block_norms(queries, qs, q_block)[:2]
+        per = -(-q_block // ranks.size)
+        lo = qs + ranks.rank * per
+        if lo >= n_q:
+            return (torch.zeros((per, k_dim), dtype=cdtype, device=device),
+                    torch.zeros(per, device=device))
+        return block_norms(queries, lo, per)[:2]
+
+    def sweep_block(state, cache, rq, ss: int, s_block: int):
+        if ss < n_s:
+            s_emb, rs, n_valid = block_norms(syn, ss, s_block)
+        elif ranks is not None and ranks.empty_blocks:  # past this shard
+            s_emb = torch.zeros((s_block, k_dim), dtype=cdtype,
+                                device=device)
+            rs, n_valid = torch.zeros(s_block, device=device), 0
+        else:
+            return state
+        tok = timer.start("fold")
+        state = spec.fold(state, cache, rq, s_emb, rs, col_offset + ss,
+                          n_valid)
+        timer.stop(tok)
+        return state
+
     outs, sweeps, reused_any, cache_rows = [], 0, False, 0
     qs0 = 0
     with torch.inference_mode():
@@ -384,6 +488,8 @@ def _stream_search(block_norms: Callable, k_dim: int, cdtype: torch.dtype,
             one_chunk = qs0 == 0 and end == n_q
             reused = (query_reuse is not None and one_chunk
                       and query_reuse.get("fp") == fp)
+            if ranks is not None:  # every rank reuses, or none does
+                reused = not ranks.agree(not reused)
             if query_reuse and not one_chunk:
                 # a held cache never engages on a multi-chunk schedule:
                 # drop it instead of pinning it through the search
@@ -393,10 +499,9 @@ def _stream_search(block_norms: Callable, k_dim: int, cdtype: torch.dtype,
                 cache, rq = query_reuse["cache"], query_reuse["rq"]
                 reused_any = True
             else:
-                try:
-                    cache, rq = _alloc_cache(padded, k_dim, cdtype, device)
-                except torch.cuda.OutOfMemoryError:
-                    cache = rq = None
+                got, err = agreed(lambda: _alloc_cache(padded, k_dim, cdtype,
+                                                       device))
+                if err is not None:
                     if chunk_rows > q_block:
                         chunk_rows = max(q_block, (chunk_rows // 2)
                                          // q_block * q_block)
@@ -406,64 +511,64 @@ def _stream_search(block_norms: Callable, k_dim: int, cdtype: torch.dtype,
                         q_block = chunk_rows = q_block // 2
                         dim, size = "q_block", q_block
                     else:
-                        raise
+                        raise err
                     _release(device, holders)
                     _halved(info, dim, size, f"query cache allocation OOM; "
                             f"{dim}={size} (more synthetic sweeps)")
                     continue
+                cache, rq = got
                 qs = qs0
                 while qs < end:
-                    try:
-                        e, r, _ = block_norms(queries, qs, q_block)
-                    except torch.cuda.OutOfMemoryError:
+                    got, err = agreed(lambda: query_share(qs, q_block))
+                    if err is not None:
                         if q_block <= 1:
-                            raise
+                            raise err
                         q_block //= 2
                         _release(device, holders)
                         _halved(info, "q_block", q_block,
                                 f"query featurize OOM; q_block={q_block} "
                                 f"(resuming at row {qs})")
                         continue
+                    e, r = got if gather is None else map(gather, got)
                     n = min(e.shape[0], padded - (qs - qs0))
                     cache[qs - qs0:qs - qs0 + n] = e[:n]
                     rq[qs - qs0:qs - qs0 + n] = r[:n]
                     qs += n
-                    del e, r
+                    del got, e, r
                 if query_reuse is not None and one_chunk:
                     query_reuse.clear()
                     query_reuse.update(fp=fp, padded=padded, cache=cache,
                                        rq=rq)
             cache_rows = max(cache_rows, padded)
-            state = init_state(padded)
+            state = spec.init_state(padded)
             ss, restart = 0, False
-            while ss < n_s:
-                try:
-                    s_emb, rs, n_valid = block_norms(syn, ss, s_block)
-                    tok = timer.start("fold")
-                    state = fold(state, cache, rq, s_emb, rs, ss, n_valid)
-                    timer.stop(tok)
-                except torch.cuda.OutOfMemoryError:
-                    s_emb = rs = None
-                    if s_block > 1:
-                        s_block //= 2
-                        _release(device, reuse_siblings)
-                        _halved(info, "s_block", s_block,
-                                f"synthetic stream OOM; s_block={s_block} "
-                                f"(resuming at row {ss})")
-                        continue
-                    # even one row does not fit next to the cache: the
-                    # pressure is the resident cache, so shrink it and
-                    # redo this chunk (a chunk of one q_block cannot
-                    # shrink further)
-                    if chunk_rows <= q_block or padded <= q_block:
-                        raise
-                    chunk_rows = max(q_block,
-                                     (chunk_rows // 2) // q_block * q_block)
-                    s_block = s_block0
-                    restart = True
-                    break
-                ss += n_valid
-                del s_emb, rs
+            while ss < n_sweep:
+                step = min(s_block, n_sweep - ss)
+                new, err = agreed(lambda: sweep_block(state, cache, rq, ss,
+                                                      s_block))
+                if err is None:
+                    state = new
+                    ss += step
+                    continue
+                new = None
+                if s_block > 1:
+                    s_block //= 2
+                    _release(device, reuse_siblings)
+                    _halved(info, "s_block", s_block,
+                            f"synthetic stream OOM; s_block={s_block} "
+                            f"(resuming at row {ss})")
+                    continue
+                # even one row does not fit next to the cache: the
+                # pressure is the resident cache, so shrink it and
+                # redo this chunk (a chunk of one q_block cannot
+                # shrink further)
+                if chunk_rows <= q_block or padded <= q_block:
+                    raise err
+                chunk_rows = max(q_block,
+                                 (chunk_rows // 2) // q_block * q_block)
+                s_block = s_block0
+                restart = True
+                break
             if restart:
                 del cache, rq, state
                 _release(device, holders)
@@ -472,7 +577,9 @@ def _stream_search(block_norms: Callable, k_dim: int, cdtype: torch.dtype,
                         f"chunk_rows={chunk_rows} (restarting the chunk)")
                 continue
             sweeps += 1
-            outs.append(take(state, n_rows))
+            if ranks is not None and ranks.combine is not None:
+                state = ranks.combine(state)
+            outs.append(spec.take(state, n_rows))
             del cache, rq, state
             qs0 = end
     info.update(q_block=q_block, s_block=s_block, chunk_rows=chunk_rows,
@@ -581,6 +688,27 @@ def _fold_fused(state, cache, rq, s_emb, rs, ss, n_valid):
             torch.where(better, ss + i_blk, run_idx))
 
 
+def argmin_spec(embed_fn: Callable, queries, engine: str,
+                device: torch.device, timer: PhaseTimer) -> SearchSpec:
+    """:class:`SearchSpec` of a flat 1-NN search on ``engine``: the
+    embedding cached as it comes (no demotion), float32 norms taken from it
+    before the cache write; 'pallas' folds through the fused kernel."""
+    _check_engine(engine)
+    probe = _probe(embed_fn, queries, device)
+    if engine == "pallas":
+        fold = _fold_fused
+    else:
+        def fold(state, cache, rq, s_emb, rs, ss, n_valid):
+            return _fold_block(state[0], state[1], cache, rq, s_emb, ss,
+                               n_valid, engine, rs)
+    init_state, take = _argmin_state_hooks(device)
+    charges = _plan_charges(embed_fn, queries,
+                            "fused" if engine == "pallas" else "gemm", 8)
+    return SearchSpec(_flat_block_fn(embed_fn, device, timer),
+                      probe.shape[1], probe.dtype, init_state, fold, take,
+                      charges, ("flat",))
+
+
 def knn_argmin_streamed(embed_fn: Callable[[torch.Tensor], torch.Tensor],
                         queries, syn, *, engine: str = "gemm",
                         q_block: int = 2048, s_block: int = 2048,
@@ -606,24 +734,11 @@ def knn_argmin_streamed(embed_fn: Callable[[torch.Tensor], torch.Tensor],
     if len(syn) == 0:
         raise ValueError("empty synthetic set")
     timer = timer or PhaseTimer(device)
-    probe = _probe(embed_fn, queries, device)
-
-    if engine == "pallas":
-        fold = _fold_fused
-    else:
-        def fold(state, cache, rq, s_emb, rs, ss, n_valid):
-            return _fold_block(state[0], state[1], cache, rq, s_emb, ss,
-                               n_valid, engine, rs)
-    init_state, take = _argmin_state_hooks(device)
-    charges = _plan_charges(embed_fn, queries,
-                            "fused" if engine == "pallas" else "gemm", 8)
     return _stream_search(
-        _flat_block_fn(embed_fn, device, timer), probe.shape[1], probe.dtype,
-        queries, syn, q_block=q_block, s_block=s_block,
+        argmin_spec(embed_fn, queries, engine, device, timer), queries, syn,
+        q_block=q_block, s_block=s_block,
         query_cache_bytes=query_cache_bytes, device=device, timer=timer,
-        init_state=init_state, fold=fold, take=take,
-        charges=charges, auto_plan=auto_plan,
-        query_reuse=query_reuse, reuse_signature=("flat",),
+        auto_plan=auto_plan, query_reuse=query_reuse,
         reuse_siblings=reuse_siblings, info=info)
 
 
@@ -720,6 +835,30 @@ def _topk_state_hooks(fold_one: Callable, k: int, with_info: bool,
     return init_state, fold, take
 
 
+def topk_spec(embed_fn: Callable, queries, engine: str, k: int,
+              with_info: bool, device: torch.device,
+              timer: PhaseTimer) -> SearchSpec:
+    """:class:`SearchSpec` of a flat top-k search on ``engine`` ('pallas':
+    the fused top-k kernel); ``with_info`` appends ``(rq, rs_max)``."""
+    _check_engine(engine)
+    probe = _probe(embed_fn, queries, device)
+    if engine == "pallas":
+        def fold_one(run_d, run_i, cache, rq, s_emb, rs, ss, n_valid):
+            return _fold_fused_topk(run_d, run_i, cache, rq, s_emb, rs, ss,
+                                    n_valid, k)
+    else:
+        def fold_one(run_d, run_i, cache, rq, s_emb, rs, ss, n_valid):
+            return _fold_block_topk(run_d, run_i, cache, rq, s_emb, ss,
+                                    n_valid, k, engine, rs)
+    init_state, fold, take = _topk_state_hooks(fold_one, k, with_info,
+                                               device)
+    charges = _plan_charges(embed_fn, queries, "topk_fused"
+                            if engine == "pallas" else "topk_gemm", 8 * k + 4)
+    return SearchSpec(_flat_block_fn(embed_fn, device, timer),
+                      probe.shape[1], probe.dtype, init_state, fold, take,
+                      charges, ("flat",))
+
+
 def knn_topk_streamed(embed_fn: Callable[[torch.Tensor], torch.Tensor],
                       queries, syn, *, k: int = 8, engine: str = "gemm",
                       q_block: int = 2048, s_block: int = 2048,
@@ -741,27 +880,11 @@ def knn_topk_streamed(embed_fn: Callable[[torch.Tensor], torch.Tensor],
     if len(syn) == 0:
         raise ValueError("empty synthetic set")
     timer = timer or PhaseTimer(device)
-    probe = _probe(embed_fn, queries, device)
-
-    if engine == "pallas":
-        def fold_one(run_d, run_i, cache, rq, s_emb, rs, ss, n_valid):
-            return _fold_fused_topk(run_d, run_i, cache, rq, s_emb, rs, ss,
-                                    n_valid, k)
-    else:
-        def fold_one(run_d, run_i, cache, rq, s_emb, rs, ss, n_valid):
-            return _fold_block_topk(run_d, run_i, cache, rq, s_emb, ss,
-                                    n_valid, k, engine, rs)
-    init_state, fold, take = _topk_state_hooks(fold_one, k, with_info,
-                                               device)
-    charges = _plan_charges(embed_fn, queries, "topk_fused"
-                            if engine == "pallas" else "topk_gemm", 8 * k + 4)
     return _stream_search(
-        _flat_block_fn(embed_fn, device, timer), probe.shape[1], probe.dtype,
+        topk_spec(embed_fn, queries, engine, k, with_info, device, timer),
         queries, syn, q_block=q_block, s_block=s_block,
         query_cache_bytes=query_cache_bytes, device=device, timer=timer,
-        init_state=init_state, fold=fold, take=take,
-        charges=charges, auto_plan=auto_plan,
-        query_reuse=query_reuse, reuse_signature=("flat",),
+        auto_plan=auto_plan, query_reuse=query_reuse,
         reuse_siblings=reuse_siblings, info=info)
 
 
@@ -917,6 +1040,27 @@ def _parts_setup(embed_fn: Callable, queries, quantize: bool,
     return block_norms, sum(widths), cdtype, widths, factors, signature
 
 
+def argmin_parts_spec(embed_fn: Callable, queries, quantize: bool,
+                      device: torch.device, timer: PhaseTimer
+                      ) -> SearchSpec:
+    """:class:`SearchSpec` of a 1-NN search over a parts featuriser: the
+    fused kernel on the (N, K) parts buffer, or int8 products per part
+    with ``quantize``."""
+    block_norms, k_dim, cdtype, widths, factors, sig = _parts_setup(
+        embed_fn, queries, quantize, device, timer)
+    if quantize:
+        def fold(state, cache, rq, s_emb, rs, ss, n_valid):
+            return _fold_block_parts_q(state[0], state[1], cache, rq, s_emb,
+                                       rs, ss, n_valid, widths, factors)
+    else:
+        fold = _fold_fused
+    init_state, take = _argmin_state_hooks(device)
+    charges = _plan_charges(embed_fn, queries,
+                            "int8" if quantize else "fused", 8)
+    return SearchSpec(block_norms, k_dim, cdtype, init_state, fold, take,
+                      charges, sig)
+
+
 def knn_argmin_streamed_parts(embed_fn: Callable, queries, syn, *,
                               q_block: int = 2048, s_block: int = 2048,
                               query_cache_bytes: int = 8 << 30,
@@ -942,24 +1086,35 @@ def knn_argmin_streamed_parts(embed_fn: Callable, queries, syn, *,
     if len(syn) == 0:
         raise ValueError("empty synthetic set")
     timer = timer or PhaseTimer(device)
+    return _stream_search(
+        argmin_parts_spec(embed_fn, queries, quantize, device, timer),
+        queries, syn, q_block=q_block, s_block=s_block,
+        query_cache_bytes=query_cache_bytes, device=device, timer=timer,
+        auto_plan=auto_plan, query_reuse=query_reuse,
+        reuse_siblings=reuse_siblings, info=info)
+
+
+def topk_parts_spec(embed_fn: Callable, queries, k: int, with_info: bool,
+                    quantize: bool, device: torch.device,
+                    timer: PhaseTimer) -> SearchSpec:
+    """Top-k analog of :func:`argmin_parts_spec`."""
     block_norms, k_dim, cdtype, widths, factors, sig = _parts_setup(
         embed_fn, queries, quantize, device, timer)
     if quantize:
-        def fold(state, cache, rq, s_emb, rs, ss, n_valid):
-            return _fold_block_parts_q(state[0], state[1], cache, rq, s_emb,
-                                       rs, ss, n_valid, widths, factors)
+        def fold_one(run_d, run_i, cache, rq, s_emb, rs, ss, n_valid):
+            return _fold_block_topk_parts_q(run_d, run_i, cache, rq, s_emb,
+                                            rs, ss, n_valid, k, widths,
+                                            factors)
     else:
-        fold = _fold_fused
-    init_state, take = _argmin_state_hooks(device)
-    charges = _plan_charges(embed_fn, queries,
-                            "int8" if quantize else "fused", 8)
-    return _stream_search(
-        block_norms, k_dim, cdtype, queries, syn, q_block=q_block,
-        s_block=s_block, query_cache_bytes=query_cache_bytes, device=device,
-        timer=timer, init_state=init_state, fold=fold, take=take,
-        charges=charges, auto_plan=auto_plan,
-        query_reuse=query_reuse, reuse_signature=sig,
-        reuse_siblings=reuse_siblings, info=info)
+        def fold_one(run_d, run_i, cache, rq, s_emb, rs, ss, n_valid):
+            return _fold_fused_topk(run_d, run_i, cache, rq, s_emb, rs, ss,
+                                    n_valid, k)
+    init_state, fold, take = _topk_state_hooks(fold_one, k, with_info,
+                                               device)
+    charges = _plan_charges(embed_fn, queries, "topk_int8" if quantize
+                            else "topk_fused", 8 * k + 4)
+    return SearchSpec(block_norms, k_dim, cdtype, init_state, fold, take,
+                      charges, sig)
 
 
 def knn_topk_streamed_parts(embed_fn: Callable, queries, syn, *, k: int = 8,
@@ -980,27 +1135,12 @@ def knn_topk_streamed_parts(embed_fn: Callable, queries, syn, *, k: int = 8,
     if len(syn) == 0:
         raise ValueError("empty synthetic set")
     timer = timer or PhaseTimer(device)
-    block_norms, k_dim, cdtype, widths, factors, sig = _parts_setup(
-        embed_fn, queries, quantize, device, timer)
-    if quantize:
-        def fold_one(run_d, run_i, cache, rq, s_emb, rs, ss, n_valid):
-            return _fold_block_topk_parts_q(run_d, run_i, cache, rq, s_emb,
-                                            rs, ss, n_valid, k, widths,
-                                            factors)
-    else:
-        def fold_one(run_d, run_i, cache, rq, s_emb, rs, ss, n_valid):
-            return _fold_fused_topk(run_d, run_i, cache, rq, s_emb, rs, ss,
-                                    n_valid, k)
-    init_state, fold, take = _topk_state_hooks(fold_one, k, with_info,
-                                               device)
-    charges = _plan_charges(embed_fn, queries, "topk_int8" if quantize
-                            else "topk_fused", 8 * k + 4)
     return _stream_search(
-        block_norms, k_dim, cdtype, queries, syn, q_block=q_block,
-        s_block=s_block, query_cache_bytes=query_cache_bytes, device=device,
-        timer=timer, init_state=init_state, fold=fold, take=take,
-        charges=charges, auto_plan=auto_plan,
-        query_reuse=query_reuse, reuse_signature=sig,
+        topk_parts_spec(embed_fn, queries, k, with_info, quantize, device,
+                        timer),
+        queries, syn, q_block=q_block, s_block=s_block,
+        query_cache_bytes=query_cache_bytes, device=device, timer=timer,
+        auto_plan=auto_plan, query_reuse=query_reuse,
         reuse_siblings=reuse_siblings, info=info)
 
 
@@ -1073,6 +1213,16 @@ def _rerank_candidates(embed_hi: Callable, queries, syn, cand: np.ndarray,
     return d, cand_t[i_sub.long()]
 
 
+def _topk_search(embed_fn: Callable, queries, syn, *, engine: str,
+                 **kw) -> tuple:
+    """Pass 1's top-k search on one device: flat, or parts for the 'taps'
+    engines (int8 for 'taps-int8')."""
+    if engine in PARTS_ENGINES:
+        return knn_topk_streamed_parts(embed_fn, queries, syn,
+                                       quantize=engine == "taps-int8", **kw)
+    return knn_topk_streamed(embed_fn, queries, syn, engine=engine, **kw)
+
+
 def knn_argmin_two_pass(embed_lo: Callable, embed_hi: Callable, queries,
                         syn, *, k: int = 8, engine: str = "gemm",
                         q_block: int = 2048, s_block: int = 2048,
@@ -1084,7 +1234,9 @@ def knn_argmin_two_pass(embed_lo: Callable, embed_hi: Callable, queries,
                         auto_plan: bool = True,
                         query_reuse: dict | None = None,
                         rerank_reuse: dict | None = None,
-                        info: dict | None = None):
+                        info: dict | None = None,
+                        topk_search: Callable | None = None,
+                        argmin_search: Callable | None = None):
     """Throughput mode with exact-index re-ranking and a runtime exactness
     certificate.
 
@@ -1102,30 +1254,31 @@ def knn_argmin_two_pass(embed_lo: Callable, embed_hi: Callable, queries,
     query caches across calls (``_stream_search``); an OOM recovery in
     either search drops both, since the other one pins device memory the
     recovery needs. ``info`` receives each search's record (``pass1``,
-    ``rerank``, ``fallback``) and their summed ``oom_resumes``."""
+    ``rerank``, ``fallback``) and their summed ``oom_resumes``.
+
+    ``topk_search`` / ``argmin_search``: pass 1's and the fallback's
+    searches, ``(embed, queries, syn, **search arguments)``; by default
+    this device's streamed ones (``parallel/knn_shard`` passes the
+    sharded ones)."""
     device = torch.device(device)
     timer = timer or PhaseTimer(device)
+    topk_search = topk_search or functools.partial(_topk_search,
+                                                   device=device)
+    argmin_search = argmin_search or functools.partial(knn_argmin_streamed,
+                                                       device=device)
     probe = _probe(embed_lo, queries, device)
     abs_err = 0.0
+    if engine == "taps-int8":
+        abs_err = _quant_abs_err(_part_bounds_for(embed_lo, queries, device),
+                                 [tuple(p.shape[1:]) for p in probe])
+    probe_dt = probe[0].dtype if engine in PARTS_ENGINES else probe.dtype
     infos = {"pass1": {}, "rerank": {}}
-    common = dict(k=k, q_block=q_block, s_block=s_block,
-                  query_cache_bytes=query_cache_bytes, with_info=True,
-                  device=device, timer=timer, auto_plan=auto_plan,
-                  query_reuse=query_reuse, reuse_siblings=(rerank_reuse,),
-                  info=infos["pass1"])
-    if engine in PARTS_ENGINES:
-        quant = engine == "taps-int8"
-        if quant:
-            abs_err = _quant_abs_err(_part_bounds_for(embed_lo, queries,
-                                                      device),
-                                     [tuple(p.shape[1:]) for p in probe])
-        topk_d, top_i, rq, rs_max = knn_topk_streamed_parts(
-            embed_lo, queries, syn, quantize=quant, **common)
-        probe_dt = probe[0].dtype
-    else:
-        topk_d, top_i, rq, rs_max = knn_topk_streamed(
-            embed_lo, queries, syn, engine=engine, **common)
-        probe_dt = probe.dtype
+    topk_d, top_i, rq, rs_max = topk_search(
+        embed_lo, queries, syn, k=k, engine=engine, q_block=q_block,
+        s_block=s_block, query_cache_bytes=query_cache_bytes,
+        with_info=True, timer=timer, auto_plan=auto_plan,
+        query_reuse=query_reuse, reuse_siblings=(rerank_reuse,),
+        info=infos["pass1"])
     top = top_i.cpu().numpy()
     cand = np.unique(top[top >= 0])  # -1 marks a slot past N_s
     d, idx = _rerank_candidates(embed_hi, queries, syn, cand, engine=engine,
@@ -1148,12 +1301,12 @@ def knn_argmin_two_pass(embed_lo: Callable, embed_hi: Callable, queries,
     if bad.size:
         print(f"[knn] two-pass certificate failed for {bad.size} "
               f"queries; exact-f32 fallback search")
-        d_fix, i_fix = knn_argmin_streamed(
+        d_fix, i_fix = argmin_search(
             embed_hi, queries[bad], syn,
             engine="exact" if engine == "exact" else "pallas",
             q_block=min(q_block, 1024), s_block=min(s_block, 1024),
             query_cache_bytes=min(query_cache_bytes, 2 << 30),
-            device=device, timer=timer, auto_plan=auto_plan,
+            timer=timer, auto_plan=auto_plan,
             reuse_siblings=(query_reuse, rerank_reuse),
             info=infos.setdefault("fallback", {}))
         bad_t = torch.as_tensor(bad, device=d.device)

@@ -36,7 +36,8 @@ def check_mesh(cfg) -> None:
     if tuple(cfg.mesh_shape) != (1,):
         raise NotImplementedError(
             f"mesh_shape {tuple(cfg.mesh_shape)}: multi-GPU training is not "
-            f"ported yet (ROADMAP M12); use mesh_shape=(1,)")
+            f"ported yet (ROADMAP M12, the next slice A.5b); use "
+            f"mesh_shape=(1,)")
 
 
 def resolve_grid_dir(cfg) -> str | None:

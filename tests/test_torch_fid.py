@@ -447,8 +447,10 @@ def test_cli_with_weights_and_surrogate(jax_variables, tmp_path, capsys):
     assert value == pytest.approx(want, rel=1e-12)
     cli_fid.main([p1, p2, "--sqrtm", "eigh"], device="cpu")
     assert "surrogate" in capsys.readouterr().out
-    with pytest.raises(NotImplementedError, match="M12"):
-        cli_fid.main([p1, p2, "--n_chips", "2"], device="cpu")
+    # two ranks (gloo processes on the CPU) read the same statistics
+    cli_fid.main([p1, p2, "--weights", weights, "--sqrtm", "scipy",
+                  "--n_chips", "2"], device="cpu")
+    assert float(capsys.readouterr().out.split("FID:")[1]) == value
 
 
 def test_surrogate_init_is_seeded_he():

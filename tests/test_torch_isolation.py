@@ -584,3 +584,37 @@ def test_privgan_entry_points_refuse_without_gpu(monkeypatch, tmp_path):
     for call in calls:
         with pytest.raises(RuntimeError, match="device='cpu'"):
             call()
+
+
+def test_parallel_and_dryrun_stand_alone():
+    """``parallel/*`` and ``dryrun`` import no JAX, no JAX package and no
+    optional library: the dry run on two ``gloo`` ranks works with all of
+    them unimportable in the launching process."""
+    code = textwrap.dedent("""
+        import ganleaks_tpu_torch.parallel.knn_shard
+        import ganleaks_tpu_torch.parallel.mesh
+        import ganleaks_tpu_torch.parallel.multihost
+        from ganleaks_tpu_torch.dryrun import dryrun_multichip
+        out = dryrun_multichip(2, device="cpu", timeout_s=300)
+        assert out["ranks"] == 2, out
+        bad = [m for m in sys.modules if m.split(".")[0] in BLOCKED]
+        assert not bad, bad
+        print("ok")
+    """)
+    res = _run_isolated(code)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip().endswith("ok")
+
+
+def test_multi_gpu_entry_points_refuse_without_gpu(monkeypatch):
+    from ganleaks_tpu_torch.attack.fbb import launch_attack
+    from ganleaks_tpu_torch.cli import fid as cli_fid
+    from ganleaks_tpu_torch.config import AttackConfig
+    from ganleaks_tpu_torch.dryrun import dryrun_multichip
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for call in (lambda: launch_attack(AttackConfig(n_chips=2)),
+                 lambda: dryrun_multichip(2),
+                 lambda: cli_fid.main(["a.npz", "b.npz", "--n_chips", "2"])):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()

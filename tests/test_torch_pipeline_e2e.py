@@ -155,20 +155,18 @@ def test_hyperparameter_sweep_layout(fixture_dirs, tmp_path, monkeypatch):
 
 
 def test_attack_arrays_refuses_unported_layouts():
-    """Multi-GPU layouts are refused; two_pass and the taps engines are
-    ported now and run (``tests/test_torch_two_pass.py`` holds them
-    against the JAX package)."""
+    """Only an unknown layout or dtype is refused. two_pass, the taps
+    engines and the multi-GPU fields run: without a mesh ``n_chips`` and
+    ``multihost`` leave ``attack_arrays`` on one device, as in the JAX
+    package (``tests/test_torch_two_pass.py`` and
+    ``tests/test_torch_multihost.py`` hold them against it)."""
     imgs = np.zeros((2, 8, 8, 3), np.uint8)
     for over in ({"two_pass": True}, {"engine": "taps"},
-                 {"engine": "taps-int8"}):
+                 {"engine": "taps-int8"}, {"n_chips": 4},
+                 {"multihost": True}):
         out = attack_arrays(AttackConfig(distance="l2", **over), imgs, imgs,
                             imgs, device="cpu")
         assert out["pos_loss"].shape == (2,)
-    for over, item in (({"n_chips": 4}, "M12"),
-                       ({"multihost": True}, "M12")):
-        with pytest.raises(NotImplementedError, match=item):
-            attack_arrays(AttackConfig(distance="l2", **over), imgs, imgs,
-                          imgs, device="cpu")
     with pytest.raises(ValueError, match="shard_layout"):
         attack_arrays(AttackConfig(distance="l2", shard_layout="x"), imgs,
                       imgs, imgs, device="cpu")
