@@ -82,43 +82,11 @@ def dryrun_multichip(n_devices: int, device: str | torch.device = "cuda",
     return out
 
 
-def _all_reduce_body() -> float:
-    import torch.distributed as dist
-
-    from ganleaks_tpu_torch.parallel.multihost import local_device
-
-    t = torch.ones(1, device=local_device())
-    dist.all_reduce(t)
-    return float(t.item())
-
-
-def nccl_shared_card(n_ranks: int, timeout_s: float = 120.0) -> dict:
-    """Whether NCCL puts ``n_ranks`` ranks of one communicator on one card
-    (``cuda:0``): an all-reduce of ones on each. Returns the sum, or the
-    error it raised (a rank's traceback's last line)."""
-    from ganleaks_tpu_torch.parallel.multihost import launch
-
-    try:
-        total = launch(_all_reduce_body, n_ranks, devices=["cuda:0"] * n_ranks,
-                       backend="nccl", timeout_s=timeout_s)
-        return {"ranks": n_ranks, "ok": True, "sum": total}
-    except (RuntimeError, TimeoutError) as e:
-        lines = [ln for ln in str(e).splitlines() if ln.strip()]
-        return {"ranks": n_ranks, "ok": False, "error": lines[-1][:300]}
-
-
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n", type=int, default=2, help="ranks")
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
-    ap.add_argument("--nccl_shared", action="store_true",
-                    help="instead, try NCCL with the n ranks on cuda:0 and "
-                         "print what it does")
     args = ap.parse_args(argv)
-    if args.nccl_shared:
-        import json
-        print(json.dumps(nccl_shared_card(args.n)))
-        return
     dryrun_multichip(args.n, args.device)
 
 

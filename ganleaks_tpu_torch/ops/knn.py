@@ -316,27 +316,31 @@ class RankHooks(NamedTuple):
     """What one rank of a search spread over several adds to
     :func:`_stream_search` (``parallel/knn_shard`` builds them).
 
-    ``col_offset``: the global index of this rank's first synthetic row;
-    ``sweep_rows``: the synthetic rows every rank walks (its shard, padded
-    to the largest: past its own rows a rank's blocks hold none);
-    ``gather``: with queries replicated, each query block is featurised a
-    ``1/size`` share per rank and ``gather(rows)`` all-gathers the shares
-    in rank order; ``combine(state)``: the state merged over the ranks at
-    each chunk's end; ``agree(flag)``: whether ``flag`` holds on any rank;
-    ``budget(capacity)``: the planner's budget agreed over the ranks;
-    ``empty_blocks``: call ``fold`` on blocks past this rank's rows too
-    (zeros, ``n_valid`` 0), for a fold that exchanges blocks with the
-    others."""
+    ``least(n)``: the least int ``n`` over the ranks (a flag's: whether
+    it holds on every rank); ``budget(capacity)``: the planner's budget
+    agreed over the ranks; ``col_offset``: the global index of this rank's
+    first synthetic row; ``sweep_rows``: the synthetic rows every rank
+    walks (its shard, padded to the largest: past its own rows a rank's
+    blocks hold none); ``gather``: with queries replicated, each query
+    block is featurised a ``1/size`` share per rank, and ``gather(rows)``
+    stages a share for the all-gather, allocating all it needs, and
+    returns an object whose ``into(dst)`` makes the collective and copies
+    every rank's rows, in rank order, into the cache (``len``: the rows);
+    ``combine(state)``: the state merged over the ranks at each chunk's
+    end; ``exchanges``: the fold exchanges blocks with the other ranks, so
+    it is also called on blocks past this rank's rows (zeros, ``n_valid``
+    0), agrees its own out-of-memory errors before each exchange (raising
+    the same error on every rank) and times its own 'fold' spans."""
 
     rank: int
     size: int
-    agree: Callable[[bool], bool]
+    least: Callable[[int], int]
     budget: Callable
     col_offset: int = 0
     sweep_rows: int | None = None
     gather: Callable | None = None
     combine: Callable | None = None
-    empty_blocks: bool = False
+    exchanges: bool = False
 
 
 def _stream_search(spec: SearchSpec, queries, syn, *, q_block: int,
@@ -386,8 +390,17 @@ def _stream_search(spec: SearchSpec, queries, syn, *, q_block: int,
     Ranks that disagree on a block size call their collectives in another
     order and hang, so every rank plans from the budget agreed over them
     (``ranks.budget``), the reuse decision is agreed, and every step that
-    can run out of memory is agreed before the next collective: an OOM on
-    any rank makes every rank halve alike (``ranks.agree``).
+    can run out of memory and precedes a collective is agreed before it
+    (``ranks.least``): the cache allocation, each query share together
+    with its staging for the all-gather, and on a ring each synthetic
+    block's featurisation (the fold agrees its hops itself). An OOM there
+    on any rank makes every rank halve alike. A sharded sweep holds no
+    collective until the chunk's merge, so there a rank halves
+    ``s_block`` alone, and once per chunk, before the merge, the ranks
+    agree how it ended: every rank takes the least
+    ``s_block`` (recording the halvings that reach it), restarts the chunk
+    where any rank must, or raises where any rank cannot go on. Only the
+    merges themselves (a few bytes per query row) are not guarded.
 
     ``query_reuse`` (a dict the caller keeps): when every query row fits
     one chunk, the verified cache is held there under
@@ -433,18 +446,24 @@ def _stream_search(spec: SearchSpec, queries, syn, *, q_block: int,
     s_block0 = s_block
     col_offset = 0 if ranks is None else ranks.col_offset
     gather = None if ranks is None else ranks.gather
+    exchanges = ranks is not None and ranks.exchanges
 
-    def agreed(fn):
+    def attempt(fn):
         """``(fn(), None)``, or ``(None, the OOM)`` when it ran out of
-        memory — on one rank of several, when any rank did."""
+        memory."""
         try:
-            out, err = fn(), None
+            return fn(), None
         except torch.cuda.OutOfMemoryError as e:
             # keep the error, not the failed attempt's tensors: its frames
             # would pin them through the retry
             traceback.clear_frames(e.__traceback__)
-            out, err = None, e
-        if ranks is not None and ranks.agree(err is not None) \
+            return None, e
+
+    def agreed(fn):
+        """:func:`attempt`; on one rank of several, the OOM when any rank
+        ran out of memory."""
+        out, err = attempt(fn)
+        if ranks is not None and not ranks.least(err is None) \
                 and err is None:
             err = torch.cuda.OutOfMemoryError("another rank ran out of "
                                               "device memory")
@@ -452,31 +471,58 @@ def _stream_search(spec: SearchSpec, queries, syn, *, q_block: int,
 
     def query_share(qs: int, q_block: int):
         """This rank's featurised rows of the query block at ``qs``: the
-        whole block, or its ``1/size`` share where ``gather`` joins the
-        shares (zeros past the queries)."""
+        whole block, or its ``1/size`` share (zeros past the queries),
+        staged for ``gather``."""
         if gather is None:
             return block_norms(queries, qs, q_block)[:2]
         per = -(-q_block // ranks.size)
         lo = qs + ranks.rank * per
         if lo >= n_q:
-            return (torch.zeros((per, k_dim), dtype=cdtype, device=device),
-                    torch.zeros(per, device=device))
-        return block_norms(queries, lo, per)[:2]
-
-    def sweep_block(state, cache, rq, ss: int, s_block: int):
-        if ss < n_s:
-            s_emb, rs, n_valid = block_norms(syn, ss, s_block)
-        elif ranks is not None and ranks.empty_blocks:  # past this shard
-            s_emb = torch.zeros((s_block, k_dim), dtype=cdtype,
-                                device=device)
-            rs, n_valid = torch.zeros(s_block, device=device), 0
+            share = (torch.zeros((per, k_dim), dtype=cdtype, device=device),
+                     torch.zeros(per, device=device))
         else:
+            share = block_norms(queries, lo, per)[:2]
+        return tuple(gather(t) for t in share)
+
+    def featurise(ss: int, s_block: int):
+        """The synthetic block at ``ss``: ``(emb, norms, n_valid)``, zeros
+        past this shard where the fold exchanges blocks, else None."""
+        if ss < n_s:
+            return block_norms(syn, ss, s_block)
+        if exchanges:
+            return (torch.zeros((s_block, k_dim), dtype=cdtype,
+                                device=device),
+                    torch.zeros(s_block, device=device), 0)
+        return None
+
+    def fold(state, cache, rq, blk, ss: int):
+        if blk is None:
             return state
+        s_emb, rs, n_valid = blk
+        if exchanges:  # the fold times its own spans, not its exchanges
+            return spec.fold(state, cache, rq, s_emb, rs, col_offset + ss,
+                             n_valid)
         tok = timer.start("fold")
         state = spec.fold(state, cache, rq, s_emb, rs, col_offset + ss,
                           n_valid)
         timer.stop(tok)
         return state
+
+    def sweep_step(state, cache, rq, ss: int, s_block: int):
+        """One synthetic block folded: ``(state, None)`` or ``(None, the
+        OOM)``. Where the fold exchanges blocks, the featurisation is
+        agreed before the fold's first exchange; the fold agrees its own
+        errors."""
+        if not exchanges:
+            return attempt(lambda: fold(state, cache, rq,
+                                        featurise(ss, s_block), ss))
+        blk, err = agreed(lambda: featurise(ss, s_block))
+        if err is not None:
+            return None, err
+        return attempt(lambda: fold(state, cache, rq, blk, ss))
+
+    def shrink_chunk() -> int:
+        return max(q_block, (chunk_rows // 2) // q_block * q_block)
 
     outs, sweeps, reused_any, cache_rows = [], 0, False, 0
     qs0 = 0
@@ -489,7 +535,7 @@ def _stream_search(spec: SearchSpec, queries, syn, *, q_block: int,
             reused = (query_reuse is not None and one_chunk
                       and query_reuse.get("fp") == fp)
             if ranks is not None:  # every rank reuses, or none does
-                reused = not ranks.agree(not reused)
+                reused = bool(ranks.least(reused))
             if query_reuse and not one_chunk:
                 # a held cache never engages on a multi-chunk schedule:
                 # drop it instead of pinning it through the search
@@ -503,8 +549,7 @@ def _stream_search(spec: SearchSpec, queries, syn, *, q_block: int,
                                                        device))
                 if err is not None:
                     if chunk_rows > q_block:
-                        chunk_rows = max(q_block, (chunk_rows // 2)
-                                         // q_block * q_block)
+                        chunk_rows = shrink_chunk()
                         dim, size = "chunk_rows", chunk_rows
                     elif q_block > 1:
                         # one q_block of rows itself does not fit
@@ -529,10 +574,15 @@ def _stream_search(spec: SearchSpec, queries, syn, *, q_block: int,
                                 f"query featurize OOM; q_block={q_block} "
                                 f"(resuming at row {qs})")
                         continue
-                    e, r = got if gather is None else map(gather, got)
-                    n = min(e.shape[0], padded - (qs - qs0))
-                    cache[qs - qs0:qs - qs0 + n] = e[:n]
-                    rq[qs - qs0:qs - qs0 + n] = r[:n]
+                    e, r = got
+                    at = qs - qs0
+                    n = min(len(e), padded - at)
+                    if gather is None:
+                        cache[at:at + n] = e[:n]
+                        rq[at:at + n] = r[:n]
+                    else:  # the collective, into the cache: no allocation
+                        e.into(cache[at:at + n])
+                        r.into(rq[at:at + n])
                     qs += n
                     del got, e, r
                 if query_reuse is not None and one_chunk:
@@ -541,11 +591,10 @@ def _stream_search(spec: SearchSpec, queries, syn, *, q_block: int,
                                        rq=rq)
             cache_rows = max(cache_rows, padded)
             state = spec.init_state(padded)
-            ss, restart = 0, False
+            ss, restart, fatal = 0, False, None
             while ss < n_sweep:
                 step = min(s_block, n_sweep - ss)
-                new, err = agreed(lambda: sweep_block(state, cache, rq, ss,
-                                                      s_block))
+                new, err = sweep_step(state, cache, rq, ss, s_block)
                 if err is None:
                     state = new
                     ss += step
@@ -563,13 +612,30 @@ def _stream_search(spec: SearchSpec, queries, syn, *, q_block: int,
                 # redo this chunk (a chunk of one q_block cannot
                 # shrink further)
                 if chunk_rows <= q_block or padded <= q_block:
-                    raise err
-                chunk_rows = max(q_block,
-                                 (chunk_rows // 2) // q_block * q_block)
-                s_block = s_block0
-                restart = True
+                    fatal = err
+                else:
+                    restart = True
                 break
+            if ranks is not None:
+                # how the chunk ended, agreed before the merge: -1 fatal,
+                # 0 restart, else the s_block every rank goes on with
+                least = ranks.least(-1 if fatal is not None
+                                    else 0 if restart else s_block)
+                if least < 0 and fatal is None:
+                    fatal = torch.cuda.OutOfMemoryError(
+                        "another rank ran out of device memory at one "
+                        "synthetic row")
+                restart = least == 0
+                while least > 0 and s_block > least:
+                    s_block //= 2
+                    _halved(info, "s_block", s_block,
+                            f"another rank's synthetic stream OOM; "
+                            f"s_block={s_block} (from the next chunk)")
+            if fatal is not None:
+                raise fatal
             if restart:
+                chunk_rows = shrink_chunk()
+                s_block = s_block0
                 del cache, rq, state
                 _release(device, holders)
                 _halved(info, "chunk_rows", chunk_rows,

@@ -20,7 +20,8 @@ shards, featurising per block (small sets; the dry run). The streamed
 searches run the single-device loop (``ops/knn._stream_search``) on each
 rank with :class:`~ganleaks_tpu_torch.ops.knn.RankHooks`: the planner's
 budget agreed over the ranks (ranks sharing a card split its budget), an
-out-of-memory on any rank halving every rank's block alike, and
+out-of-memory on any rank halving every rank's block alike before the next
+collective (``_stream_search`` says where), and
 
 * :func:`knn_argmin_sharded_streamed` / :func:`knn_topk_sharded_streamed`:
   each query block featurised a share per rank and all-gathered into the
@@ -53,8 +54,9 @@ from ganleaks_tpu_torch.ops.knn import (ENGINES, PARTS_ENGINES, PhaseTimer,
                                         knn_argmin_two_pass, pad_rows,
                                         sq_norms, topk_parts_spec,
                                         topk_spec)
-from ganleaks_tpu_torch.parallel.mesh import (Mesh, all_gather_rows,
-                                              any_rank, gather_state,
+from ganleaks_tpu_torch.parallel.mesh import (Mesh, RingTransfer, RowGather,
+                                              all_gather_rows, any_rank,
+                                              gather_state,
                                               reduce_max_tensor,
                                               reduce_scalar, ring_shift,
                                               shard_rows)
@@ -187,7 +189,7 @@ def _budget(mesh: Mesh) -> Callable:
 
 def _hooks(mesh: Mesh, **kw) -> RankHooks:
     return RankHooks(rank=mesh.rank, size=mesh.size,
-                     agree=lambda flag: any_rank(flag, mesh),
+                     least=lambda n: int(reduce_scalar(n, mesh, "min")),
                      budget=_budget(mesh), **kw)
 
 
@@ -245,7 +247,7 @@ def _sharded_search(spec_fn: Callable, combine: Callable, queries, syn,
         timer=timer, auto_plan=auto_plan, query_reuse=query_reuse,
         reuse_siblings=reuse_siblings, info=info,
         ranks=_hooks(mesh, col_offset=start, sweep_rows=per,
-                     gather=lambda t: all_gather_rows(t, mesh),
+                     gather=lambda t: RowGather(t, mesh),
                      combine=combine))
 
 
@@ -344,8 +346,10 @@ def knn_argmin_ring_streamed(embed_fn, queries, syn, mesh: Mesh, *,
     query shard's embeddings (chunked, as ``ops/knn``), featurises each
     block of its home synthetic shard ONCE, and the embedded block makes
     ``size - 1`` hops to the next rank, each hop's transfer running while
-    this rank folds the block (:func:`~ganleaks_tpu_torch.parallel.mesh.
-    ring_shift`); the hops merge by (distance, global index). Per-rank
+    this rank folds the block (:class:`~ganleaks_tpu_torch.parallel.mesh.
+    RingTransfer`); the hops merge by (distance, global index). The 'fold'
+    spans of ``timer`` time the folds alone; the hops' waits and copies
+    are in ``mesh.stats``. Per-rank
     memory: a shard of each set, the shard's query cache and two embedded
     blocks — flat in both set sizes. The result, gathered, is on every
     rank. ``query_reuse`` holds this rank's query-shard cache (its
@@ -373,28 +377,47 @@ def knn_argmin_ring_streamed(embed_fn, queries, syn, mesh: Mesh, *,
         return min(max(n_s - origin * s_per, 0), s_per)
 
     def ring_fold(state, cache, rq, s_emb, rs, ss, n_valid):
-        fresh = init_state(rq.shape[0])
+        """Fold the home block at ``ss`` and the ``size - 1`` blocks it
+        meets on its way round. Every step that can run out of memory
+        (staging a hop, folding, landing the received block) is agreed
+        before the next hop is posted, so an OOM on one rank makes every
+        rank raise it at the same step; the caller keeps ``state``."""
         run_d, run_i = state
-        cur = [s_emb, rs]
+        cur, hop, failed = [s_emb, rs], None, False
+        try:
+            fresh = init_state(rq.shape[0])
+            if mesh.size > 1:
+                hop = RingTransfer(cur, mesh)
+        except torch.cuda.OutOfMemoryError:
+            failed = True
         for t in range(mesh.size):
+            if t < mesh.size - 1:  # before the next hop: all alike
+                if any_rank(failed, mesh):
+                    raise torch.cuda.OutOfMemoryError(
+                        "ring step out of device memory on a rank")
+                hop.start()  # runs while this rank folds cur
             origin = (mesh.rank - t) % mesh.size
             valid = min(max(shard_len(origin) - ss, 0), cur[0].shape[0])
-            pending = ring_shift(cur, mesh) if t < mesh.size - 1 else None
-            failed, blk = False, None
             try:
-                if valid:
+                if valid and not failed:
+                    tok = timer.start("fold")
                     blk = fold(fresh, cache, rq, cur[0], cur[1],
                                origin * s_per + ss, valid)
+                    run_d, run_i = _lex_merge(run_d, run_i, *blk)
+                    timer.stop(tok)
             except torch.cuda.OutOfMemoryError:
                 failed = True
-            if pending is not None:
-                cur = pending.wait()
-            # before the next hop: every rank gives up this step alike
-            if any_rank(failed, mesh):
-                raise torch.cuda.OutOfMemoryError(
-                    "ring step out of device memory on a rank")
-            if blk is not None:
-                run_d, run_i = _lex_merge(run_d, run_i, *blk)
+            if t < mesh.size - 1:
+                hop.finish()  # every posted hop completes on every rank
+                try:
+                    cur = hop.land()
+                    hop = (RingTransfer(cur, mesh) if t + 2 < mesh.size
+                           else None)
+                except torch.cuda.OutOfMemoryError:
+                    failed = True
+        if any_rank(failed, mesh):
+            raise torch.cuda.OutOfMemoryError(
+                "ring step out of device memory on a rank")
         return run_d, run_i
 
     spec = spec._replace(fold=ring_fold, signature=spec.signature
@@ -404,5 +427,5 @@ def knn_argmin_ring_streamed(embed_fn, queries, syn, mesh: Mesh, *,
         query_cache_bytes=query_cache_bytes, device=device, timer=timer,
         auto_plan=auto_plan, query_reuse=query_reuse,
         reuse_siblings=reuse_siblings, info=info,
-        ranks=_hooks(mesh, sweep_rows=s_per, empty_blocks=True))
+        ranks=_hooks(mesh, sweep_rows=s_per, exchanges=True))
     return (all_gather_rows(d, mesh)[:n_q], all_gather_rows(i, mesh)[:n_q])

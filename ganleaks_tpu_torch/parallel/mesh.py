@@ -152,20 +152,55 @@ def _collective(mesh: Mesh, fn):
     return _timed(mesh, "collective_s", fn)
 
 
+class RowGather:
+    """An all-gather of equal shapes in two steps, so that a caller can
+    agree on out-of-memory errors before the collective: construction
+    stages ``x`` and allocates the gathered buffer (the only steps that
+    allocate); :meth:`run` makes the collective and returns every rank's
+    ``x`` stacked in rank order, ``(size, *x.shape)``, as the backend
+    carries it (host memory on a staged mesh); :meth:`into` makes it and
+    copies the rows into device memory the caller holds. ``len``: the
+    rows gathered."""
+
+    def __init__(self, x: torch.Tensor, mesh: Mesh):
+        self.mesh, self.rows = mesh, mesh.size * x.shape[0]
+        self.wire = _to_wire(mesh, x)
+        if mesh.backend == "nccl":
+            self.out = self.wire.new_empty((mesh.size,)
+                                           + tuple(self.wire.shape))
+        else:
+            self.out = [torch.empty_like(self.wire)
+                        for _ in range(mesh.size)]
+
+    def run(self) -> torch.Tensor:
+        mesh = self.mesh
+        if mesh.backend == "nccl":
+            _collective(mesh, lambda: dist.all_gather_into_tensor(
+                self.out, self.wire, group=mesh.group))
+            return self.out
+        _collective(mesh, lambda: dist.all_gather(self.out, self.wire,
+                                                  group=mesh.group))
+        return torch.stack(self.out)
+
+    def __len__(self) -> int:
+        return self.rows
+
+    def into(self, dst: torch.Tensor) -> None:
+        """The collective, then the first ``len(dst)`` gathered rows (rank
+        order) copied into ``dst``: no device allocation; on a staged
+        mesh, a host-to-device copy counted as staging."""
+        rows = self.run().flatten(0, 1)[:dst.shape[0]]
+        if not self.mesh.host_staged:
+            dst.copy_(rows)
+            return
+        self.mesh.stats["staged_bytes"] += rows.numel() * rows.element_size()
+        _timed(self.mesh, "staging_s", lambda: dst.copy_(rows))
+
+
 def gather_stack(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
     """Every rank's ``x`` (equal shapes on all ranks) stacked in rank
     order: ``(size, *x.shape)``."""
-    w = _to_wire(mesh, x)
-    if mesh.backend == "nccl":
-        out = w.new_empty((mesh.size,) + tuple(w.shape))
-        _collective(mesh, lambda: dist.all_gather_into_tensor(
-            out, w, group=mesh.group))
-    else:
-        parts = [torch.empty_like(w) for _ in range(mesh.size)]
-        _collective(mesh, lambda: dist.all_gather(parts, w,
-                                                  group=mesh.group))
-        out = torch.stack(parts)
-    return _from_wire(mesh, out)
+    return _from_wire(mesh, RowGather(x, mesh).run())
 
 
 def all_gather_rows(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
@@ -239,32 +274,51 @@ def gather_objects(obj, mesh: Mesh) -> list:
 
 
 class RingTransfer:
-    """Tensors on their way from the previous rank of the ring
-    (:func:`ring_shift`); :meth:`wait` returns them on this rank's
-    device."""
+    """A paired exchange around the ring in steps, so that a caller can
+    agree on out-of-memory errors before each collective: construction
+    stages ``tensors`` for the next rank and allocates the buffers for
+    the previous rank's (same shapes; on an NCCL mesh, device memory);
+    :meth:`start` posts the paired ``batch_isend_irecv`` (blocking sends
+    around a ring deadlock under ``gloo``), which allocates no device
+    memory; :meth:`finish` waits for it; :meth:`land` returns the received
+    tensors on this rank's device (on a staged mesh, a device copy)."""
 
-    def __init__(self, mesh: Mesh, works: list, received: list):
-        self.mesh, self.works, self.received = mesh, works, received
+    def __init__(self, tensors: list[torch.Tensor], mesh: Mesh):
+        self.mesh, self.works = mesh, []
+        if mesh.size == 1:  # the ring of one: the tensors come back
+            self.out = self.received = list(tensors)
+            return
+        self.out = [_to_wire(mesh, t) for t in tensors]
+        self.received = [torch.empty_like(w) for w in self.out]
+
+    def start(self) -> "RingTransfer":
+        mesh = self.mesh
+        if mesh.size == 1:
+            return self
+        nxt = mesh.peer((mesh.rank + 1) % mesh.size)
+        prv = mesh.peer((mesh.rank - 1) % mesh.size)
+        ops = []
+        for tag, (w, r) in enumerate(zip(self.out, self.received)):
+            ops.append(dist.P2POp(dist.isend, w, nxt, mesh.group, tag))
+            ops.append(dist.P2POp(dist.irecv, r, prv, mesh.group, tag))
+        self.works = _collective(mesh, lambda: dist.batch_isend_irecv(ops))
+        return self
+
+    def finish(self) -> None:
+        _collective(self.mesh, lambda: [w.wait() for w in self.works])
+        self.works = []
+
+    def land(self) -> list[torch.Tensor]:
+        return [_from_wire(self.mesh, t) for t in self.received]
 
     def wait(self) -> list[torch.Tensor]:
-        _collective(self.mesh, lambda: [w.wait() for w in self.works])
-        return [_from_wire(self.mesh, t) for t in self.received]
+        """:meth:`finish`, then :meth:`land`."""
+        self.finish()
+        return self.land()
 
 
 def ring_shift(tensors: list[torch.Tensor], mesh: Mesh) -> RingTransfer:
     """Send ``tensors`` to the next rank and receive the previous rank's
-    (same shapes) as one paired ``batch_isend_irecv``: blocking sends
-    around a ring deadlock under ``gloo``. Returns at once; the transfer
-    runs while this rank computes, until :meth:`RingTransfer.wait`."""
-    if mesh.size == 1:
-        return RingTransfer(mesh, [], list(tensors))
-    nxt = mesh.peer((mesh.rank + 1) % mesh.size)
-    prv = mesh.peer((mesh.rank - 1) % mesh.size)
-    out = [_to_wire(mesh, t) for t in tensors]
-    received = [torch.empty_like(w) for w in out]
-    ops = []
-    for tag, (w, r) in enumerate(zip(out, received)):
-        ops.append(dist.P2POp(dist.isend, w, nxt, mesh.group, tag))
-        ops.append(dist.P2POp(dist.irecv, r, prv, mesh.group, tag))
-    works = _collective(mesh, lambda: dist.batch_isend_irecv(ops))
-    return RingTransfer(mesh, works, received)
+    (same shapes): a started :class:`RingTransfer`, which runs while this
+    rank computes, until :meth:`RingTransfer.wait`."""
+    return RingTransfer(tensors, mesh).start()

@@ -3,8 +3,8 @@ kNN (``ganleaks_tpu_torch.parallel.knn_shard``) on ``gloo`` ranks on the
 CPU, world sizes 2, 3 and 4, against the port's single-process search and
 the JAX package's mesh searches on the 8-device virtual CPU mesh, after
 ``tests/test_knn_mesh_streamed.py`` (the streamed ring per engine, ties
-across shards, featurising each row once, an OOM in one rank's hop, blocks
-that do not divide the shards) and ``tests/test_knn_pallas_sharded.py:
+across shards, featurising each row once, an OOM on one rank at each step
+of a hop, blocks that do not divide the shards) and ``tests/test_knn_pallas_sharded.py:
 58-107`` (the resident sharded and ring searches, the tie-break across
 shards).
 
@@ -183,6 +183,18 @@ def test_ring_oom_on_one_rank_resumes_alike(ranks):
     d0, i0 = _single("exact", DATA["q37"], DATA["s37"], 5, 5)
     np.testing.assert_array_equal(ranks["ring_oom"][1], i0.numpy())
     np.testing.assert_allclose(ranks["ring_oom"][0], d0.numpy(), rtol=RTOL)
+
+
+@pytest.mark.parametrize("site", ("featurise", "staging", "landing"))
+def test_ring_oom_at_each_step_resumes_alike(ranks, site):
+    """The last rank alone runs out of memory featurising a home block,
+    staging a hop or landing a received block: every rank raises it at
+    the same step, before the next hop, and halves s_block (5 -> 2); the
+    result is the unforced run's, bit for bit."""
+    res, halvings = ranks[f"ring_oom_{site}"]
+    assert halvings == [[{"dim": "s_block", "to": 2}]] * ranks["size"]
+    for a, b in zip(res, ranks["ring_nondivisor"]):
+        np.testing.assert_array_equal(a, b)
 
 
 @pytest.mark.parametrize("n_syn", (64, 60))

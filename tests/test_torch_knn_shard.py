@@ -6,7 +6,8 @@ after ``tests/test_knn_mesh_streamed.py``: every engine, several chunks
 with ties across shards, top-k and the certificate's inputs, the
 featurisation work per chunk, a block that does not divide the shard,
 two-pass (the certificate, its fallback, pass 1 on every engine),
-an OOM forced on one rank only, query reuse, the agreed budget.
+an OOM forced on one rank only (at each kind of step), query reuse, the
+agreed budget.
 
 One ``launch`` per world size runs every case (``torch_rank_workers.
 sharded_cases``); the tests assert them one by one. Bars: indices
@@ -235,6 +236,24 @@ def test_oom_on_one_rank_resumes_alike(ranks):
                                       DATA["s32"], engine="exact",
                                       q_block=16, s_block=8)
     np.testing.assert_array_equal(ranks["oom"][1], i0.numpy())
+
+
+@pytest.mark.parametrize("site", ("staging", "sweep"))
+def test_oom_on_one_rank_at_each_step(ranks, site):
+    """The last rank fails staging its first query share for the
+    all-gather: every rank halves q_block before the collective. Rank
+    1 % size fails twice featurising its first synthetic block: it halves
+    s_block alone mid-sweep (no collective there) and the others take its
+    s_block at the chunk's end, recording the same halvings. Both
+    results are the unforced run's, bit for bit."""
+    res, halvings = ranks[f"oom_{site}"]
+    assert all(h == halvings[0] for h in halvings), halvings
+    want = ([{"dim": "q_block", "to": 8 if ranks["size"] != 3 else 9}]
+            if site == "staging" else
+            [{"dim": "s_block", "to": 4}, {"dim": "s_block", "to": 2}])
+    assert halvings[0] == want
+    for a, b in zip(res, ranks["oom_clean"]):
+        np.testing.assert_array_equal(a, b)
 
 
 def test_sharded_query_reuse_on_every_rank(ranks):

@@ -51,16 +51,36 @@ def embed_lo(x):
 
 class OneShotOOM:
     """Wraps ``fn``: on rank ``rank`` only, its call number ``at`` raises
-    ``torch.cuda.OutOfMemoryError`` once."""
+    ``torch.cuda.OutOfMemoryError`` once. With ``row``, only the calls
+    whose first argument's first row is ``row`` count."""
 
-    def __init__(self, fn, rank: int, at: int = 1):
+    def __init__(self, fn, rank: int, at: int = 1, row=None):
         self.fn, self.rank, self.at, self.calls = fn, rank, at, 0
+        self.row = None if row is None else torch.as_tensor(row)
 
     def __call__(self, *a, **kw):
-        self.calls += 1
-        if dist.get_rank() == self.rank and self.calls == self.at:
-            raise torch.cuda.OutOfMemoryError("injected on one rank")
+        if self.row is None or torch.equal(torch.as_tensor(a[0])[0],
+                                           self.row):
+            self.calls += 1
+            if dist.get_rank() == self.rank and self.calls == self.at:
+                raise torch.cuda.OutOfMemoryError("injected on one rank")
         return self.fn(*a, **kw)
+
+
+def _forced(mesh, run, obj=None, name: str = "", at: int = 1) -> tuple:
+    """``run(info)``, with ``obj.name`` failing once on the last rank at
+    its call ``at`` where ``obj`` is given: the result and every rank's
+    halvings."""
+    real = getattr(obj, name, None)
+    if obj is not None:
+        setattr(obj, name, OneShotOOM(real, mesh.size - 1, at=at))
+    info: dict = {}
+    try:
+        res = _np(*run(info))
+    finally:
+        if obj is not None:
+            setattr(obj, name, real)
+    return res, _halvings(info, mesh)
 
 
 def _halvings(info: dict, mesh) -> list:
@@ -134,6 +154,22 @@ def sharded_cases(data: dict) -> dict:
     out["oom_clean"] = _np(*ks.knn_argmin_sharded_streamed(
         make_embed_fn("l2"), data["q32"], data["s32"], mesh, engine="exact",
         q_block=16, s_block=8, query_cache_bytes=32 * 192 * 4))
+
+    # one rank fails staging its first query share for the all-gather, or
+    # twice in a row featurising its first synthetic block (a sweep holds
+    # no collective: the others take its s_block at the chunk's end)
+    def run(embed):
+        return lambda info: ks.knn_argmin_sharded_streamed(
+            embed, data["q32"], data["s32"], mesh, engine="exact",
+            q_block=16, s_block=8, info=info)
+
+    out["oom_staging"] = _forced(mesh, run(make_embed_fn("l2")), pmesh,
+                                 "_to_wire")
+    first = data["s32"][pmesh.shard_rows(32, mesh, 8)[0]] \
+        if mesh.rank == 1 % mesh.size else None
+    twice = OneShotOOM(OneShotOOM(make_embed_fn("l2"), 1 % mesh.size,
+                                  row=first), 1 % mesh.size, row=first)
+    out["oom_sweep"] = _forced(mesh, run(twice))
     # query reuse across calls: the second call over the same queries
     # skips their featurisation on every rank
     holder: dict = {}
@@ -185,6 +221,22 @@ def ring_cases(data: dict) -> dict:
     finally:
         knn._fold_block = real_fold
     out["ring_oom_halvings"] = _halvings(info, mesh)
+
+    # the last rank fails featurising its second home block, staging a
+    # hop, or landing a received block
+    def ring(embed):
+        return lambda info: ks.knn_argmin_ring_streamed(
+            embed, data["q37"], data["s37"], mesh, engine="exact",
+            q_block=5, s_block=5, info=info)
+
+    last = mesh.size - 1
+    home = pmesh.shard_rows(37, mesh, 5)[0]
+    row = data["s37"][home + 5] if mesh.rank == last else None
+    out["ring_oom_featurise"] = _forced(
+        mesh, ring(OneShotOOM(make_embed_fn("l2"), last, row=row)))
+    for site, name in (("staging", "_to_wire"), ("landing", "_from_wire")):
+        out[f"ring_oom_{site}"] = _forced(mesh, ring(make_embed_fn("l2")),
+                                          pmesh, name, at=3)
     out["ring_nondivisor"] = _np(*ks.knn_argmin_ring_streamed(
         make_embed_fn("l2"), data["q37"], data["s37"], mesh, engine="exact",
         q_block=5, s_block=5))
