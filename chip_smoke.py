@@ -213,6 +213,25 @@ Phases, each printing JSON lines:
    float64 distance, every planted member below every non-member, each
    rank's K1 / K2 / K3 launches against the plan; seconds per rank
    beside one process's, and the host-staging seconds and bytes.
+17. train_ranks (run after phase 14, on phase 12's PNGs): the trainers'
+   multi-GPU layouts — one ``parallel/multihost.launch`` of 2 ranks on
+   cuda:0 over ``gloo``: DCGAN and WGAN-GP (nz 100, ngf / ndf 64, batch
+   128), VAE-GAN (batch 64), medGAN (1,071 codes, batch 2,000) and PGGAN
+   (64 px, batch 32, float32 and bf16) data-parallel (``parallel/dp``), a
+   warm-up step and 3 timed ones, each against one process's steps on
+   the same batches and draws (rank 0 runs them): the replicas bit for
+   bit, losses, updates, buffers and every parameter within phases
+   12-13's float32 / bf16 bars, steps/s per rank beside one process's,
+   the collective seconds and staged bytes a step; EP privDCGAN (gate
+   off) and privPGGAN (gate on) at 2 splits, one a rank
+   (``parallel/ep``), 2 steps against the all-splits step, the
+   classifier's replicas bit for bit; ``train`` (one epoch at batch 128)
+   + ``generate`` of DCGAN on the 2 ranks (rank 0 alone writes the
+   checkpoint), 256 training PNGs planted, ``run_attack`` ('auto': K2
+   launches counted), ``evaluate``; then one rank over NCCL: the DCGAN
+   data-parallel steps on a mesh of size 1 against one process's. Phase
+   16's ``dryrun_multichip(2)`` runs the data-parallel DCGAN step and the
+   EP privDCGAN step too.
 
 Phase 12 and phase 14's privDCGAN hold also print each convolution's
 gradient error against float64 with cuDNN and without it
@@ -4253,6 +4272,537 @@ def phase_ranks(torch, data: dict, single: dict, smi: str) -> dict:
     return results
 
 
+# ---------------------------------------------------------------------------
+# phase 17: the trainers' layouts on ranks (parallel/dp and parallel/ep)
+# ---------------------------------------------------------------------------
+
+TRAIN_RANK_S = 600         # each phase-17 launch's limit
+TRAIN_RANK_STEPS = 3       # timed steps per trainer, after a warm-up step
+# (label, victim, compute dtype) of the data-parallel runs on two ranks
+TRAIN_RANK_RUNS = (("dcgan", "dcgan", "float32"),
+                   ("wgangp", "wgangp", "float32"),
+                   ("vaegan", "vaegan", "float32"),
+                   ("medgan", "medgan", "float32"),
+                   ("pggan_f32", "pggan", "float32"),
+                   ("pggan_bf16", "pggan", "bfloat16"))
+# (label, victim, the classifier's gate) of the expert-parallel runs, 2
+# steps each: with the gate off EP computes the all-splits step; with it
+# on the classifier normalises (privPGGAN: its minibatch std) each rank's
+# fakes alone, so that run is held on its losses and its updates printed
+EP_RANK_RUNS = (("privdcgan", "privdcgan", False),
+                ("privpggan", "privpggan", False),
+                ("privpggan_gate_on", "privpggan", True))
+EP_GATE_ON_LOSS_RTOL = V2_TRAJ_RTOL["privpggan"]
+EP_RANK_STEPS = 2
+RANK_TRAJ_RTOL = {"dcgan": VICTIM_TRAJ_RTOL["dcgan"],
+                  "wgangp": VICTIM_TRAJ_RTOL["wgangp"], **V2_TRAJ_RTOL}
+
+
+def tr_config(kind: str, dtype: str):
+    """The config of a phase-17 run: phases 12-13's widths and batches
+    (DCGAN / WGAN-GP nz 100, ngf / ndf 64, batch 128; VAE-GAN batch 64;
+    medGAN 1,071 codes, batch 2,000; PGGAN to 64 px, batch 32)."""
+    from ganleaks_tpu_torch.config import DCGANConfig, WGANGPConfig
+    if kind == "dcgan":
+        return DCGANConfig(seed=SEED, batch_size=VICTIM_BATCH)
+    if kind == "wgangp":
+        return WGANGPConfig(seed=SEED, batch_size=VICTIM_BATCH,
+                            critic_iter=5)
+    if kind == "pggan":
+        return v2_config(kind, compute_dtype=dtype)
+    return v2_config(kind)
+
+
+def tr_state(torch, kind: str, cfg, dev: str):
+    """``kind``'s seeded state on ``dev`` (float32 parameters), its nets by
+    name, the optimisers its steps use and each net's updates a step."""
+    from ganleaks_tpu_torch.train import dcgan, wgangp
+    if kind in ("dcgan", "wgangp"):
+        st = (dcgan if kind == "dcgan" else wgangp).build_state(cfg, dev)
+        iters = 1 if kind == "dcgan" else cfg.critic_iter
+        return (st, {"gen": st.gen, "disc": st.disc},
+                [st.opt_gen, st.opt_disc], {"gen": 1, "disc": iters})
+    return v2_state(torch, kind, dev, torch.float32)
+
+
+def tr_batches(kind: str, cfg, step: int) -> list:
+    """Step ``step``'s seeded global batches (numpy): NCHW images in
+    [-1, 1] (VAE-GAN's four), or medGAN's binary records."""
+    from ganleaks_tpu_torch.io.native import LUT_CROP
+    rng = np.random.default_rng(SEED + 1700 + step)
+    batch = (cfg.batch_sizes[-1] if kind == "pggan" else cfg.batch_size)
+    if kind == "medgan":
+        return [(rng.random((batch, TAB_D)) < 0.1).astype(np.float32)]
+    return [LUT_CROP[make_images(rng, batch, RES)].transpose(0, 3, 1, 2)
+            .copy() for _ in range(4 if kind == "vaegan" else 1)]
+
+
+def tr_step(torch, kind: str, cfg, state, batches, gen, dp):
+    """One step of ``kind`` on the global ``batches`` (device tensors):
+    data-parallel on this rank's shares with ``dp``, else on one device.
+    Returns the global batch's losses."""
+    from ganleaks_tpu_torch.train import dcgan, medgan, pggan, vaegan
+    from ganleaks_tpu_torch.train import wgangp
+    if kind == "dcgan":
+        fn, kw = dcgan.dcgan_train_step, {}
+    elif kind == "wgangp":
+        fn, kw = wgangp.wgangp_train_step, dict(
+            critic_iter=cfg.critic_iter, lambda_gp=cfg.lambda_gp)
+    elif kind == "vaegan":
+        fn, kw = vaegan.vaegan_train_step, {}
+    elif kind == "medgan":
+        fn, kw = medgan.medgan_train_step, {}
+    else:
+        fn, kw = pggan.pggan_train_step, dict(
+            alpha=V2_ALPHA, steps=V2_PGGAN_TOP, lambda_gp=cfg.lambda_gp,
+            drift=cfg.drift, compute_dtype=cfg.compute_dtype)
+    m = dcgan.run_step(dp, fn, state, batches, generator=gen, **kw)
+    if dp is not None:
+        m = dp.metrics(m)
+    return [float(v) for v in m.values()]
+
+
+def tr_run(torch, kind: str, cfg, dev: str, dp_mesh=None) -> dict:
+    """A warm-up step, then TRAIN_RANK_STEPS timed ones (synchronised), of
+    ``kind`` from its seeded state on the same batches and draws: on the
+    mesh ``dp_mesh`` (data-parallel) or on one device. Returns the losses,
+    every parameter and buffer (float64, host), steps/s and the mesh's
+    collective seconds and staged bytes a timed step."""
+    import torch.distributed as dist
+
+    from ganleaks_tpu_torch.parallel.dp import DataParallel
+    st, nets, opts, updates = tr_state(torch, kind, cfg, dev)
+    dp = None if dp_mesh is None else DataParallel(dp_mesh, nets.values(),
+                                                   opts)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 17)
+    batches = [[torch.from_numpy(b).to(dev) for b in tr_batches(kind, cfg,
+                                                                 i)]
+               for i in range(1 + TRAIN_RANK_STEPS)]
+    losses = [tr_step(torch, kind, cfg, st, batches[0], gen, dp)]
+    torch.cuda.synchronize()
+    if dp is not None:
+        dist.barrier()
+        before = dict(dp_mesh.stats)
+    t0 = time.perf_counter()
+    for b in batches[1:]:
+        losses.append(tr_step(torch, kind, cfg, st, b, gen, dp))
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    out = {"losses": np.array(losses), "final": v2_arrays(torch, nets),
+           "steps_per_sec": TRAIN_RANK_STEPS / secs, "updates": updates,
+           "betas": {n: o.param_groups[0]["betas"]
+                     for n, o in zip(nets, opts)},
+           "lrs": {n: o.param_groups[0]["lr"] for n, o in zip(nets, opts)},
+           "buffers": sorted(v2_buffer_keys(nets))}
+    if dp is not None:
+        out["per_step"] = {k: (dp_mesh.stats[k] - before[k])
+                           / TRAIN_RANK_STEPS for k in before}
+        dp.close()
+    return out
+
+
+def tr_errors(got: dict, ref: dict, init: dict, steps: int) -> dict:
+    """A run against a reference run from the same state: losses
+    (relative, absolute below 1), each net's update and the buffers'
+    change (L2, relative), each net's largest parameter difference in
+    its lr, and the bound two runs of Adam can part by there (twice the
+    most each of its steps can move a weight, ``adam_ratio_bound``)."""
+    bufs = set(ref["buffers"])
+    params = [k for k in init if k not in bufs]
+    nets = got["lrs"]
+
+    def keys(net):
+        return [k for k in params if k.split(".")[0] == net]
+
+    moved = [k for k in bufs if np.abs(ref["final"][k] - init[k]).max() > 0]
+    fc, fr = got["final"], ref["final"]
+    return {
+        "loss": float((np.abs(got["losses"] - ref["losses"])
+                       / np.maximum(np.abs(ref["losses"]), 1.0)).max()),
+        "update": {n: rel_l2(fc, fr, init, keys(n)) for n in nets},
+        "buffers": rel_l2(fc, fr, init, moved) if moved else 0.0,
+        "max_param_diff_lr": {n: max(float(np.abs(fc[k] - fr[k]).max())
+                                     for k in keys(n)) / got["lrs"][n]
+                              for n in nets},
+        "param_bound_lr": {n: 2 * sum(adam_ratio_bound(
+            *got["betas"][n], t) for t in range(
+                1, got["updates"][n] * steps + 1)) for n in nets}}
+
+
+def rank_trainers(dirs: dict, tmp: str) -> dict:
+    """On each rank of phase 17's launch: every TRAIN_RANK_RUNS trainer
+    data-parallel (rank 0 then runs it on its own, the one-process
+    reference, while the others wait), the EP_RANK_RUNS expert-parallel
+    steps (rank 0 then the all-splits reference), and ``dcgan.train`` +
+    ``generate`` on the group (rank 0 samples). Returns, from rank 0,
+    every run's errors, digests, rates and collective figures."""
+    import torch
+    import torch.distributed as dist
+
+    from ganleaks_tpu_torch.device import set_f32_numerics
+    from ganleaks_tpu_torch.parallel import mesh as pmesh
+    from ganleaks_tpu_torch.parallel.multihost import local_device
+
+    set_f32_numerics()
+    dev = local_device()
+    mesh = pmesh.mesh_of(dev, axis="data")
+    out = {"mesh": {"size": mesh.size, "backend": mesh.backend,
+                    "share": mesh.share}}
+    for label, kind, dtype in TRAIN_RANK_RUNS:
+        cfg = tr_config(kind, dtype)
+        got = tr_run(torch, kind, cfg, dev, mesh)
+        rec = {"digests": pmesh.gather_objects(hashlib_of(got["final"]),
+                                               mesh),
+               "rates": pmesh.gather_objects(got["steps_per_sec"], mesh),
+               "per_step": pmesh.gather_objects(got["per_step"], mesh)}
+        if mesh.is_main:  # one process's run, and again: cuDNN's own spread
+            init = v2_arrays(torch, tr_state(torch, kind, cfg, "cpu")[1])
+            ref = tr_run(torch, kind, cfg, dev)
+            again = tr_run(torch, kind, cfg, dev)
+            rec.update(one_process_steps_per_sec=ref["steps_per_sec"],
+                       errors=tr_errors(got, ref, init,
+                                        1 + TRAIN_RANK_STEPS),
+                       one_process_repeat=tr_errors(again, ref, init,
+                                                    1 + TRAIN_RANK_STEPS),
+                       losses=got["losses"].tolist())
+            del init, ref, again
+        dist.barrier()
+        out[label] = rec
+        del got
+        torch.cuda.empty_cache()
+    for label, kind, dp_on in EP_RANK_RUNS:
+        out[label] = ep_rank_run(torch, kind, dp_on, mesh)
+        dist.barrier()
+        torch.cuda.empty_cache()
+    out["ep_rate"] = ep_rank_rate(torch, mesh)
+    dist.barrier()
+    out["train"] = rank_train_run(torch, dirs, tmp, mesh)
+    return out
+
+
+def hashlib_of(arrays: dict) -> str:
+    import hashlib
+    h = hashlib.sha1()
+    for k in sorted(arrays):
+        h.update(k.encode())
+        h.update(arrays[k].tobytes())
+    return h.hexdigest()
+
+
+def ep_rank_run(torch, kind: str, dp_on: bool, mesh) -> dict:
+    """EP_RANK_STEPS expert-parallel steps of ``kind`` (one split a rank,
+    phase 14's widths and held inputs: batch 8 a split, 64 px) and the
+    all-splits steps on rank 0 on the same inputs: the losses, every
+    split's nets' and the classifier's errors, and every rank's digest of
+    the classifier."""
+    from ganleaks_tpu_torch.parallel import ep
+    from ganleaks_tpu_torch.parallel import mesh as pmesh
+    dev = mesh.device
+    res_steps = 1 if kind == "privdcgan" else PRIV_PGGAN_TOP
+    inputs = priv_inputs(kind, RES, EP_RANK_STEPS)
+    st, _ = priv_state(torch, kind, dev, torch.float32)
+    st = ep.shard_split_state(st, mesh)
+    cfg = priv_config(kind)
+    if kind == "privdcgan":
+        step = ep.make_ep_privdcgan_step(mesh, PRIV_SPLITS, PRIV_RATIO, dp_on)
+    else:
+        step = ep.make_ep_privpggan_step(mesh, PRIV_SPLITS, PRIV_RATIO, dp_on,
+                                         res_steps, cfg.lambda_gp, cfg.drift)
+
+    def t(a):
+        return torch.from_numpy(a).to(dev)
+
+    losses = []
+    torch.cuda.synchronize()
+    before = dict(mesh.stats)
+    t0 = time.perf_counter()
+    for inp in inputs:
+        draws = {"noise": t(inp["noise"]), "gen_y": t(inp["gen_y"])}
+        if kind == "privdcgan":
+            m = step(st, t(inp["real"]), **draws)
+        else:
+            m = step(st, t(inp["real"]), V2_ALPHA, eps=t(inp["eps"]),
+                     **draws)
+        losses.append([float(v) for v in m.values()])
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    mine = {k: v.astype(np.float32) for k, v in v2_arrays(torch, {
+        f"gen.{mesh.rank}": st.genS[0],
+        f"disc.{mesh.rank}": st.discS[0]}).items()}
+    splits = pmesh.gather_objects(mine, mesh)
+    priv_digests = pmesh.gather_objects(
+        hashlib_of(v2_arrays(torch, {"priv": st.priv})), mesh)
+    per_step = {k: (mesh.stats[k] - before[k]) / EP_RANK_STEPS
+                for k in before}
+    rec = {"priv_digests": priv_digests, "seconds": secs,
+           "collective_s_per_step": per_step["collective_s"],
+           "staged_bytes_per_step": per_step["staged_bytes"]}
+    if not mesh.is_main:
+        return rec
+    ref = priv_steps(torch, kind, inputs, [dp_on] * EP_RANK_STEPS, dev,
+                     torch.float32, False, res_steps)
+    got = {k: v.astype(np.float64) for s in splits for k, v in s.items()}
+    got.update(v2_arrays(torch, {"priv": st.priv}))
+    _, nets = priv_state(torch, kind, "cpu", torch.float32)
+    init = v2_arrays(torch, nets)
+    bufs = v2_buffer_keys(nets)
+    lrs = {"gen": cfg.lr, "disc": cfg.lr, "priv": cfg.lr}
+    betas = ((cfg.beta1, cfg.beta2) if kind == "privdcgan" else (0.0, 0.99))
+    errs = tr_errors(
+        {"losses": np.array(losses), "final": got, "lrs": lrs,
+         "betas": dict.fromkeys(lrs, betas),
+         "updates": dict.fromkeys(lrs, 1)},
+        {"losses": ref["losses"], "final": ref["final"],
+         "buffers": sorted(bufs)}, init, EP_RANK_STEPS)
+    rec.update(errors=errs, losses=losses, one_process_s=ref["seconds"],
+               priv_moved=max(float(np.abs(got[k] - init[k]).max())
+                              for k in init if k.startswith("priv.")))
+    return rec
+
+
+def ep_rank_rate(torch, mesh) -> dict:
+    """EP privDCGAN's steps/s a rank at phase 14's rate batch (128 a
+    split, the gate on), a warm-up step then TRAIN_RANK_STEPS timed, and
+    on rank 0 the all-splits step's likewise (one process runs the
+    splits one after another)."""
+    import torch.distributed as dist
+
+    from ganleaks_tpu_torch.parallel import ep
+    from ganleaks_tpu_torch.parallel import mesh as pmesh
+    from ganleaks_tpu_torch.train import priv
+    dev, b = mesh.device, PRIV_RATE_BATCHES[-1]
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    real = torch.rand(PRIV_SPLITS, b, 3, RES, RES, generator=gen,
+                      device=dev) * 2 - 1
+    st = ep.shard_split_state(priv_state(torch, "privdcgan", dev,
+                                         torch.float32)[0], mesh)
+    step = ep.make_ep_privdcgan_step(mesh, PRIV_SPLITS, PRIV_RATIO, True)
+    step(st, real, generator=gen)
+    torch.cuda.synchronize()
+    dist.barrier()
+    t0 = time.perf_counter()
+    for _ in range(TRAIN_RANK_STEPS):
+        step(st, real, generator=gen)
+    torch.cuda.synchronize()
+    out = {"batch_per_split": b, "ep_steps_per_sec": pmesh.gather_objects(
+        TRAIN_RANK_STEPS / (time.perf_counter() - t0), mesh)}
+    if mesh.is_main:
+        one, _ = priv_state(torch, "privdcgan", dev, torch.float32)
+        out["all_splits_steps_per_sec"] = v2_rate(
+            torch, lambda: priv.privdcgan_train_step(
+                one, real, PRIV_RATIO, True, generator=gen),
+            reps=TRAIN_RANK_STEPS)
+    return out
+
+
+def rank_train_run(torch, dirs: dict, tmp: str, mesh) -> dict:
+    """``dcgan.train`` with ``mesh_shape=(2,)`` one epoch at batch 128 on
+    phase 12's training PNGs, then ``generate`` on rank 0; every rank's
+    checkpoint files."""
+    import torch.distributed as dist
+
+    from ganleaks_tpu_torch.config import DCGANConfig
+    from ganleaks_tpu_torch.parallel import mesh as pmesh
+    from ganleaks_tpu_torch.train import dcgan
+    written = []
+    real_save = dcgan.save_state_dict
+
+    def counting(path, net):
+        written.append(os.path.basename(path))
+        real_save(path, net)
+
+    dcgan.save_state_dict = counting
+    cfg = DCGANConfig(data_path=dirs["train"], batch_size=VICTIM_BATCH,
+                      num_epochs=1, seed=SEED, mesh_shape=(mesh.size,),
+                      PATH=os.path.join(tmp, "model17"),
+                      PATH_syn_data=os.path.join(tmp, "syn17"),
+                      sample_grid_dir=None)
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state = dcgan.train(cfg, device=mesh.device.type)
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+    finally:
+        dcgan.save_state_dict = real_save
+    out = {"written": pmesh.gather_objects(sorted(written), mesh),
+           "steps": state.step, "train_s": train_s,
+           "digests": pmesh.gather_objects(hashlib_of(v2_arrays(
+               torch, {"gen": state.gen, "disc": state.disc})), mesh)}
+    if mesh.is_main:
+        t0 = time.perf_counter()
+        out["dirs"] = dcgan.generate(cfg, state, run_dir="run",
+                                     device=mesh.device.type)
+        out["generate_s"] = time.perf_counter() - t0
+        out["num_generated"] = cfg.num_generated
+    dist.barrier()
+    return out
+
+
+def nccl_dp_step() -> dict:
+    """One rank over NCCL: the DCGAN data-parallel steps at full width on
+    an explicit mesh of size 1 (its collectives cross NCCL on the card)
+    against the same steps on one device."""
+    import torch
+
+    from ganleaks_tpu_torch.device import set_f32_numerics
+    from ganleaks_tpu_torch.parallel import mesh as pmesh
+    from ganleaks_tpu_torch.parallel.multihost import local_device
+
+    set_f32_numerics()
+    dev = local_device()
+    mesh = pmesh.mesh_of(dev, axis="data")
+    cfg = tr_config("dcgan", "float32")
+    got = tr_run(torch, "dcgan", cfg, dev, mesh)
+    ref = tr_run(torch, "dcgan", cfg, dev)
+    _, nets, _, _ = tr_state(torch, "dcgan", cfg, dev)
+    return {"mesh": {"size": mesh.size, "backend": mesh.backend},
+            "errors": tr_errors(got, ref, v2_arrays(torch, nets),
+                                1 + TRAIN_RANK_STEPS),
+            "steps_per_sec": got["steps_per_sec"],
+            "one_process_steps_per_sec": ref["steps_per_sec"],
+            "per_step": got["per_step"]}
+
+
+def check_rank_errors(label: str, kind: str, dtype: str, err: dict) -> None:
+    """Phases 12-13's bars for a trained run (float32, or PGGAN's bf16),
+    here against one process's run."""
+    traj = V2_BF16_TRAJ if dtype == "bfloat16" else RANK_TRAJ_RTOL[kind]
+    update = V2_BF16_UPDATE if dtype == "bfloat16" else VICTIM_UPDATE_RTOL
+    check(err["loss"] <= traj,
+          f"train_ranks {label}: losses off one process's by "
+          f"{err['loss']:.3g} (bar {traj})")
+    check(max(*err["update"].values(), err["buffers"]) <= update,
+          f"train_ranks {label}: updates {err['update']} / buffers "
+          f"{err['buffers']:.3g} off one process's (bar {update})")
+    check(all(err["max_param_diff_lr"][n] <= err["param_bound_lr"][n]
+              for n in err["param_bound_lr"]),
+          f"train_ranks {label}: parameters {err['max_param_diff_lr']} lr "
+          f"off one process's, over Adam's {err['param_bound_lr']}")
+
+
+def phase_train_ranks(torch, tmp: str, dirs: dict, smi: str) -> dict:
+    """Phase 17: the trainers on two ranks of the card over ``gloo`` (one
+    ``launch``: the five victims data-parallel at their configs' widths,
+    PGGAN in float32 and bf16, against one process; EP privDCGAN and
+    privPGGAN against the all-splits step; ``train`` + ``generate`` of
+    DCGAN), the attack of that DCGAN's samples ('auto': K2), and one NCCL
+    rank's data-parallel DCGAN steps."""
+    import shutil
+
+    from ganleaks_tpu_torch.attack.eval_roc import evaluate
+    from ganleaks_tpu_torch.attack.fbb import run_attack
+    from ganleaks_tpu_torch.config import AttackConfig, EvalConfig
+    from ganleaks_tpu_torch.parallel.multihost import launch
+    t_phase = time.perf_counter()
+    if DEVICE == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+    dev0 = f"{DEVICE}:0" if DEVICE == "cuda" else DEVICE
+    t0 = time.perf_counter()
+    out = launch(rank_trainers, RANKS, dirs, tmp, devices=[dev0] * RANKS,
+                 backend="gloo", timeout_s=TRAIN_RANK_S)
+    launch_s = time.perf_counter() - t0
+    check(out["mesh"] == {"size": RANKS, "backend": "gloo", "share": RANKS},
+          f"train_ranks: the launch ran on {out['mesh']}")
+    for label, kind, dtype in TRAIN_RANK_RUNS:
+        r = out[label]
+        check(len(set(r["digests"])) == 1,
+              f"train_ranks {label}: the replicas differ across ranks")
+        check_rank_errors(label, kind, dtype, r["errors"])
+        emit({"phase": "train_ranks", "run": label, "card": smi,
+              "ranks": RANKS, "backend": "gloo",
+              "steps_per_sec_per_rank": r["rates"],
+              "one_process_steps_per_sec": r["one_process_steps_per_sec"],
+              "collective_s_per_step": [p["collective_s"]
+                                        for p in r["per_step"]],
+              "staging_s_per_step": [p["staging_s"] for p in r["per_step"]],
+              "staged_bytes_per_step": [p["staged_bytes"]
+                                        for p in r["per_step"]],
+              "collectives_per_step": [p["collectives"]
+                                       for p in r["per_step"]],
+              "errors_vs_one_process": r["errors"],
+              "one_process_repeat": r["one_process_repeat"],
+              "losses": r["losses"]})
+    for label, kind, dp_on in EP_RANK_RUNS:
+        r = out[label]
+        check(len(set(r["priv_digests"])) == 1,
+              f"train_ranks EP {label}: the classifier's replicas differ")
+        if dp_on:  # the classifier's local statistics: losses held alone
+            check(r["errors"]["loss"] <= EP_GATE_ON_LOSS_RTOL
+                  and r["priv_moved"] > 0,
+                  f"train_ranks EP {label}: {r['errors']}")
+        else:
+            check_rank_errors(f"EP {label}", kind, "float32", r["errors"])
+        emit({"phase": "train_ranks", "run": f"ep_{label}", "card": smi,
+              "splits": PRIV_SPLITS, "dp_on": dp_on,
+              "seconds": r["seconds"], "one_process_s": r["one_process_s"],
+              "collective_s_per_step": r["collective_s_per_step"],
+              "staged_bytes_per_step": r["staged_bytes_per_step"],
+              "errors_vs_all_splits": r["errors"], "losses": r["losses"],
+              "classifier_moved": r["priv_moved"]})
+    emit({"phase": "train_ranks", "run": "ep_rate", "card": smi,
+          **out["ep_rate"]})
+    tr = out["train"]
+    check(tr["written"][0] == ["discriminator.pth", "generator.pth"]
+          and all(w == [] for w in tr["written"][1:]),
+          f"train_ranks: checkpoint writes per rank {tr['written']}")
+    check(len(set(tr["digests"])) == 1 and tr["steps"] == -(
+        -VICTIM_TRAIN // VICTIM_BATCH),
+          f"train_ranks: train() on ranks gave {tr['steps']} steps, "
+          f"digests {tr['digests']}")
+    png = tr["dirs"]["png_images"]
+    n_gen = tr["num_generated"]
+    check(len(os.listdir(png)) == n_gen,
+          f"train_ranks: {len(os.listdir(png))} PNGs of {n_gen}")
+    members = sorted(f for f in os.listdir(dirs["train"])
+                     if f.endswith(".png"))
+    for i, f in enumerate(members[:VICTIM_PLANT]):
+        shutil.copy(os.path.join(dirs["train"], f),
+                    os.path.join(png, f"image_{n_gen + i}.png"))
+    reset_launches()
+    t0 = time.perf_counter()
+    att = run_attack(AttackConfig(
+        syn_data_path=png, pos_data_dir=dirs["train"],
+        neg_data_dir=dirs["heldout"], data_num=VICTIM_TRAIN,
+        distance="l2-lpips", resolution=RES, engine="auto",
+        save_root=os.path.join(tmp, "fbb17"), exp_name="dcgan_ranks"),
+        device=DEVICE)[0]
+    attack_s = time.perf_counter() - t0
+    launches = read_launches()
+    res = evaluate(EvalConfig(result_load_dir=att["save_dir"]))
+    caught = int((att["pos_loss"] < att["neg_loss"].min()).sum())
+    emit({"phase": "train_ranks", "run": "train_generate_attack",
+          "card": smi, "ranks": RANKS, "steps": tr["steps"],
+          "train_s": tr["train_s"], "generate_s": tr["generate_s"],
+          "written_per_rank": tr["written"], "attack_s": attack_s,
+          "auroc": res["auc"], "members_below_all_nonmembers": caught,
+          "kernel_launches": launches})
+    check(caught >= VICTIM_PLANT and res["auc"] > 0.5,
+          f"train_ranks: the planted members were not found ({caught} "
+          f"below every non-member, AUROC {res['auc']:.4f})")
+    check(launches["tap_epilogue"] > 0,
+          "train_ranks: 'auto' did not launch K2")
+    nccl = "nccl" if DEVICE == "cuda" else "gloo"
+    t0 = time.perf_counter()
+    nc = launch(nccl_dp_step, 1, devices=[dev0], backend=nccl,
+                timeout_s=TRAIN_RANK_S)
+    nccl_s = time.perf_counter() - t0
+    check(nc["mesh"] == {"size": 1, "backend": nccl},
+          f"train_ranks: the NCCL launch ran on {nc['mesh']}")
+    check_rank_errors("nccl dcgan", "dcgan", "float32", nc["errors"])
+    rec = {"phase": "train_ranks", "run": "nccl_dcgan", "card": smi,
+           "steps_per_sec": nc["steps_per_sec"],
+           "one_process_steps_per_sec": nc["one_process_steps_per_sec"],
+           "collective_s_per_step": nc["per_step"]["collective_s"],
+           "collectives_per_step": nc["per_step"]["collectives"],
+           "errors_vs_one_process": nc["errors"], "launch_gloo_s": launch_s,
+           "launch_nccl_s": nccl_s,
+           "phase_s": time.perf_counter() - t_phase}
+    emit(rec)
+    return {"launches": launches, **rec}
+
+
 def main() -> int:
     try:
         import torch
@@ -4342,6 +4892,8 @@ def main() -> int:
             "pggan_64px_float32_steps_per_sec":
                 v2["rates"]["pggan_64px_float32_steps_per_sec"]})
         lap("privgan")
+        phase_train_ranks(torch, tmp, victims["dirs"], smi)
+        lap("train_ranks")
     with tempfile.TemporaryDirectory() as tmp:
         phase_pipeline(torch, tmp, north["plan"])
         lap("pipeline")

@@ -2,7 +2,8 @@
 plus ``key=value`` overrides (each value parsed by its field's type in
 ``config``), and ``--device`` (``cuda`` unless ``cpu`` is asked for; never
 chosen by what the machine has). The privGAN trainers also take
-``--grid <yaml>`` (:func:`priv_main`)."""
+``--grid <yaml>`` (:func:`priv_main`); the other victim trainers start
+their ranks through :func:`train_on_ranks`."""
 
 from __future__ import annotations
 
@@ -47,6 +48,29 @@ def parse_config(cls: Type[T], argv: list[str] | None = None,
     ns = ap.parse_args(argv)
     over = _overrides(ap, ns.overrides)
     return load_config(cls, ns.local_config, over), device or ns.device
+
+
+def train_on_ranks(run, cfg, device) -> None:
+    """A victim trainer's CLI body ``run(cfg, device_type)``, a
+    module-level function: in this process, or — ``mesh_shape=[n]`` with n
+    > 1 when training, outside a process group and without ``multihost``
+    — on n local ranks (``parallel/multihost.launch``; on the card rank r
+    on ``cuda:r % cards``, NCCL where each has a card of its own, else
+    ``gloo``; ``--device cpu``: ``gloo`` on the CPU). Under ``torchrun``
+    or with ``multihost=true`` the trainer joins the group itself."""
+    import math
+
+    from ganleaks_tpu_torch.parallel import multihost
+
+    n = math.prod(cfg.mesh_shape)
+    if (n > 1 and cfg.training and not cfg.multihost
+            and not multihost.in_group()):
+        devices, backend = multihost.launch_plan(n, device)
+        multihost.launch(run, n, cfg, device.type, devices=devices,
+                         backend=backend,
+                         timeout_s=multihost.DEFAULT_TIMEOUT_S)
+    else:
+        run(cfg, device.type)
 
 
 def priv_main(cls: type, train_fn, generate_fn, name: str,

@@ -7,9 +7,10 @@ keys raise, and the privGAN grid sweep's :func:`expand_grid` /
 :func:`sweep_tag`.
 
 The fields are the JAX package's, so existing YAML configs load unchanged.
-A trainer's ``mesh_shape`` other than ``(1,)`` (data-parallel training,
-not ported yet) is accepted here and refused by the trainer with a
-pointer to the ROADMAP item.
+A victim trainer's ``mesh_shape=(n,)`` trains data-parallel on n ranks
+(``parallel/dp``); the privGAN trainers refuse it (``parallel/ep`` lays
+their splits over ranks). The trainers' ``multihost`` has no JAX
+counterpart: it joins a process group from the ``GANLEAKS_*`` variables.
 """
 
 from __future__ import annotations
@@ -312,9 +313,10 @@ class TrainCommon:
     # per-epoch generated-sample grids (reference: wandb image logging,
     # train_torch.py:125-127); "auto" -> <PATH>/sample_grids, None disables
     sample_grid_dir: str | None = "auto"
-    # data-parallel mesh over the batch axis: only (1,) is ported (ROADMAP
-    # M12); anything else raises
+    # data-parallel mesh over the batch axis: (n,) trains on n ranks, one
+    # per device (the CLI launches them; under torchrun they exist)
     mesh_shape: tuple[int, ...] = (1,)
+    multihost: bool = False  # join the GANLEAKS_* process group first
 
 
 @dataclass

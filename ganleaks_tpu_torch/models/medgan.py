@@ -20,7 +20,8 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from ganleaks_tpu_torch.ops.nn import BatchNormTorch, DenseTorch
+from ganleaks_tpu_torch.ops.nn import (BatchNormTorch, DenseTorch,
+                                       batch_average, batch_rows)
 
 
 class Autoencoder(nn.Module):
@@ -80,7 +81,7 @@ class Discriminator(nn.Module):
             DenseTorch(hidden2, 1), nn.Sigmoid())
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.minibatch_average:
-            mean = x.mean(dim=0, keepdim=True).expand_as(x)
-            x = torch.cat([x, mean], dim=1) / x.shape[0]
+        if self.minibatch_average:  # over the global batch (ops/nn)
+            mean = batch_average(x).expand_as(x)
+            x = torch.cat([x, mean], dim=1) / batch_rows(x)
         return self.disc(x).reshape(-1)

@@ -30,10 +30,20 @@ parameters map onto them (``weights.load_jax_tree``):
 * ``SelfAttention``: SAGAN attention (``vaegan/ops.py:86-120``);
 * the PGGAN blocks (``pggan/model_torch.py``): ``leaky_relu``,
   ``pixel_norm``, ``minibatch_std``, ``upsample_nearest_2x``,
-  ``avg_pool_2x`` and the equalised-learning-rate ``WSConv2d``.
+  ``avg_pool_2x`` and the equalised-learning-rate ``WSConv2d``;
+* the batch axis (:func:`batch_axis`): a data-parallel trainer's hook
+  through which every reduction over the rows of a batch — BatchNorm's
+  and the minibatch std's statistics, medGAN's minibatch average, the
+  losses' means (:func:`batch_mean`, :func:`batch_loss`) — and every
+  draw with a row per image (:func:`batch_draw`) see the global batch.
 """
 
 from __future__ import annotations
+
+import contextlib
+import math
+from dataclasses import dataclass
+from typing import Callable
 
 import torch
 import torch.nn.functional as F
@@ -44,6 +54,94 @@ from torch import nn
 Conv2dTorch = nn.Conv2d
 ConvTranspose2dTorch = nn.ConvTranspose2d
 DenseTorch = nn.Linear
+
+
+# ---------------------------------------------------------------------------
+# the batch axis
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class _BatchAxis:
+    reduce: Callable[[torch.Tensor], torch.Tensor]  # differentiable sum
+    rows: int    # the global batch's rows
+    start: int   # this rank's first row of it
+
+
+_AXIS: _BatchAxis | None = None
+
+
+@contextlib.contextmanager
+def batch_axis(reduce_fn: Callable[[torch.Tensor], torch.Tensor],
+               n_global: int, start: int = 0):
+    """Inside the block, each batch a module or loss sees is this rank's
+    rows ``[start, start + n)`` of a global batch of ``n_global`` rows,
+    and ``reduce_fn`` sums a tensor over the ranks (differentiably, its
+    backward the same sum). The reductions over the batch below then
+    give the global batch's values; outside the block they are the plain
+    single-device code, bit for bit. This module never talks to the
+    ranks itself: the data-parallel layer (``parallel/dp``) passes the
+    sum in."""
+    global _AXIS
+    prev, _AXIS = _AXIS, _BatchAxis(reduce_fn, int(n_global), int(start))
+    try:
+        yield
+    finally:
+        _AXIS = prev
+
+
+def batch_rows(x: torch.Tensor) -> int:
+    """The rows of the batch ``x`` belongs to: the global batch's on the
+    batch axis, else ``x``'s own."""
+    return x.shape[0] if _AXIS is None else _AXIS.rows
+
+
+def batch_mean(x: torch.Tensor) -> torch.Tensor:
+    """``x.mean()`` over a batch (rows first). On the batch axis: this
+    rank's share of the global batch's mean, ``x.sum() / (global element
+    count)``; the shares of all ranks sum to the global mean (the
+    gradient reduction sums them)."""
+    if _AXIS is None:
+        return x.mean()
+    return x.sum() / (math.prod(x.shape[1:]) * _AXIS.rows)
+
+
+def batch_loss(loss_fn, *args, **kwargs) -> torch.Tensor:
+    """``loss_fn(*args)`` with its default mean reduction; on the batch
+    axis :func:`batch_mean` of its unreduced values."""
+    if _AXIS is None:
+        return loss_fn(*args, **kwargs)
+    return batch_mean(loss_fn(*args, reduction="none", **kwargs))
+
+
+def batch_average(x: torch.Tensor) -> torch.Tensor:
+    """The mean of ``x`` over its rows, keeping the row axis (1, ...): on
+    the batch axis the global batch's mean."""
+    if _AXIS is None:
+        return x.mean(dim=0, keepdim=True)
+    return _AXIS.reduce(x.sum(dim=0, keepdim=True)) / _AXIS.rows
+
+
+def batch_draw(draw: Callable[[int], torch.Tensor], n: int) -> torch.Tensor:
+    """``draw(n)``, a draw with one row per image of an ``n``-row batch.
+    On the batch axis ``draw(global rows)`` sliced to this rank's rows:
+    every rank draws what one device draws for the global batch, from
+    the same generator state."""
+    if _AXIS is None:
+        return draw(n)
+    return draw(_AXIS.rows)[_AXIS.start:_AXIS.start + n]
+
+
+def _global_moments(x: torch.Tensor, dims: list[int], correction: int
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Mean and variance (``correction`` 0 biased, 1 unbiased) of ``x``
+    over ``dims`` (the row axis among them) across the global batch, in
+    ``x``'s dtype promoted to float32: two sums over the ranks, the mean
+    first, then the squares about it."""
+    xc = x.to(torch.promote_types(x.dtype, torch.float32))
+    count = _AXIS.rows * math.prod(x.shape[d] for d in dims if d != 0)
+    mean = _AXIS.reduce(xc.sum(dims, keepdim=True)) / count
+    sq = _AXIS.reduce((xc - mean).square().sum(dims, keepdim=True))
+    return mean, sq / (count - correction)
 
 
 class ChannelsToLinear(nn.Linear):
@@ -75,6 +173,8 @@ class BatchNormTorch(nn.Module):
         self.register_buffer("running_var", torch.ones(num_features))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.training and _AXIS is not None:
+            return self._global_batch_norm(x)
         if self.training:
             return F.batch_norm(x, self.running_mean, self.running_var,
                                 self.weight, self.bias, training=True,
@@ -85,6 +185,24 @@ class BatchNormTorch(nn.Module):
              * torch.rsqrt(self.running_var.to(ct).view(shape) + self.eps))
         return (y * self.weight.to(ct).view(shape)
                 + self.bias.to(ct).view(shape)).to(x.dtype)
+
+    def _global_batch_norm(self, x: torch.Tensor) -> torch.Tensor:
+        """Training on the batch axis: the global batch's mean and biased
+        variance normalise; its unbiased variance (N the global count)
+        enters the running statistics."""
+        dims = [0] + list(range(2, x.dim()))
+        shape = (1, -1) + (1,) * (x.dim() - 2)
+        mean, var = _global_moments(x, dims, 0)
+        ct = mean.dtype
+        y = ((x.to(ct) - mean) * torch.rsqrt(var + self.eps)
+             * self.weight.to(ct).view(shape) + self.bias.to(ct).view(shape))
+        count = _AXIS.rows * math.prod(x.shape[2:])
+        with torch.no_grad():
+            m = self.momentum
+            self.running_mean.mul_(1 - m).add_(m * mean.reshape(-1))
+            self.running_var.mul_(1 - m).add_(
+                m * var.reshape(-1) * count / max(count - 1, 1))
+        return y.to(x.dtype)
 
 
 class InstanceNorm2d(nn.InstanceNorm2d):
@@ -363,8 +481,12 @@ def pixel_norm(x: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:
 def minibatch_std(x: torch.Tensor) -> torch.Tensor:
     """Minibatch std (``pggan/model_torch.py:122-124``): each feature's
     unbiased std over the batch (``torch.std``'s correction 1), averaged
-    to one scalar and appended as a constant channel."""
-    stat = torch.std(x, dim=0).mean()
+    to one scalar and appended as a constant channel. On the batch axis
+    the std is the global batch's, its sums over the ranks in float32."""
+    if _AXIS is None:
+        stat = torch.std(x, dim=0).mean()
+    else:
+        stat = _global_moments(x, [0], 1)[1].sqrt().to(x.dtype).mean()
     n, _, h, w = x.shape
     return torch.cat([x, stat.expand(n, 1, h, w)], dim=1)
 

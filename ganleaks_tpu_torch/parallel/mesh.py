@@ -236,12 +236,43 @@ def any_rank(flag: bool, mesh: Mesh) -> bool:
     return reduce_scalar(float(bool(flag)), mesh, "max") > 0
 
 
+def _all_reduce(x: torch.Tensor, mesh: Mesh, op) -> torch.Tensor:
+    """A new tensor: ``x`` reduced elementwise over the ranks by ``op``."""
+    w = _to_wire(mesh, x)
+    if w.data_ptr() == x.data_ptr():  # not staged: reduce a copy
+        w = w.clone()
+    _collective(mesh, lambda: dist.all_reduce(w, op, group=mesh.group))
+    return _from_wire(mesh, w)
+
+
 def reduce_max_tensor(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
     """Elementwise maximum of ``x`` over the ranks."""
-    w = _to_wire(mesh, x).clone()
-    _collective(mesh, lambda: dist.all_reduce(w, dist.ReduceOp.MAX,
-                                              group=mesh.group))
-    return _from_wire(mesh, w)
+    return _all_reduce(x, mesh, dist.ReduceOp.MAX)
+
+
+def all_reduce_sum(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """Elementwise sum of ``x`` over the ranks (a new tensor, outside
+    autograd)."""
+    return _all_reduce(x, mesh, dist.ReduceOp.SUM)
+
+
+class AllReduceSum(torch.autograd.Function):
+    """``AllReduceSum.apply(x, mesh)``: ``x`` summed over the ranks,
+    differentiable (counted in ``mesh.stats``, staged like the other
+    collectives). The gradient of every rank's copy of the sum flows back
+    to every rank's ``x``, so the backward is the same sum of the
+    gradients — written with this Function, so the backward can itself be
+    differentiated (a gradient penalty through a statistic over the
+    batch)."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+        ctx.mesh = mesh
+        return all_reduce_sum(x, mesh)
+
+    @staticmethod
+    def backward(ctx, grad: torch.Tensor):
+        return AllReduceSum.apply(grad, ctx.mesh), None
 
 
 def replicate(tree, mesh: Mesh):

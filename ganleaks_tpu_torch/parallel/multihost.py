@@ -17,7 +17,8 @@ exchanging only what their layout needs (``parallel/knn_shard``).
 * :func:`launch` spawns ``n`` local processes, one per device, runs a
   function on each and returns rank 0's result; a failed rank makes it
   raise with that rank's traceback, and a time limit makes a deadlock fail
-  instead of hang.
+  instead of hang. :func:`launch_plan` picks the devices and backend of
+  such a launch on a host with fewer cards than ranks.
 """
 
 from __future__ import annotations
@@ -191,6 +192,19 @@ def local_devices(n: int, device: torch.device | str) -> list[str] | str:
         raise ValueError(f"n_chips={n} but only "
                          f"{torch.cuda.device_count()} CUDA devices")
     return [f"cuda:{r}" for r in range(n)]
+
+
+def launch_plan(n: int, device: torch.device | str
+                ) -> tuple[list[str] | str, str]:
+    """The devices and backend of a local launch of ``n`` ranks on
+    ``device``'s type: on the card rank r on ``cuda:r % cards``, NCCL
+    where every rank has a card of its own, else ``gloo`` (NCCL refuses
+    ranks that share a card); off the card ``gloo`` on the CPU."""
+    if torch.device(device).type != "cuda":
+        return "cpu", "gloo"
+    cards = torch.cuda.device_count()
+    return ([f"cuda:{r % cards}" for r in range(n)],
+            "nccl" if n <= cards else "gloo")
 
 
 def _devices(n: int, devices) -> list[torch.device]:

@@ -8,10 +8,18 @@ Weights are drawn on the CPU from ``torch.Generator().manual_seed(seed)``
 start from the same parameters; the step noise comes from a generator on
 the run's device seeded with ``seed + 1``, the sampling noise from one
 seeded with ``seed + 2``, the grid noise from ``seed + 3`` (on the CPU).
+
+``mesh_shape=(n,)`` trains data-parallel on the n ranks of the live
+process group (``parallel/dp``; the CLI's local launch, ``torchrun`` or
+``multihost``): each rank a share of every batch, the step the one
+device step on the global batch (the JAX trainer's ``pjit``,
+``ganleaks_tpu/train/dcgan.py:56-80``). Rank 0 alone logs and writes;
+the others wait for it at a barrier.
 """
 
 from __future__ import annotations
 
+import math
 import os
 
 import torch
@@ -23,6 +31,10 @@ from ganleaks_tpu_torch.io.artifacts import (check_folder, timestamp_dir,
 from ganleaks_tpu_torch.io.data import DeviceDataset, load_train_images
 from ganleaks_tpu_torch.models.dcgan import Discriminator, Generator
 from ganleaks_tpu_torch.ops.nn import initialize_weights
+from ganleaks_tpu_torch.parallel.dp import (DataParallel, data_parallel,
+                                            is_main)
+from ganleaks_tpu_torch.parallel import multihost
+from ganleaks_tpu_torch.parallel.mesh import Mesh, data_parallel_mesh
 from ganleaks_tpu_torch.train.gan import dcgan_train_step
 from ganleaks_tpu_torch.train.sample import sample_to_host
 from ganleaks_tpu_torch.train.state import GANState, adam_torch
@@ -31,13 +43,22 @@ from ganleaks_tpu_torch.utils.checkpoint import (load_state_dict,
 from ganleaks_tpu_torch.utils.logging import MetricsLogger, Throughput
 
 
-def check_mesh(cfg) -> None:
-    """Refuse the data-parallel meshes this port does not have yet."""
-    if tuple(cfg.mesh_shape) != (1,):
-        raise NotImplementedError(
-            f"mesh_shape {tuple(cfg.mesh_shape)}: multi-GPU training is not "
-            f"ported yet (ROADMAP M12, the next slice A.5b); use "
-            f"mesh_shape=(1,)")
+def train_mesh(cfg, device: torch.device) -> Mesh | None:
+    """The data-parallel mesh of ``cfg.mesh_shape``: None for one device;
+    else the process group's (joined first: ``parallel/multihost.
+    initialize``, a no-op without a launcher's world or the
+    ``GANLEAKS_*`` variables), which must hold one rank per device
+    (``parallel/mesh.data_parallel_mesh`` raises otherwise)."""
+    if cfg.multihost or math.prod(cfg.mesh_shape) > 1:
+        multihost.initialize()
+    return data_parallel_mesh(tuple(cfg.mesh_shape), device=device)
+
+
+def data_parallel_of(cfg, device: torch.device, modules, optimizers
+                     ) -> DataParallel | None:
+    """The :class:`DataParallel` of :func:`train_mesh`, ``modules``
+    replicated from rank 0; None for one device."""
+    return data_parallel(train_mesh(cfg, device), modules, optimizers)
 
 
 def resolve_grid_dir(cfg) -> str | None:
@@ -85,11 +106,31 @@ def log_sample_grid(logger: MetricsLogger, gen, z: torch.Tensor,
                           step=step)
 
 
-def fit(cfg, state: GANState, images, step_fn, logger: MetricsLogger,
-        device: torch.device) -> GANState:
+def run_step(dp: DataParallel | None, step_fn, state, batches, *args,
+             **kwargs):
+    """``step_fn(state, *batches, *args, **kwargs)`` (``batches``: the
+    step's global batches): on one device as it is, else data-parallel
+    on this rank's shares (``DataParallel.run``)."""
+    if dp is None:
+        return step_fn(state, *batches, *args, **kwargs)
+    return dp.run(step_fn, state, batches, *args, **kwargs)
+
+
+def epoch_metrics(dp: DataParallel | None, metrics: dict) -> dict:
+    """The last step's metrics as floats: on ranks, the global batch's
+    (every rank takes part)."""
+    if dp is not None:
+        metrics = dp.metrics(metrics)
+    return {k: float(v) for k, v in metrics.items()}
+
+
+def fit(cfg, state: GANState, images, step_fn,
+        logger: MetricsLogger | None, device: torch.device,
+        dp: DataParallel | None = None) -> GANState:
     """The epoch loop shared by the DCGAN and WGAN-GP trainers:
-    ``step_fn(state, batch, generator)`` per batch, one metrics record and
-    one sample grid per epoch."""
+    ``step_fn(state, batch, generator)`` per batch (data-parallel on this
+    rank's share with ``dp``), one metrics record and one sample grid per
+    epoch (by rank 0 alone)."""
     ds = DeviceDataset(images, seed=cfg.seed, device=device)
     step_gen = torch.Generator(device=device).manual_seed(cfg.seed + 1)
     grid_z = torch.randn(64, cfg.nz, generator=torch.Generator()
@@ -98,34 +139,50 @@ def fit(cfg, state: GANState, images, step_fn, logger: MetricsLogger,
     for epoch in range(cfg.num_epochs):
         metrics = {}
         for batch in ds.epoch(cfg.batch_size):
-            metrics = step_fn(state, batch, step_gen)
+            metrics = run_step(dp, step_fn, state, (batch,), step_gen)
             meter.add(batch.shape[0])
-        logger.log({"epoch": epoch,
-                    **{k: float(v) for k, v in metrics.items()},
-                    "images_per_sec": meter.rate()}, step=state.step)
-        log_sample_grid(logger, state.gen, grid_z, state.step)
+        metrics = epoch_metrics(dp, metrics)
+        if is_main(dp):
+            logger.log({"epoch": epoch, **metrics,
+                        "images_per_sec": meter.rate()}, step=state.step)
+            log_sample_grid(logger, state.gen, grid_z, state.step)
     return state
+
+
+def save_nets(cfg, dp: DataParallel | None, model_name: str,
+              nets: dict) -> None:
+    """``<PATH>/<model_name>/<timestamp>/<name>.pth`` for each of ``nets``
+    when ``cfg.save_model``, written by rank 0 alone; the other ranks
+    wait at a barrier."""
+    if cfg.save_model and is_main(dp):
+        dirname = check_folder(timestamp_dir(os.path.join(cfg.PATH,
+                                                          model_name)))
+        for name, net in nets.items():
+            save_state_dict(os.path.join(dirname, f"{name}.pth"), net)
+    if dp is not None:
+        dp.barrier()
+        dp.close()
 
 
 def train(cfg: DCGANConfig, images=None, logger: MetricsLogger | None = None,
           device: torch.device | str | None = None) -> GANState:
     """Train loop (``train_torch.py:88-136``); ``images`` (NHWC float32 in
-    [-1, 1]) default to ``cfg.data_path`` decoded."""
+    [-1, 1]) default to ``cfg.data_path`` decoded. Data-parallel over the
+    process group's ranks when ``cfg.mesh_shape`` asks for several."""
     device = resolve_device(device)
-    check_mesh(cfg)
-    logger = logger or MetricsLogger(wandb_project=cfg.wandb,
-                                     image_dir=resolve_grid_dir(cfg))
+    state = build_state(cfg, device)
+    dp = data_parallel_of(cfg, device, [state.gen, state.disc],
+                          [state.opt_gen, state.opt_disc])
+    if logger is None and is_main(dp):
+        logger = MetricsLogger(wandb_project=cfg.wandb,
+                               image_dir=resolve_grid_dir(cfg))
     if images is None:
         images = load_train_images(cfg.data_path, cfg.image_size)
-    state = fit(cfg, build_state(cfg, device), images,
+    state = fit(cfg, state, images,
                 lambda s, b, g: dcgan_train_step(s, b, generator=g),
-                logger, device)
-    if cfg.save_model:
-        dirname = check_folder(timestamp_dir(os.path.join(cfg.PATH,
-                                                          "dcgan")))
-        save_state_dict(os.path.join(dirname, "generator.pth"), state.gen)
-        save_state_dict(os.path.join(dirname, "discriminator.pth"),
-                        state.disc)
+                logger, device, dp)
+    save_nets(cfg, dp, "dcgan", {"generator": state.gen,
+                                 "discriminator": state.disc})
     return state
 
 

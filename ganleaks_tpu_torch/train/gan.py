@@ -20,19 +20,22 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ganleaks_tpu_torch.ops.nn import batch_draw, batch_loss
 from ganleaks_tpu_torch.train.state import GANState
 
 
 def bce_with_logits(logits: torch.Tensor, target: float) -> torch.Tensor:
-    return F.binary_cross_entropy_with_logits(
-        logits, torch.full_like(logits, target))
+    return batch_loss(F.binary_cross_entropy_with_logits, logits,
+                      torch.full_like(logits, target))
 
 
 def latent(state: GANState, batch: int, like: torch.Tensor,
            generator: torch.Generator | None) -> torch.Tensor:
-    """One (batch, nz) standard normal draw on ``like``'s device."""
-    return torch.randn(batch, state.gen.nz, generator=generator,
-                       device=like.device, dtype=like.dtype)
+    """One (batch, nz) standard normal draw on ``like``'s device (on the
+    batch axis, this rank's rows of the global batch's draw)."""
+    return batch_draw(lambda n: torch.randn(
+        n, state.gen.nz, generator=generator, device=like.device,
+        dtype=like.dtype), batch)
 
 
 def dcgan_train_step(state: GANState, real: torch.Tensor,

@@ -40,14 +40,16 @@ import torch.nn.functional as F
 
 from ganleaks_tpu_torch.config import MedGANConfig
 from ganleaks_tpu_torch.device import resolve_device
-from ganleaks_tpu_torch.io.artifacts import check_folder, timestamp_dir
+from ganleaks_tpu_torch.io.artifacts import check_folder
 from ganleaks_tpu_torch.io.tables import load_csv_dataset
 from ganleaks_tpu_torch.models.medgan import (Autoencoder, Discriminator,
                                               Generator)
-from ganleaks_tpu_torch.ops.nn import torch_default_init
-from ganleaks_tpu_torch.train.dcgan import check_mesh
+from ganleaks_tpu_torch.ops.nn import (batch_draw, batch_loss, batch_mean,
+                                       torch_default_init)
+from ganleaks_tpu_torch.parallel.dp import is_main
+from ganleaks_tpu_torch.train.dcgan import (data_parallel_of, epoch_metrics,
+                                            run_step, save_nets)
 from ganleaks_tpu_torch.train.state import adam_torch
-from ganleaks_tpu_torch.utils.checkpoint import save_state_dict
 from ganleaks_tpu_torch.utils.logging import MetricsLogger
 
 EPS = 1e-12
@@ -69,7 +71,7 @@ class MedGANState:
 
 def generator_loss(y_fake: torch.Tensor) -> torch.Tensor:
     """-mean(log(y_fake + eps)) (``utils.py:7-15``)."""
-    return -torch.log(y_fake + EPS).mean()
+    return -batch_mean(torch.log(y_fake + EPS))
 
 
 def autoencoder_loss(x_out: torch.Tensor, y_target: torch.Tensor,
@@ -78,17 +80,17 @@ def autoencoder_loss(x_out: torch.Tensor, y_target: torch.Tensor,
     if binary:
         term = (y_target * torch.log(x_out + EPS)
                 + (1.0 - y_target) * torch.log(1.0 - x_out + EPS))
-        return (-term.sum(dim=1)).mean()
-    return (x_out - y_target).square().sum(dim=1).mean()
+        return batch_mean(-term.sum(dim=1))
+    return batch_mean((x_out - y_target).square().sum(dim=1))
 
 
 def discriminator_loss(out_real: torch.Tensor,
                        out_fake: torch.Tensor) -> torch.Tensor:
     """BCE-with-logits on the sigmoid outputs (``utils.py:36-42``)."""
-    return (F.binary_cross_entropy_with_logits(
-                out_real, torch.ones_like(out_real))
-            + F.binary_cross_entropy_with_logits(
-                out_fake, torch.zeros_like(out_fake)))
+    return (batch_loss(F.binary_cross_entropy_with_logits, out_real,
+                       torch.ones_like(out_real))
+            + batch_loss(F.binary_cross_entropy_with_logits, out_fake,
+                         torch.zeros_like(out_fake)))
 
 
 def discriminator_accuracy(pred: torch.Tensor, y_true: bool) -> float:
@@ -115,8 +117,9 @@ def medgan_train_step(state: MedGANState, real: torch.Tensor,
     defaults to a draw from ``generator``."""
     gen, disc, ae = state.gen, state.disc, state.ae
     if noise is None:
-        noise = torch.randn(real.shape[0], gen.z_dim, generator=generator,
-                            device=real.device, dtype=real.dtype)
+        noise = batch_draw(lambda n: torch.randn(
+            n, gen.z_dim, generator=generator, device=real.device,
+            dtype=real.dtype), real.shape[0])
     dec = ae.decode(gen(noise))
 
     d_loss = discriminator_loss(disc(real), disc(dec.detach()))
@@ -170,16 +173,22 @@ def train(cfg: MedGANConfig, data: np.ndarray | None = None,
     ``test_data`` (N, D) default to the CSV's 90/10 split. Each epoch is
     ``N // batch_size`` batches drawn with replacement. Saves
     ``generator.pth``, ``autoencoder.pth`` and ``discriminator.pth`` under
-    the reference's keys."""
+    the reference's keys. Data-parallel as ``dcgan.train`` (JAX
+    ``ganleaks_tpu/train/medgan.py:185-215``), the pretrain and the GAN
+    loop alike: every rank's host sampler is seeded alike and draws the
+    global batch, of which it takes its share; rank 0 alone evaluates."""
     device = resolve_device(device)
-    check_mesh(cfg)
-    logger = logger or MetricsLogger()
     if data is None:
         data = load_csv_dataset(cfg.DATASETPATH, train=True)
         test_data = load_csv_dataset(cfg.DATASETPATH, train=False)
     rows = torch.from_numpy(np.asarray(data, np.float32)).to(device)
     n = len(rows)
     state = build_state(cfg, rows.shape[1], device)
+    dp = data_parallel_of(cfg, device, [state.gen, state.disc, state.ae],
+                          [state.opt_gen, state.opt_disc, state.opt_ae,
+                           state.opt_ae_g])
+    if logger is None and is_main(dp):
+        logger = MetricsLogger()
     host_rng = np.random.default_rng(cfg.seed)
     step_gen = torch.Generator(device=device).manual_seed(cfg.seed + 1)
     per_epoch = max(1, n // cfg.batch_size)
@@ -190,24 +199,26 @@ def train(cfg: MedGANConfig, data: np.ndarray | None = None,
 
     metrics = {}
     for _ in range(cfg.n_epochs_pretrain * per_epoch):
-        metrics = ae_pretrain_step(state, sample_batch(), cfg.binary)
+        metrics = run_step(dp, ae_pretrain_step, state, (sample_batch(),),
+                           cfg.binary)
     if metrics:
-        logger.log({"pretrain_a_loss": float(metrics["a_loss"])})
+        metrics = epoch_metrics(dp, metrics)
+        if is_main(dp):
+            logger.log({"pretrain_a_loss": metrics["a_loss"]})
     for epoch in range(cfg.n_epochs):
         for _ in range(per_epoch):
-            metrics = medgan_train_step(state, sample_batch(),
-                                        generator=step_gen)
+            metrics = run_step(dp, medgan_train_step, state,
+                               (sample_batch(),), generator=step_gen)
         if (epoch + 1) % 10 == 0 or epoch == cfg.n_epochs - 1:
-            rec = {k: float(v) for k, v in metrics.items()}
-            if test_data is not None:
-                rec.update(evaluate(cfg, state, test_data, epoch, device))
-            logger.log({"epoch": epoch + 1, **rec}, step=state.step)
-    if cfg.save_model:
-        dirname = check_folder(timestamp_dir(os.path.join(cfg.PATH,
-                                                          "medgan")))
-        for name, m in (("generator", state.gen), ("autoencoder", state.ae),
-                        ("discriminator", state.disc)):
-            save_state_dict(os.path.join(dirname, f"{name}.pth"), m)
+            rec = epoch_metrics(dp, metrics)
+            if is_main(dp):
+                if test_data is not None:
+                    rec.update(evaluate(cfg, state, test_data, epoch,
+                                        device))
+                logger.log({"epoch": epoch + 1, **rec}, step=state.step)
+    save_nets(cfg, dp, "medgan", {"generator": state.gen,
+                                  "autoencoder": state.ae,
+                                  "discriminator": state.disc})
     return state
 
 

@@ -43,18 +43,17 @@ from torch import nn
 
 from ganleaks_tpu_torch.config import PGGANConfig
 from ganleaks_tpu_torch.device import resolve_device
-from ganleaks_tpu_torch.io.artifacts import check_folder, timestamp_dir
 from ganleaks_tpu_torch.io.data import (DeviceDataset, load_train_images,
                                         random_hflip)
 from ganleaks_tpu_torch.io.images import nearest_resize
 from ganleaks_tpu_torch.models.pggan import (AtResolution, Discriminator,
                                              Generator)
-from ganleaks_tpu_torch.ops.nn import (WSConv2d, fan_in,
-                                       torch_conv_default_init_)
+from ganleaks_tpu_torch.ops.nn import (WSConv2d, batch_draw, batch_mean,
+                                       fan_in, torch_conv_default_init_)
+from ganleaks_tpu_torch.parallel.dp import is_main
 from ganleaks_tpu_torch.train import dcgan
 from ganleaks_tpu_torch.train.state import GANState, adam_torch
-from ganleaks_tpu_torch.utils.checkpoint import (load_state_dict,
-                                                 save_state_dict)
+from ganleaks_tpu_torch.utils.checkpoint import load_state_dict
 from ganleaks_tpu_torch.utils.logging import MetricsLogger, Throughput
 
 
@@ -69,7 +68,7 @@ def gradient_penalty_fn(critic, real: torch.Tensor, fake: torch.Tensor,
     grads, = torch.autograd.grad(critic(interp, steps, alpha).sum(), interp,
                                  create_graph=True)
     norms = (grads.flatten(1).square().sum(1) + 1e-12).sqrt()
-    return (norms - 1.0).square().mean()
+    return batch_mean((norms - 1.0).square())
 
 
 def in_dtype(module: nn.Module, dtype: torch.dtype):
@@ -100,11 +99,11 @@ def pggan_train_step(state: GANState, real: torch.Tensor, alpha: float,
     b, dev = real.shape[0], real.device
     real_c = real.to(cdt)
     if noise is None:
-        noise = torch.randn(b, gen.nz, generator=generator, device=dev,
-                            dtype=cdt)
+        noise = batch_draw(lambda n: torch.randn(
+            n, gen.nz, generator=generator, device=dev, dtype=cdt), b)
     if eps is None:
-        eps = torch.rand(b, 1, 1, 1, generator=generator, device=dev,
-                         dtype=cdt)
+        eps = batch_draw(lambda n: torch.rand(
+            n, 1, 1, 1, generator=generator, device=dev, dtype=cdt), b)
     alpha_c = torch.tensor(alpha, dtype=torch.float32, device=dev).to(cdt)
 
     fake = in_dtype(gen, cdt)(noise, steps, alpha_c)
@@ -113,13 +112,14 @@ def pggan_train_step(state: GANState, real: torch.Tensor, alpha: float,
     c_real = crit(real_c, steps, alpha_c).to(ldt)
     c_fake = crit(fixed, steps, alpha_c).to(ldt)
     gp = gradient_penalty_fn(crit, real_c, fixed, eps, steps, alpha_c)
-    loss_c = (-(c_real.mean() - c_fake.mean()) + lambda_gp * gp.to(ldt)
-              + drift * c_real.square().mean())
+    loss_c = (-(batch_mean(c_real) - batch_mean(c_fake))
+              + lambda_gp * gp.to(ldt) + drift * batch_mean(c_real.square()))
     state.opt_disc.zero_grad(set_to_none=True)
     loss_c.backward()
     state.opt_disc.step()
 
-    loss_g = -in_dtype(critic, cdt)(fake, steps, alpha_c).to(ldt).mean()
+    loss_g = -batch_mean(
+        in_dtype(critic, cdt)(fake, steps, alpha_c).to(ldt))
     state.opt_gen.zero_grad(set_to_none=True)
     loss_g.backward(inputs=list(gen.parameters()))
     state.opt_gen.step()
@@ -170,15 +170,22 @@ def train(cfg: PGGANConfig, images: np.ndarray | None = None,
           device: torch.device | str | None = None) -> GANState:
     """The progressive loop (``train.py:145-206``); ``images`` (NHWC
     float32 in [-1, 1]) default to ``cfg.data_path`` decoded. Saves
-    ``generator.pth`` and ``critic.pth`` under the reference's keys."""
+    ``generator.pth`` and ``critic.pth`` under the reference's keys.
+    Data-parallel as :func:`dcgan.train` (JAX
+    ``ganleaks_tpu/train/pggan.py:160-198``): the flips drawn for the
+    global batch before it is shared, the fade-in advanced by the global
+    batch's rows, the minibatch std over the global batch (its sums in
+    float32 on the bfloat16 path)."""
     device = resolve_device(device)
-    dcgan.check_mesh(cfg)
-    logger = logger or MetricsLogger(wandb_project=cfg.wandb,
-                                     image_dir=dcgan.resolve_grid_dir(cfg))
-    if images is None:
-        images = load_train_images(cfg.data_path, cfg.image_size)
     max_steps = max_steps_of(cfg)
     state = build_state(cfg, device, max_steps=max_steps)
+    dp = dcgan.data_parallel_of(cfg, device, [state.gen, state.disc],
+                                [state.opt_gen, state.opt_disc])
+    if logger is None and is_main(dp):
+        logger = MetricsLogger(wandb_project=cfg.wandb,
+                               image_dir=dcgan.resolve_grid_dir(cfg))
+    if images is None:
+        images = load_train_images(cfg.data_path, cfg.image_size)
     step_gen = torch.Generator(device=device).manual_seed(cfg.seed + 1)
     grid_z = torch.randn(64, cfg.nz, generator=torch.Generator()
                          .manual_seed(cfg.seed + 3)).to(device)
@@ -190,26 +197,26 @@ def train(cfg: PGGANConfig, images: np.ndarray | None = None,
         alpha, metrics = 1e-5, {}
         for _ in range(cfg.num_epochs):
             for batch in ds.epoch(batch_size):
-                if cfg.hflip:
+                if cfg.hflip:  # on the global batch, before the shares
                     batch = random_hflip(batch, generator=step_gen)
-                metrics = pggan_train_step(
-                    state, batch, alpha, steps, cfg.lambda_gp, cfg.drift,
-                    cfg.compute_dtype, generator=step_gen)
+                metrics = dcgan.run_step(
+                    dp, pggan_train_step, state, (batch,), alpha, steps,
+                    cfg.lambda_gp, cfg.drift, cfg.compute_dtype,
+                    generator=step_gen)
                 alpha = min(alpha + batch.shape[0]
                             / (cfg.num_epochs * 0.5 * len(ds)), 1.0)
                 meter.add(batch.shape[0])
-            dcgan.log_sample_grid(logger, AtResolution(state.gen, steps,
-                                                       alpha),
-                                  grid_z, state.step)
-        logger.log({"resolution": 4 * 2 ** steps,
-                    **{k: float(v) for k, v in metrics.items()},
-                    "alpha": alpha, "images_per_sec": meter.rate()},
-                   step=state.step)
-    if cfg.save_model:
-        dirname = check_folder(timestamp_dir(os.path.join(cfg.PATH,
-                                                          "pggan")))
-        save_state_dict(os.path.join(dirname, "generator.pth"), state.gen)
-        save_state_dict(os.path.join(dirname, "critic.pth"), state.disc)
+            if is_main(dp):
+                dcgan.log_sample_grid(
+                    logger, AtResolution(state.gen, steps, alpha), grid_z,
+                    state.step)
+        metrics = dcgan.epoch_metrics(dp, metrics)
+        if is_main(dp):
+            logger.log({"resolution": 4 * 2 ** steps, **metrics,
+                        "alpha": alpha, "images_per_sec": meter.rate()},
+                       step=state.step)
+    dcgan.save_nets(cfg, dp, "pggan", {"generator": state.gen,
+                                       "critic": state.disc})
     return state
 
 

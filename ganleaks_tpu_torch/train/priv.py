@@ -77,6 +77,18 @@ from ganleaks_tpu_torch.train.state import adam_torch
 from ganleaks_tpu_torch.utils.logging import MetricsLogger, Throughput
 
 
+def check_mesh(cfg) -> None:
+    """Refuse ``mesh_shape`` other than ``(1,)``: these trainers run on
+    one device. The JAX trainers ignore ``mesh_shape``, which under
+    ``torchrun`` would train one copy per rank; the splits' layout over
+    ranks is ``parallel/ep`` (one split per rank)."""
+    if tuple(cfg.mesh_shape) != (1,):
+        raise NotImplementedError(
+            f"mesh_shape {tuple(cfg.mesh_shape)}: the privGAN trainers run "
+            f"on one device; for one split per rank use the expert-parallel "
+            f"steps of ganleaks_tpu_torch/parallel/ep.py")
+
+
 def softmax_cross_entropy_on_probs(logits: torch.Tensor,
                                    labels: torch.Tensor) -> torch.Tensor:
     """``CrossEntropyLoss`` applied to softmax outputs (the reference
@@ -258,7 +270,7 @@ def train_privdcgan(cfg: DCGANConfig, priv_cfg: PrivGANConfig,
     (``privDCGAN.py:133-165,218-313``). ``images`` (NHWC float32 in
     [-1, 1]) default to ``cfg.data_path`` decoded."""
     device = resolve_device(device)
-    dcgan.check_mesh(cfg)
+    check_mesh(cfg)
     logger = logger or MetricsLogger()
     if images is None:
         images = load_train_images(cfg.data_path, cfg.image_size)
@@ -418,7 +430,7 @@ def train_privpggan(cfg: PGGANConfig, priv_cfg: PrivGANConfig,
     fade-in ramped per batch from 1e-5 by ``batch / (num_epochs * 0.5 *
     T)``."""
     device = resolve_device(device)
-    dcgan.check_mesh(cfg)
+    check_mesh(cfg)
     logger = logger or MetricsLogger()
     if images is None:
         images = load_train_images(cfg.data_path, cfg.image_size)

@@ -46,6 +46,7 @@ from dataclasses import dataclass
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
@@ -57,9 +58,12 @@ from ganleaks_tpu_torch.io.images import load_image_dir
 from ganleaks_tpu_torch.io.native import encode_png
 from ganleaks_tpu_torch.models.vaegan import (Discriminator, DiscriminatorL,
                                               Encoder, Generator)
-from ganleaks_tpu_torch.ops.nn import (BatchNormTorch, normal_init_,
+from ganleaks_tpu_torch.ops.nn import (BatchNormTorch, batch_draw,
+                                       batch_loss, batch_mean, normal_init_,
                                        spectral_chain, torch_default_init)
-from ganleaks_tpu_torch.train.dcgan import check_mesh
+from ganleaks_tpu_torch.parallel.dp import data_parallel
+from ganleaks_tpu_torch.train.dcgan import (epoch_metrics, run_step,
+                                            train_mesh)
 from ganleaks_tpu_torch.train.sample import sample_to_host
 from ganleaks_tpu_torch.train.state import adam_torch
 from ganleaks_tpu_torch.utils.checkpoint import save_params_npz
@@ -91,12 +95,14 @@ class VAEGANState:
 
 def bce(probs: torch.Tensor, target: float) -> torch.Tensor:
     """torch ``BCELoss`` on probabilities against a constant target."""
-    return F.binary_cross_entropy(probs, torch.full_like(probs, target))
+    return batch_loss(F.binary_cross_entropy, probs,
+                      torch.full_like(probs, target))
 
 
 def _draw(generator, like: torch.Tensor, z_dim: int) -> torch.Tensor:
-    return torch.randn(like.shape[0], z_dim, generator=generator,
-                       device=like.device, dtype=like.dtype)
+    return batch_draw(lambda n: torch.randn(
+        n, z_dim, generator=generator, device=like.device,
+        dtype=like.dtype), like.shape[0])
 
 
 def vaegan_train_step(state: VAEGANState, real_dl: torch.Tensor,
@@ -136,8 +142,8 @@ def vaegan_train_step(state: VAEGANState, real_dl: torch.Tensor,
         with spectral_chain(disc):
             out_real = disc(real_d)
             out_fake = disc(fake)
-        loss_d = (F.relu(0.5 + out_real).mean()
-                  + F.relu(0.5 - out_fake).mean())
+        loss_d = (batch_mean(F.relu(0.5 + out_real))
+                  + batch_mean(F.relu(0.5 - out_fake)))
         state.opt_disc.zero_grad(set_to_none=True)
         loss_d.backward()
         state.opt_disc.step()
@@ -145,8 +151,8 @@ def vaegan_train_step(state: VAEGANState, real_dl: torch.Tensor,
     # (3) G and E (train.py:359-385)
     encoded = enc(real_g, eps=draws["eps_g"])
     rec_fake = gen(encoded)
-    rec = (real_g.flatten(1) - rec_fake.flatten(1)).abs().sum(1).mean()
-    loss_g = (disc(rec_fake).mean() + bce(disc_l(encoded), 1.0)
+    rec = batch_mean((real_g.flatten(1) - rec_fake.flatten(1)).abs().sum(1))
+    loss_g = (batch_mean(disc(rec_fake)) + bce(disc_l(encoded), 1.0)
               + 0.005 * rec)
     state.opt_gen.zero_grad(set_to_none=True)
     state.opt_enc.zero_grad(set_to_none=True)
@@ -246,18 +252,32 @@ def train(cfg: VAEGANConfig, images: np.ndarray | None = None,
     """The training loop (``train.py:284-414``): ``nepoch`` epochs of
     ``steps_per_epoch`` iterations; ``images`` (NHWC float32 in [-1, 1])
     default to the PNGs under ``cfg.data_path``. With ``resume`` an
-    existing ``results/<exp_name>/checkpoint.pth`` is continued."""
+    existing ``results/<exp_name>/checkpoint.pth`` is continued.
+
+    Data-parallel as ``dcgan.train`` (JAX ``ganleaks_tpu/train/
+    vaegan.py:254-280``): all four batches of an iteration shared, rank 0
+    alone logging and writing the checkpoints, every rank resuming from
+    rank 0's after a barrier. The spectral-norm power iteration needs no
+    reduction: it reads the weights alone, which are replicated."""
     device = resolve_device(device)
-    check_mesh(cfg)
-    save_dir = check_folder(os.path.join("results", cfg.exp_name))
-    dump_params(save_dir, cfg)
-    logger = logger or MetricsLogger(os.path.join(save_dir, "metrics.jsonl"))
     state = build_state(cfg, device)
+    mesh = train_mesh(cfg, device)
+    main = mesh is None or mesh.is_main
+    save_dir = check_folder(os.path.join("results", cfg.exp_name))
+    if main:
+        dump_params(save_dir, cfg)
+    if logger is None and main:
+        logger = MetricsLogger(os.path.join(save_dir, "metrics.jsonl"))
     step_gen = torch.Generator(device=device).manual_seed(cfg.seed + 1)
     ckpt_path = os.path.join(save_dir, "checkpoint.pth")
+    if mesh is not None:  # a checkpoint rank 0 wrote before, on every rank
+        dist.barrier(group=mesh.group)
     if resume and os.path.exists(ckpt_path):
         load_checkpoint(ckpt_path, state, step_gen)
-        print(f" [*] resumed from epoch {state.epoch}")
+        if main:
+            print(f" [*] resumed from epoch {state.epoch}")
+    dp = data_parallel(mesh, state.nets().values(),
+                       state.optimizers().values())
     ds = (VaeganImageDataset.from_dir(cfg.data_path, cfg.image_size,
                                       cfg.seed, device)
           if images is None else DeviceDataset(images, cfg.seed, device))
@@ -270,14 +290,19 @@ def train(cfg: VAEGANConfig, images: np.ndarray | None = None,
         for _ in range(cfg.steps_per_epoch):
             b = [ds.images[torch.from_numpy(next(batches)).to(device)]
                  for _ in range(4)]
-            metrics = vaegan_train_step(state, *b, generator=step_gen)
+            metrics = run_step(dp, vaegan_train_step, state, b,
+                               generator=step_gen)
         state.epoch = epoch + 1
-        logger.log({"epoch": epoch,
-                    **{k: float(v) for k, v in metrics.items()}},
-                   step=state.step)
-        if epoch % cfg.checkpoint_every == 0:  # train.py:401-414
-            save_checkpoint(save_dir, state, step_gen)
-    save_checkpoint(save_dir, state, step_gen)
+        metrics = epoch_metrics(dp, metrics)
+        if main:
+            logger.log({"epoch": epoch, **metrics}, step=state.step)
+            if epoch % cfg.checkpoint_every == 0:  # train.py:401-414
+                save_checkpoint(save_dir, state, step_gen)
+    if main:
+        save_checkpoint(save_dir, state, step_gen)
+    if dp is not None:
+        dp.barrier()
+        dp.close()
     return state
 
 

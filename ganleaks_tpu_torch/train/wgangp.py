@@ -18,21 +18,20 @@ DIVERGENCES.md).
 
 from __future__ import annotations
 
-import os
 from typing import Sequence
 
 import torch
 
 from ganleaks_tpu_torch.config import WGANGPConfig
 from ganleaks_tpu_torch.device import resolve_device
-from ganleaks_tpu_torch.io.artifacts import check_folder, timestamp_dir
 from ganleaks_tpu_torch.io.data import load_train_images
 from ganleaks_tpu_torch.models.wgangp import Critic
-from ganleaks_tpu_torch.ops.nn import initialize_weights
+from ganleaks_tpu_torch.ops.nn import (batch_draw, batch_mean,
+                                       initialize_weights)
+from ganleaks_tpu_torch.parallel.dp import is_main
 from ganleaks_tpu_torch.train import dcgan
 from ganleaks_tpu_torch.train.gan import latent
 from ganleaks_tpu_torch.train.state import GANState, adam_torch
-from ganleaks_tpu_torch.utils.checkpoint import save_state_dict
 from ganleaks_tpu_torch.utils.logging import MetricsLogger
 
 
@@ -44,7 +43,7 @@ def gradient_penalty_fn(critic, real: torch.Tensor, fake: torch.Tensor,
     grads, = torch.autograd.grad(critic(interp).sum(), interp,
                                  create_graph=True)
     norms = grads.flatten(1).square().sum(1).sqrt()
-    return (norms - 1.0).square().mean()
+    return batch_mean((norms - 1.0).square())
 
 
 def wgangp_train_step(state: GANState, real: torch.Tensor,
@@ -61,18 +60,18 @@ def wgangp_train_step(state: GANState, real: torch.Tensor,
     for t in range(critic_iter):
         z = noise[t] if noise is not None else latent(state, b, real,
                                                       generator)
-        e = eps[t] if eps is not None else torch.rand(
-            b, 1, 1, 1, generator=generator, device=real.device,
-            dtype=real.dtype)
+        e = eps[t] if eps is not None else batch_draw(
+            lambda n: torch.rand(n, 1, 1, 1, generator=generator,
+                                 device=real.device, dtype=real.dtype), b)
         fake = gen(z)
         fixed = fake.detach()
-        loss_c = (critic(fixed).mean() - critic(real).mean()
+        loss_c = (batch_mean(critic(fixed)) - batch_mean(critic(real))
                   + lambda_gp * gradient_penalty_fn(critic, real, fixed, e))
         state.opt_disc.zero_grad(set_to_none=True)
         loss_c.backward()
         state.opt_disc.step()
 
-    loss_g = -critic(fake).mean()
+    loss_g = -batch_mean(critic(fake))
     state.opt_gen.zero_grad(set_to_none=True)
     loss_g.backward()
     state.opt_gen.step()
@@ -100,23 +99,25 @@ def train(cfg: WGANGPConfig, images=None,
           logger: MetricsLogger | None = None,
           device: torch.device | str | None = None) -> GANState:
     """Train loop (``train.py:84-135``); saves ``generator.pth`` and
-    ``critic.pth``."""
+    ``critic.pth``. Data-parallel as :func:`dcgan.train` (JAX
+    ``ganleaks_tpu/train/wgangp.py:120-131``): each critic update draws
+    its noise and eps global-shaped."""
     device = resolve_device(device)
-    dcgan.check_mesh(cfg)
-    logger = logger or MetricsLogger(wandb_project=cfg.wandb,
-                                     image_dir=dcgan.resolve_grid_dir(cfg))
+    state = build_state(cfg, device)
+    dp = dcgan.data_parallel_of(cfg, device, [state.gen, state.disc],
+                                [state.opt_gen, state.opt_disc])
+    if logger is None and is_main(dp):
+        logger = MetricsLogger(wandb_project=cfg.wandb,
+                               image_dir=dcgan.resolve_grid_dir(cfg))
     if images is None:
         images = load_train_images(cfg.data_path, cfg.image_size)
     state = dcgan.fit(
-        cfg, build_state(cfg, device), images,
+        cfg, state, images,
         lambda s, b, g: wgangp_train_step(
             s, b, cfg.critic_iter, cfg.lambda_gp, generator=g),
-        logger, device)
-    if cfg.save_model:
-        dirname = check_folder(timestamp_dir(os.path.join(cfg.PATH,
-                                                          "wgangp")))
-        save_state_dict(os.path.join(dirname, "generator.pth"), state.gen)
-        save_state_dict(os.path.join(dirname, "critic.pth"), state.disc)
+        logger, device, dp)
+    dcgan.save_nets(cfg, dp, "wgangp", {"generator": state.gen,
+                                        "critic": state.disc})
     return state
 
 

@@ -591,6 +591,8 @@ def test_parallel_and_dryrun_stand_alone():
     optional library: the dry run on two ``gloo`` ranks works with all of
     them unimportable in the launching process."""
     code = textwrap.dedent("""
+        import ganleaks_tpu_torch.parallel.dp
+        import ganleaks_tpu_torch.parallel.ep
         import ganleaks_tpu_torch.parallel.knn_shard
         import ganleaks_tpu_torch.parallel.mesh
         import ganleaks_tpu_torch.parallel.multihost
@@ -609,12 +611,14 @@ def test_parallel_and_dryrun_stand_alone():
 def test_multi_gpu_entry_points_refuse_without_gpu(monkeypatch):
     from ganleaks_tpu_torch.attack.fbb import launch_attack
     from ganleaks_tpu_torch.cli import fid as cli_fid
+    from ganleaks_tpu_torch.cli import train_dcgan
     from ganleaks_tpu_torch.config import AttackConfig
     from ganleaks_tpu_torch.dryrun import dryrun_multichip
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     for call in (lambda: launch_attack(AttackConfig(n_chips=2)),
                  lambda: dryrun_multichip(2),
-                 lambda: cli_fid.main(["a.npz", "b.npz", "--n_chips", "2"])):
+                 lambda: cli_fid.main(["a.npz", "b.npz", "--n_chips", "2"]),
+                 lambda: train_dcgan.main(["mesh_shape=[2]"])):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             call()

@@ -301,3 +301,11 @@ def test_dryrun_multichip_on_cpu():
     assert len(out["indices"]) == 4
     assert set(out["layouts"]) >= {"sharded", "ring", "ring_streamed_pallas",
                                    "sharded_streamed_pallas"}
+    # the training parts: the data-parallel DCGAN step against one
+    # process's, the expert-parallel privDCGAN step (gate on)
+    assert set(out["dp_losses"]) == {"loss_disc", "loss_gen"}
+    assert out["dp_max_param_diff_lr"] <= 0.1
+    assert out["dp_update_rel"] < 1e-4
+    assert set(out["ep_losses"]) == {"loss_d", "loss_dp", "loss_g"}
+    assert all(np.isfinite(v) for v in out["ep_losses"].values())
+    assert out["ep_losses"]["loss_dp"] > 0

@@ -560,7 +560,21 @@ def test_train_sample_attack_pipeline(tmp_path, monkeypatch):
 
 
 def test_mesh_shape_refused():
+    """A data-parallel mesh outside a process group raises
+    ``data_parallel_mesh``'s error naming the ranks it needs (the CLI
+    launches them; ``tests/test_torch_train_ranks.py`` trains on them);
+    the privGAN trainers refuse any mesh, naming ``parallel/ep``."""
+    from ganleaks_tpu_torch.config import PGGANConfig, PrivGANConfig
+    from ganleaks_tpu_torch.train import priv
+
     _, cfg = _dcgan_cfg(mesh_shape=(2,))
-    with pytest.raises(NotImplementedError, match="M12"):
+    with pytest.raises(ValueError, match="needs 2 ranks"):
         dcgan.train(cfg, images=np.zeros((4, 16, 16, 3), np.float32),
                     device="cpu")
+    for train, mcfg in ((priv.train_privdcgan, cfg),
+                        (priv.train_privpggan, PGGANConfig(
+                            mesh_shape=(2,)))):
+        with pytest.raises(NotImplementedError, match="parallel/ep"):
+            train(mcfg, PrivGANConfig(),
+                  images=np.zeros((4, 16, 16, 3), np.float32),
+                  device="cpu")

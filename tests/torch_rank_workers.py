@@ -334,3 +334,263 @@ def fid_case(images1, images2, batch_size: int) -> dict:
                                     method="eigh", device="cpu", mesh=mesh)
     return {"acts": acts, "tail": tail, "fid": value,
             "same": pmesh.gather_objects(float(acts.sum()), mesh)}
+
+
+# ---------------------------------------------------------------------------
+# the trainers' layouts: data-parallel steps (parallel/dp), expert-parallel
+# privGAN (parallel/ep), a whole data-parallel run
+# ---------------------------------------------------------------------------
+
+def trainer_config(kind: str, **kw):
+    """The tiny configs of the rank tests (16-px models where the
+    architecture allows; WGAN-GP's critic and VAE-GAN are 64 px)."""
+    from ganleaks_tpu_torch import config as C
+
+    base = {
+        "dcgan": (C.DCGANConfig, dict(nz=8, ngf=8, ndf=8, image_size=16)),
+        "wgangp": (C.WGANGPConfig, dict(nz=8, ngf=8, ndf=8,
+                                         critic_iter=2)),
+        "pggan": (C.PGGANConfig, dict(nz=16, in_channels=16, image_size=8,
+                                      compute_dtype="float32")),
+        "medgan": (C.MedGANConfig, dict(latent_dim=16, hidden_gen=16,
+                                        hidden_disc1=16, hidden_disc2=16)),
+        "vaegan": (C.VAEGANConfig, dict(z_dim=16, d=8)),
+    }
+    cls, kws = base[kind]
+    return cls(**{**kws, **kw})
+
+
+MEDGAN_D = 24   # medGAN's record width in the rank tests
+
+
+def trainer_state(kind: str, cfg, init: dict | None = None):
+    """``build_state`` of ``kind`` on the CPU (seeded), then ``init``'s
+    state dicts (net name -> numpy state dict) loaded where given."""
+    from ganleaks_tpu_torch.train import (dcgan, medgan, pggan, vaegan,
+                                          wgangp)
+
+    if kind == "medgan":
+        state = medgan.build_state(cfg, MEDGAN_D)
+    elif kind == "pggan":
+        state = pggan.build_state(cfg, max_steps=1)
+    else:
+        state = {"dcgan": dcgan, "wgangp": wgangp,
+                 "vaegan": vaegan}[kind].build_state(cfg)
+    for name, sd in (init or {}).items():
+        trainer_nets(state)[name].load_state_dict(
+            {k: torch.from_numpy(np.asarray(v)) for k, v in sd.items()})
+    return state
+
+
+def trainer_nets(state) -> dict:
+    if hasattr(state, "nets"):
+        return state.nets()
+    nets = {"gen": state.gen, "disc": state.disc}
+    if hasattr(state, "ae"):
+        nets["ae"] = state.ae
+    return nets
+
+
+def trainer_optimizers(state) -> list:
+    if hasattr(state, "optimizers"):
+        return list(state.optimizers().values())
+    return [getattr(state, k) for k in ("opt_gen", "opt_disc", "opt_ae",
+                                        "opt_ae_g") if hasattr(state, k)]
+
+
+def snapshot(state, grads: bool = False) -> dict:
+    """Every net's parameters and buffers, numpy, by ``net.key``; with
+    ``grads`` also each parameter's last gradient as ``grad:net.key``."""
+    out = {f"{name}.{k}": v.detach().cpu().numpy().copy()
+           for name, net in trainer_nets(state).items()
+           for k, v in net.state_dict().items()}
+    if grads:
+        out.update({f"grad:{name}.{k}": p.grad.cpu().numpy().copy()
+                    for name, net in trainer_nets(state).items()
+                    for k, p in net.named_parameters()
+                    if p.grad is not None})
+    return out
+
+
+def trainer_step(kind: str, cfg, state, batches: list, draws: dict | None,
+                 generator, dp=None) -> dict:
+    """One step of ``kind`` on the global ``batches`` (NCHW or rows),
+    on one process (``dp`` None) or on this rank's shares: ``draws``
+    (global-shaped, the step's keyword names; lists per update) shared
+    with the batches' rows, else drawn from ``generator``. medGAN's
+    step is an autoencoder pretrain step, then a GAN step. Returns the
+    global batch's losses (floats)."""
+    from ganleaks_tpu_torch.train import medgan
+    from ganleaks_tpu_torch.train.gan import dcgan_train_step
+    from ganleaks_tpu_torch.train.pggan import pggan_train_step
+    from ganleaks_tpu_torch.train.vaegan import vaegan_train_step
+    from ganleaks_tpu_torch.train.wgangp import wgangp_train_step
+
+    def local(x):
+        if isinstance(x, (list, tuple)):
+            return [local(t) for t in x]
+        if isinstance(x, dict):
+            return {k: local(v) for k, v in x.items()}
+        return x if dp is None else dp.shard(x)
+
+    def step(s, *b):
+        d = local(draws or {})
+        if kind == "dcgan":
+            return dcgan_train_step(s, b[0], generator=generator, **d)
+        if kind == "wgangp":
+            return wgangp_train_step(s, b[0], cfg.critic_iter,
+                                     cfg.lambda_gp, generator=generator,
+                                     **d)
+        if kind == "pggan":
+            return pggan_train_step(s, b[0], 0.5, 1, cfg.lambda_gp,
+                                    cfg.drift, cfg.compute_dtype,
+                                    generator=generator, **d)
+        if kind == "medgan":
+            m = medgan.ae_pretrain_step(s, b[0], cfg.binary)
+            return {**m, **medgan.medgan_train_step(s, b[0],
+                                                    generator=generator,
+                                                    **d)}
+        return vaegan_train_step(s, *b, draws=d or None,
+                                 generator=generator)
+
+    batches = [torch.as_tensor(b) for b in batches]
+    if dp is None:
+        m = step(state, *batches)
+    else:
+        m = dp.metrics(dp.run(step, state, batches))
+    return {k: float(v) for k, v in m.items()}
+
+
+def _digests(state) -> dict:
+    import hashlib
+    return {k: hashlib.sha1(v.tobytes()).hexdigest()
+            for k, v in snapshot(state).items()}
+
+
+def train_rank_cases(cases: list, run_kw: dict, images: np.ndarray) -> dict:
+    """Everything the data-parallel tests ask of one launch:
+    :func:`dp_step_cases`, :func:`dp_train_run` and
+    :func:`dp_reject_short_batch`."""
+    out = dp_step_cases(cases)
+    out["run"] = dp_train_run(run_kw, images)
+    out["short_batch"] = dp_reject_short_batch()
+    return out
+
+
+def dp_step_cases(cases: list) -> dict:
+    """Each case ``{"name", "kind", "cfg": kwargs, "init": state dicts or
+    None, "steps": [{"batches": [...], "draws": dict or None}], "seed"}``
+    run data-parallel on this group's ranks: per case the losses of each
+    step, rank 0's parameters and buffers, every rank's digest of them
+    (the replicas' equality), the collectives and staged bytes."""
+    from ganleaks_tpu_torch.parallel import mesh as pmesh
+    from ganleaks_tpu_torch.parallel.dp import DataParallel
+
+    mesh = pmesh.mesh_of(multihost.local_device(), axis="data")
+    out = {"size": mesh.size}
+    for case in cases:
+        cfg = trainer_config(case["kind"], **case.get("cfg", {}))
+        state = trainer_state(case["kind"], cfg, case.get("init"))
+        dp = DataParallel(mesh, trainer_nets(state).values(),
+                          trainer_optimizers(state))
+        gen = torch.Generator().manual_seed(case.get("seed", 0))
+        losses = [trainer_step(case["kind"], cfg, state, st["batches"],
+                               st.get("draws"), gen, dp)
+                  for st in case["steps"]]
+        dp.close()
+        out[case["name"]] = {
+            "losses": losses, "state": snapshot(state, grads=True),
+            "digests": pmesh.gather_objects(_digests(state), mesh)}
+    out["stats"] = dict(mesh.stats)
+    return out
+
+
+def dp_reject_short_batch() -> str:
+    """The message of a step on a batch with fewer rows than ranks."""
+    from ganleaks_tpu_torch.parallel import mesh as pmesh
+    from ganleaks_tpu_torch.parallel.dp import DataParallel
+
+    mesh = pmesh.mesh_of(multihost.local_device(), axis="data")
+    cfg = trainer_config("dcgan")
+    state = trainer_state("dcgan", cfg)
+    dp = DataParallel(mesh, trainer_nets(state).values(),
+                      trainer_optimizers(state))
+    try:
+        trainer_step("dcgan", cfg, state, [torch.zeros(mesh.size - 1, 3,
+                                                       16, 16)], None,
+                     torch.Generator(), dp)
+    except ValueError as e:
+        return str(e)
+    return ""
+
+
+def dp_train_run(cfg_kw: dict, images: np.ndarray) -> dict:
+    """``dcgan.train`` with ``mesh_shape=(size,)`` on the group's ranks:
+    rank 0's final state, every rank's digests and the checkpoint files
+    each rank wrote."""
+    from ganleaks_tpu_torch.parallel import mesh as pmesh
+    from ganleaks_tpu_torch.train import dcgan
+
+    written = []
+    real_save = dcgan.save_state_dict
+    dcgan.save_state_dict = lambda path, net: (
+        written.append(path.rsplit("/", 1)[-1]), real_save(path, net))
+    try:
+        size = torch.distributed.get_world_size()
+        cfg = trainer_config("dcgan", mesh_shape=(size,), **cfg_kw)
+        state = dcgan.train(cfg, images=images, device="cpu")
+    finally:
+        dcgan.save_state_dict = real_save
+    mesh = pmesh.mesh_of(multihost.local_device())
+    return {"state": snapshot(state), "step": state.step,
+            "digests": pmesh.gather_objects(_digests(state), mesh),
+            "written": pmesh.gather_objects(sorted(written), mesh)}
+
+
+def ep_cases(cases: list) -> dict:
+    """Each case ``{"name", "kind": "dcgan" | "pggan", "cfg": kwargs,
+    "init": (stacked generators', discriminators' and classifier's JAX
+    variables), "lr", "betas", "steps": [{"real" (S, B, C, H, W), "dp_on",
+    "draws", "alpha"}]}``: the all-splits state built on every rank from
+    the JAX variables, rank r keeping split r (``parallel/ep``), the EP
+    steps on it. Returns per case the losses of each step, every rank's
+    split (generator and discriminator variables, JAX layout), rank 0's
+    classifier and every rank's digest of it."""
+    import hashlib
+
+    from ganleaks_tpu_torch import weights
+    from ganleaks_tpu_torch.parallel import ep
+    from ganleaks_tpu_torch.parallel import mesh as pmesh
+    from ganleaks_tpu_torch.train import priv
+
+    mesh = pmesh.mesh_of(multihost.local_device(), axis="split")
+    out = {"size": mesh.size}
+    for case in cases:
+        genS, discS, pv = weights.privgan_from_jax_state(case["kind"],
+                                                         *case["init"])
+        state = ep.shard_split_state(priv.privgan_state(
+            genS, discS, pv, case["lr"], *case["betas"]), mesh)
+        losses = []
+        for st in case["steps"]:
+            make = (ep.make_ep_privdcgan_step if case["kind"] == "dcgan"
+                    else ep.make_ep_privpggan_step)
+            kw = {} if case["kind"] == "dcgan" else {"steps": 1}
+            step = make(mesh, mesh.size, 0.5, st["dp_on"], **kw)
+            real = torch.from_numpy(st["real"])
+            args = (real,) if case["kind"] == "dcgan" else (real,
+                                                             st["alpha"])
+            m = step(state, *args, **{k: torch.from_numpy(v)
+                                      for k, v in st["draws"].items()})
+            losses.append({k: float(v) for k, v in m.items()})
+        mine = {"gen": weights.gan_to_jax_variables(state.genS[0]),
+                "disc": weights.gan_to_jax_variables(state.discS[0])}
+        pvars = weights.gan_to_jax_variables(state.priv)
+        digest = hashlib.sha1(b"".join(
+            v.detach().cpu().numpy().tobytes()
+            for v in state.priv.state_dict().values())).hexdigest()
+        out[case["name"]] = {
+            "losses": losses, "splits": pmesh.gather_objects(mine, mesh),
+            "priv": pvars, "priv_digests": pmesh.gather_objects(digest,
+                                                                mesh)}
+    out["stats"] = dict(mesh.stats)
+    return out
