@@ -60,6 +60,7 @@ from ganleaks_tpu_torch.ops.stream_plan import (GIB, device_capacity,
 from ganleaks_tpu_torch.parallel import multihost
 from ganleaks_tpu_torch.parallel.mesh import Mesh
 from ganleaks_tpu_torch.utils.logging import MetricsLogger, Throughput
+from ganleaks_tpu_torch.utils.profiling import span
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -125,7 +126,8 @@ def resolve_auto_engine(cfg: AttackConfig,
     accumulator at this input shape (``ops/knn._part_bounds_for`` on one
     image; an explicit 'taps-int8' still raises there). Elsewhere the
     reference-parity float32 gemm fold. Other engines pass through. The
-    check needs only shapes and the lin heads, so it runs on the CPU."""
+    check needs only shapes and the lin heads, so it runs on the CPU (in
+    the span ``fbb.resolve_engine``)."""
     if cfg.engine != "auto":
         return cfg
     if torch.device(device).type != "cuda":
@@ -134,10 +136,12 @@ def resolve_auto_engine(cfg: AttackConfig,
                   lpips_compute_dtype=cfg.lpips_compute_dtype or "bfloat16")
     probe = np.zeros((1, cfg.resolution, cfg.resolution, 3),
                      np.uint8 if cfg.uint8_storage else np.float32)
-    try:
-        _part_bounds_for(build_embed_fn(cfg, "cpu", structured=True), probe)
-    except ValueError:
-        cfg = replace(cfg, engine="taps")
+    with span("fbb.resolve_engine"):
+        try:
+            _part_bounds_for(build_embed_fn(cfg, "cpu", structured=True),
+                             probe)
+        except ValueError:
+            cfg = replace(cfg, engine="taps")
     return cfg
 
 
@@ -247,7 +251,13 @@ def attack_arrays(cfg: AttackConfig, syn, pos, neg,
     the featurisers; ``host_copy_s``: joining the query sets and, where
     they fit, copying both sets to the device once, ``sets_on_device``;
     :func:`_stage_sets`), the search's OOM resumes and its plan (with
-    ``two_pass`` also the number of certificate fallbacks).
+    ``two_pass`` also the number of certificate fallbacks), and its
+    ``counters``: ``query_rows_featurised`` and ``query_rows_reused``
+    (query rows featurised into a search's cache, and served by a held
+    one, summed over the call's searches: the two-pass mode's pass 1,
+    re-rank and fallback each hold their own) and, with ``two_pass``,
+    ``rerank_candidates`` (the size of the re-rank's candidate union).
+    The logged record carries the same.
 
     Both query sets go through ONE synthetic sweep (concatenated on the
     query axis, split after): featurising the generated set dominates and
@@ -263,7 +273,21 @@ def attack_arrays(cfg: AttackConfig, syn, pos, neg,
     ``mesh`` (``parallel/mesh.Mesh``, every rank calling with the same
     arrays): the search runs on the mesh's ranks, on this rank's device,
     in ``cfg.shard_layout`` (``parallel/knn_shard``); every rank returns
-    the whole result."""
+    the whole result.
+
+    The call is the span ``fbb.attack_arrays`` (``utils/profiling.span``);
+    inside it ``fbb.resolve_engine``, ``fbb.embeds`` (what
+    ``lpips_init_s`` times), ``fbb.stage_sets`` (``host_copy_s``), the
+    search's spans (``ops/knn``) and ``fbb.readback``, the wait for the
+    results."""
+    with span("fbb.attack_arrays"):
+        return _attack_arrays(cfg, syn, pos, neg, device, logger,
+                              sweep_cache, mesh)
+
+
+def _attack_arrays(cfg: AttackConfig, syn, pos, neg, device, logger,
+                   sweep_cache: dict | None, mesh: Mesh | None) -> dict:
+    """:func:`attack_arrays`."""
     device = resolve_device(device)
     if mesh is not None:
         if mesh.device.type != device.type:
@@ -290,17 +314,19 @@ def attack_arrays(cfg: AttackConfig, syn, pos, neg,
             torch.cuda.synchronize(device)
 
     t0 = time.perf_counter()
-    embed, embed_lo, embed_hi = _embeds(cfg, device, structured,
-                                        sweep_cache)
-    sync()
+    with span("fbb.embeds"):
+        embed, embed_lo, embed_hi = _embeds(cfg, device, structured,
+                                            sweep_cache)
+        sync()
     t1 = time.perf_counter()
     n_q = len(pos) + len(neg)
-    queries, syn_d, on_device = _stage_sets(
-        cfg, embed or embed_lo,
-        np.concatenate([np.asarray(pos), np.asarray(neg)], axis=0),
-        syn if isinstance(syn, HostImageSet) else np.asarray(syn), device,
-        mesh)
-    sync()
+    with span("fbb.stage_sets"):
+        queries, syn_d, on_device = _stage_sets(
+            cfg, embed or embed_lo,
+            np.concatenate([np.asarray(pos), np.asarray(neg)], axis=0),
+            syn if isinstance(syn, HostImageSet) else np.asarray(syn),
+            device, mesh)
+        sync()
     t2 = time.perf_counter()
     holder = (lambda name: None if sweep_cache is None
               else sweep_cache.setdefault(name, {}))
@@ -340,13 +366,20 @@ def attack_arrays(cfg: AttackConfig, syn, pos, neg,
         d, i = knn_argmin_streamed(embed, queries, syn_d, engine=cfg.engine,
                                    query_reuse=holder("query_reuse"),
                                    device=device, **common)
-    loss = d.cpu().numpy().astype(np.float64)  # waits for the device
-    nn = i.cpu().numpy()
+    with span("fbb.readback"):
+        loss = d.cpu().numpy().astype(np.float64)  # waits for the device
+        nn = i.cpu().numpy()
+        secs = timer.seconds()
     meter.add(n_q * len(syn))
-    secs = timer.seconds()
     search = info.get("pass1", info)
     plan = {k: search[k] for k in ("cache_bytes", "s_block", "q_block",
                                    "sweeps", "query_reused")}
+    searches = [info[k] for k in ("pass1", "rerank", "fallback")
+                if k in info] or [info]
+    counters = {k: sum(r[k] for r in searches)
+                for k in ("query_rows_featurised", "query_rows_reused")}
+    if "rerank" in info:
+        counters["rerank_candidates"] = info["rerank"]["candidates"]
     # the planner's budget (None on the CPU or with auto_plan off)
     plan["capacity_bytes"] = search.get("capacity_bytes")
     n_pos = len(pos)
@@ -357,10 +390,11 @@ def attack_arrays(cfg: AttackConfig, syn, pos, neg,
            "fold_s": secs.get("fold", 0.0),
            "lpips_init_s": t1 - t0, "host_copy_s": t2 - t1,
            "oom_resumes": info["oom_resumes"], "plan": plan,
-           "sets_on_device": on_device}
+           "sets_on_device": on_device, "counters": counters}
     record = {k: out[k] for k in ("query_pairs_per_sec", "featurize_s",
                                   "fold_s", "lpips_init_s", "host_copy_s",
-                                  "oom_resumes", "sets_on_device")}
+                                  "oom_resumes", "sets_on_device",
+                                  "counters")}
     record.update(plan=plan, n_syn=len(syn), n_pos=n_pos, n_neg=len(neg),
                   engine=cfg.engine, device=str(device))
     if mesh is not None:
@@ -420,7 +454,11 @@ def run_attack(cfg: AttackConfig,
     loaded once and, across several subdirs, featurised once
     (``attack_arrays``' ``sweep_cache``). Each result and its
     ``metrics.jsonl`` also carry ``ingest_s``, the seconds spent loading
-    that subdir's images (and, for the first, the query sets).
+    that subdir's images (and, for the first, the query sets). Each
+    subdir's record carries the call's ``counters``: over a sweep the
+    first subdir's show its queries featurised
+    (``query_rows_featurised``) and every later one's show them reused
+    (``query_rows_reused``).
 
     ``multihost`` or ``n_chips > 1`` joins the process group first
     (``parallel/multihost.initialize``: the ``GANLEAKS_*`` variables or

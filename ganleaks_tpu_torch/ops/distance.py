@@ -22,6 +22,8 @@ from typing import Callable
 import numpy as np
 import torch
 
+from ganleaks_tpu_torch.utils.profiling import span
+
 # f32(f64(2*(x/255) - 1)) for every byte value: the exact value the host
 # readers produce (float64 scaling, then a float32 cast). Used on every
 # device: no float32 arithmetic reproduces these bits.
@@ -130,7 +132,8 @@ def make_embed_parts_fn(distance: str, lpips_parts: Callable | None = None,
     ``blk -> (flat, r, widths)`` that writes every part into one (N, K)
     buffer of ``cdtype`` (int8 when ``bounds`` is given), the taps through
     the tap epilogue kernel, with the float32 row norms of the parts
-    (taken before any int8 step) and the part widths."""
+    (taken before any int8 step) and the part widths; the byte table and
+    the pixel part run in the span ``distance.pixels``."""
     def pix_bound(sample_shape):
         return 1.0 / float(_numel(sample_shape)) ** 0.5
 
@@ -169,15 +172,17 @@ def make_embed_parts_fn(distance: str, lpips_parts: Callable | None = None,
             res_dtype = torch.int8 if bounds is not None else cdtype
 
             def fused(blk: torch.Tensor):
-                x = images_unit_range(blk)
-                pix = pixel_embedding(x).to(dtype)
-                w0 = pix.shape[1]
-                widths = (w0,) + tuple(lp_fast.widths(tuple(x.shape[1:])))
-                flat = torch.empty((x.shape[0], sum(widths)),
-                                   dtype=res_dtype, device=x.device)
-                flat[:, :w0] = quantize_int8(pix, pix_qb) \
-                    if pix_qb is not None else pix.to(cdtype)
-                r = torch.sum(torch.square(pix.float()), dim=1)
+                with span("distance.pixels"):
+                    x = images_unit_range(blk)
+                    pix = pixel_embedding(x).to(dtype)
+                    w0 = pix.shape[1]
+                    widths = (w0,) + tuple(lp_fast.widths(
+                        tuple(x.shape[1:])))
+                    flat = torch.empty((x.shape[0], sum(widths)),
+                                       dtype=res_dtype, device=x.device)
+                    flat[:, :w0] = quantize_int8(pix, pix_qb) \
+                        if pix_qb is not None else pix.to(cdtype)
+                    r = torch.sum(torch.square(pix.float()), dim=1)
                 r = lp_fast(x, flat[:, w0:], r)
                 return flat, r, widths
             return fused

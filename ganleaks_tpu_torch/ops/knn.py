@@ -48,6 +48,7 @@ from ganleaks_tpu_torch.ops.knn_fused import (knn_argmin_fused,
 from ganleaks_tpu_torch.ops.stream_plan import (FOLD_BYTES_PER_PAIR,
                                                 activation_bytes_per_row,
                                                 plan_bytes, plan_stream)
+from ganleaks_tpu_torch.utils.profiling import span
 
 ENGINES = ("gemm", "pallas", "exact")
 PARTS_ENGINES = ("taps", "taps-int8")
@@ -150,27 +151,31 @@ class PhaseTimer:
     """Seconds spent in named phases of work queued on the device: CUDA
     events around each phase (read once, at :meth:`seconds`, so timing
     never stalls the queue) or the host clock on the CPU, which runs
-    synchronously."""
+    synchronously. Each phase is also the program's span of its name
+    (``utils/profiling.span``), so a trace shows every block."""
 
     def __init__(self, device: torch.device):
         self.cuda = device.type == "cuda"
         self._marks: dict[str, list] = {}
 
     def start(self, name: str):
+        rng = span(name)
+        rng.__enter__()
         if self.cuda:
             ev = torch.cuda.Event(enable_timing=True)
             ev.record()
-            return name, ev
-        return name, time.perf_counter()
+            return name, ev, rng
+        return name, time.perf_counter(), rng
 
     def stop(self, token) -> None:
-        name, t0 = token
+        name, t0, rng = token
         if self.cuda:
             ev = torch.cuda.Event(enable_timing=True)
             ev.record()
             self._marks.setdefault(name, []).append((t0, ev))
         else:
             self._marks.setdefault(name, []).append(time.perf_counter() - t0)
+        rng.__exit__(None, None, None)
 
     def seconds(self) -> dict[str, float]:
         if self.cuda:
@@ -410,11 +415,18 @@ def _stream_search(spec: SearchSpec, queries, syn, *, q_block: int,
     not report it free); one held for other queries is freed first.
 
     ``info`` (a dict) receives ``oom_resumes``, ``halvings`` (dimension
-    and size reached, in order), the planned and the final blocks, the
-    largest cache it held (``cache_bytes``), the number of synthetic
-    ``sweeps``, ``query_reused`` and the planner's budget
-    (``capacity_bytes``: what the card reported plus a held cache of these
-    queries; None without the planner)."""
+    and size reached, in order), the final blocks, the largest cache it
+    held (``cache_bytes``), the number of synthetic ``sweeps``,
+    ``query_reused``, the query rows it featurised into its cache and
+    those a held cache served (``query_rows_featurised``,
+    ``query_rows_reused``) and the planner's budget (``capacity_bytes``:
+    what the card reported plus a held cache of these queries; None
+    without the planner).
+
+    Spans (``utils/profiling.span``): ``knn.plan`` (the fingerprint, the
+    budget and the plan; the drivers open one more around building the
+    spec), ``knn.query_cache`` (a chunk's query featurisation, or the
+    reuse hit), and the timer's ``featurize`` and ``fold`` per block."""
     n_q, n_s = len(queries), len(syn)
     n_sweep = n_s if ranks is None or ranks.sweep_rows is None \
         else ranks.sweep_rows
@@ -422,26 +434,28 @@ def _stream_search(spec: SearchSpec, queries, syn, *, q_block: int,
         raise ValueError("empty synthetic set")
     block_norms, k_dim, cdtype = spec.block_norms, spec.k_dim, spec.cdtype
     info = {} if info is None else info
-    info.update(oom_resumes=0, halvings=[])
+    info.update(oom_resumes=0, halvings=[], query_rows_featurised=0,
+                query_rows_reused=0)
     row_bytes = k_dim * torch.empty((), dtype=cdtype).element_size()
-    fp = (_fingerprint(queries, (spec.signature, str(cdtype), k_dim))
-          if query_reuse is not None else None)
-    if query_reuse and query_reuse.get("fp") != fp:
-        query_reuse.clear()  # another set's cache: free it before planning
-    capacity = stream_plan.device_capacity(device) if auto_plan else None
-    if capacity is not None and query_reuse:
-        # a held cache of these queries is already allocated, so the card
-        # no longer counts it as free: credit it back to the budget
-        capacity += query_reuse["cache"].nbytes + query_reuse["rq"].nbytes
-    if ranks is not None:
-        capacity = ranks.budget(capacity)
-    info.update(capacity_bytes=capacity)
-    query_cache_bytes, s_block, q_block, chunk_rows, _, _ = plan_search(
-        n_q, n_sweep, row_bytes, q_block=q_block, s_block=s_block,
-        cache_bytes=query_cache_bytes, charges=spec.charges,
-        capacity=capacity)
-    info.update(planned_cache_bytes=int(query_cache_bytes),
-                planned_s_block=s_block, planned_q_block=q_block)
+    with span("knn.plan"):
+        fp = (_fingerprint(queries, (spec.signature, str(cdtype), k_dim))
+              if query_reuse is not None else None)
+        if query_reuse and query_reuse.get("fp") != fp:
+            query_reuse.clear()  # another set's cache: free it first
+        capacity = stream_plan.device_capacity(device) if auto_plan \
+            else None
+        if capacity is not None and query_reuse:
+            # a held cache of these queries is already allocated, so the
+            # card no longer counts it as free: credit it back
+            capacity += (query_reuse["cache"].nbytes
+                         + query_reuse["rq"].nbytes)
+        if ranks is not None:
+            capacity = ranks.budget(capacity)
+        info.update(capacity_bytes=capacity)
+        query_cache_bytes, s_block, q_block, chunk_rows, _, _ = plan_search(
+            n_q, n_sweep, row_bytes, q_block=q_block, s_block=s_block,
+            cache_bytes=query_cache_bytes, charges=spec.charges,
+            capacity=capacity)
     holders = (query_reuse,) + tuple(reuse_siblings)
     s_block0 = s_block
     col_offset = 0 if ranks is None else ranks.col_offset
@@ -524,7 +538,7 @@ def _stream_search(spec: SearchSpec, queries, syn, *, q_block: int,
     def shrink_chunk() -> int:
         return max(q_block, (chunk_rows // 2) // q_block * q_block)
 
-    outs, sweeps, reused_any, cache_rows = [], 0, False, 0
+    outs, sweeps, cache_rows = [], 0, 0
     qs0 = 0
     with torch.inference_mode():
         while qs0 < n_q:
@@ -541,9 +555,10 @@ def _stream_search(spec: SearchSpec, queries, syn, *, q_block: int,
                 # drop it instead of pinning it through the search
                 query_reuse.clear()
             if reused:
-                padded = query_reuse["padded"]
-                cache, rq = query_reuse["cache"], query_reuse["rq"]
-                reused_any = True
+                with span("knn.query_cache"):  # the hit
+                    padded = query_reuse["padded"]
+                    cache, rq = query_reuse["cache"], query_reuse["rq"]
+                info["query_rows_reused"] += n_rows
             else:
                 got, err = agreed(lambda: _alloc_cache(padded, k_dim, cdtype,
                                                        device))
@@ -562,29 +577,31 @@ def _stream_search(spec: SearchSpec, queries, syn, *, q_block: int,
                             f"{dim}={size} (more synthetic sweeps)")
                     continue
                 cache, rq = got
-                qs = qs0
-                while qs < end:
-                    got, err = agreed(lambda: query_share(qs, q_block))
-                    if err is not None:
-                        if q_block <= 1:
-                            raise err
-                        q_block //= 2
-                        _release(device, holders)
-                        _halved(info, "q_block", q_block,
-                                f"query featurize OOM; q_block={q_block} "
-                                f"(resuming at row {qs})")
-                        continue
-                    e, r = got
-                    at = qs - qs0
-                    n = min(len(e), padded - at)
-                    if gather is None:
-                        cache[at:at + n] = e[:n]
-                        rq[at:at + n] = r[:n]
-                    else:  # the collective, into the cache: no allocation
-                        e.into(cache[at:at + n])
-                        r.into(rq[at:at + n])
-                    qs += n
-                    del got, e, r
+                with span("knn.query_cache"):
+                    qs = qs0
+                    while qs < end:
+                        got, err = agreed(lambda: query_share(qs, q_block))
+                        if err is not None:
+                            if q_block <= 1:
+                                raise err
+                            q_block //= 2
+                            _release(device, holders)
+                            _halved(info, "q_block", q_block,
+                                    f"query featurize OOM; q_block={q_block} "
+                                    f"(resuming at row {qs})")
+                            continue
+                        e, r = got
+                        at = qs - qs0
+                        n = min(len(e), padded - at)
+                        if gather is None:
+                            cache[at:at + n] = e[:n]
+                            rq[at:at + n] = r[:n]
+                        else:  # the collective, into the cache: no allocation
+                            e.into(cache[at:at + n])
+                            r.into(rq[at:at + n])
+                        qs += n
+                        del got, e, r
+                info["query_rows_featurised"] += n_rows
                 if query_reuse is not None and one_chunk:
                     query_reuse.clear()
                     query_reuse.update(fp=fp, padded=padded, cache=cache,
@@ -648,9 +665,9 @@ def _stream_search(spec: SearchSpec, queries, syn, *, q_block: int,
             outs.append(spec.take(state, n_rows))
             del cache, rq, state
             qs0 = end
-    info.update(q_block=q_block, s_block=s_block, chunk_rows=chunk_rows,
+    info.update(q_block=q_block, s_block=s_block,
                 cache_bytes=cache_rows * row_bytes, sweeps=sweeps,
-                query_reused=reused_any)
+                query_reused=info["query_rows_reused"] > 0)
     return tuple(torch.cat(cols) for cols in zip(*outs))
 
 
@@ -800,9 +817,10 @@ def knn_argmin_streamed(embed_fn: Callable[[torch.Tensor], torch.Tensor],
     if len(syn) == 0:
         raise ValueError("empty synthetic set")
     timer = timer or PhaseTimer(device)
+    with span("knn.plan"):
+        spec = argmin_spec(embed_fn, queries, engine, device, timer)
     return _stream_search(
-        argmin_spec(embed_fn, queries, engine, device, timer), queries, syn,
-        q_block=q_block, s_block=s_block,
+        spec, queries, syn, q_block=q_block, s_block=s_block,
         query_cache_bytes=query_cache_bytes, device=device, timer=timer,
         auto_plan=auto_plan, query_reuse=query_reuse,
         reuse_siblings=reuse_siblings, info=info)
@@ -946,9 +964,11 @@ def knn_topk_streamed(embed_fn: Callable[[torch.Tensor], torch.Tensor],
     if len(syn) == 0:
         raise ValueError("empty synthetic set")
     timer = timer or PhaseTimer(device)
+    with span("knn.plan"):
+        spec = topk_spec(embed_fn, queries, engine, k, with_info, device,
+                         timer)
     return _stream_search(
-        topk_spec(embed_fn, queries, engine, k, with_info, device, timer),
-        queries, syn, q_block=q_block, s_block=s_block,
+        spec, queries, syn, q_block=q_block, s_block=s_block,
         query_cache_bytes=query_cache_bytes, device=device, timer=timer,
         auto_plan=auto_plan, query_reuse=query_reuse,
         reuse_siblings=reuse_siblings, info=info)
@@ -1152,9 +1172,10 @@ def knn_argmin_streamed_parts(embed_fn: Callable, queries, syn, *,
     if len(syn) == 0:
         raise ValueError("empty synthetic set")
     timer = timer or PhaseTimer(device)
+    with span("knn.plan"):
+        spec = argmin_parts_spec(embed_fn, queries, quantize, device, timer)
     return _stream_search(
-        argmin_parts_spec(embed_fn, queries, quantize, device, timer),
-        queries, syn, q_block=q_block, s_block=s_block,
+        spec, queries, syn, q_block=q_block, s_block=s_block,
         query_cache_bytes=query_cache_bytes, device=device, timer=timer,
         auto_plan=auto_plan, query_reuse=query_reuse,
         reuse_siblings=reuse_siblings, info=info)
@@ -1201,10 +1222,11 @@ def knn_topk_streamed_parts(embed_fn: Callable, queries, syn, *, k: int = 8,
     if len(syn) == 0:
         raise ValueError("empty synthetic set")
     timer = timer or PhaseTimer(device)
+    with span("knn.plan"):
+        spec = topk_parts_spec(embed_fn, queries, k, with_info, quantize,
+                               device, timer)
     return _stream_search(
-        topk_parts_spec(embed_fn, queries, k, with_info, quantize, device,
-                        timer),
-        queries, syn, q_block=q_block, s_block=s_block,
+        spec, queries, syn, q_block=q_block, s_block=s_block,
         query_cache_bytes=query_cache_bytes, device=device, timer=timer,
         auto_plan=auto_plan, query_reuse=query_reuse,
         reuse_siblings=reuse_siblings, info=info)
@@ -1265,7 +1287,8 @@ def _rerank_candidates(embed_hi: Callable, queries, syn, cand: np.ndarray,
     elementwise 'exact' engine when that was asked for. Only the few
     candidate rows ship (a gather); blocks and cache shrink, since
     everything here is float32. ``search``: the streamed search's
-    ``auto_plan``, reuse and ``info`` arguments."""
+    ``auto_plan``, reuse and ``info`` arguments; ``info`` also receives
+    the size of the union, ``candidates``."""
     sub = syn[np.asarray(cand)]
     d, i_sub = knn_argmin_streamed(
         embed_hi, queries, sub,
@@ -1274,6 +1297,8 @@ def _rerank_candidates(embed_hi: Callable, queries, syn, cand: np.ndarray,
         s_block=min(s_block, 1024, max(8, len(cand))),
         query_cache_bytes=min(query_cache_bytes, 2 << 30), device=device,
         timer=timer, **search)
+    if search.get("info") is not None:
+        search["info"]["candidates"] = len(cand)
     cand_t = torch.as_tensor(np.asarray(cand), dtype=torch.int32,
                              device=i_sub.device)
     return d, cand_t[i_sub.long()]
@@ -1320,7 +1345,10 @@ def knn_argmin_two_pass(embed_lo: Callable, embed_hi: Callable, queries,
     query caches across calls (``_stream_search``); an OOM recovery in
     either search drops both, since the other one pins device memory the
     recovery needs. ``info`` receives each search's record (``pass1``,
-    ``rerank``, ``fallback``) and their summed ``oom_resumes``.
+    ``rerank``, ``fallback``) and their summed ``oom_resumes``. Its spans:
+    ``knn.plan`` (the probe and the int8 error bound), ``knn.topk`` (pass
+    1), ``knn.rerank`` (the union and its search), ``knn.certificate`` and
+    ``knn.fallback``.
 
     ``topk_search`` / ``argmin_search``: pass 1's and the fallback's
     searches, ``(embed, queries, syn, **search arguments)``; by default
@@ -1332,53 +1360,57 @@ def knn_argmin_two_pass(embed_lo: Callable, embed_hi: Callable, queries,
                                                    device=device)
     argmin_search = argmin_search or functools.partial(knn_argmin_streamed,
                                                        device=device)
-    probe = _probe(embed_lo, queries, device)
-    abs_err = 0.0
-    if engine == "taps-int8":
-        abs_err = _quant_abs_err(_part_bounds_for(embed_lo, queries, device),
-                                 [tuple(p.shape[1:]) for p in probe])
+    with span("knn.plan"):
+        probe = _probe(embed_lo, queries, device)
+        abs_err = 0.0
+        if engine == "taps-int8":
+            abs_err = _quant_abs_err(
+                _part_bounds_for(embed_lo, queries, device),
+                [tuple(p.shape[1:]) for p in probe])
     probe_dt = probe[0].dtype if engine in PARTS_ENGINES else probe.dtype
     infos = {"pass1": {}, "rerank": {}}
-    topk_d, top_i, rq, rs_max = topk_search(
-        embed_lo, queries, syn, k=k, engine=engine, q_block=q_block,
-        s_block=s_block, query_cache_bytes=query_cache_bytes,
-        with_info=True, timer=timer, auto_plan=auto_plan,
-        query_reuse=query_reuse, reuse_siblings=(rerank_reuse,),
-        info=infos["pass1"])
-    top = top_i.cpu().numpy()
-    cand = np.unique(top[top >= 0])  # -1 marks a slot past N_s
-    d, idx = _rerank_candidates(embed_hi, queries, syn, cand, engine=engine,
-                                q_block=q_block, s_block=s_block,
-                                query_cache_bytes=query_cache_bytes,
-                                device=device, timer=timer,
-                                auto_plan=auto_plan,
-                                query_reuse=rerank_reuse,
-                                reuse_siblings=(query_reuse,),
-                                info=infos["rerank"])
+    with span("knn.topk"):
+        topk_d, top_i, rq, rs_max = topk_search(
+            embed_lo, queries, syn, k=k, engine=engine, q_block=q_block,
+            s_block=s_block, query_cache_bytes=query_cache_bytes,
+            with_info=True, timer=timer, auto_plan=auto_plan,
+            query_reuse=query_reuse, reuse_siblings=(rerank_reuse,),
+            info=infos["pass1"])
+    with span("knn.rerank"):
+        top = top_i.cpu().numpy()
+        cand = np.unique(top[top >= 0])  # -1 marks a slot past N_s
+        d, idx = _rerank_candidates(
+            embed_hi, queries, syn, cand, engine=engine, q_block=q_block,
+            s_block=s_block, query_cache_bytes=query_cache_bytes,
+            device=device, timer=timer, auto_plan=auto_plan,
+            query_reuse=rerank_reuse, reuse_siblings=(query_reuse,),
+            info=infos["rerank"])
     # reduced precision anywhere in pass 1 selects the wide eta: a bf16
     # (or float16) embedding, or int8 parts (whose tower runs bf16)
     demoted = (torch.empty((), dtype=probe_dt).element_size() < 4
                or engine == "taps-int8")
     eta = cert_eta if cert_eta is not None else _default_cert_eta(demoted)
-    cert = two_pass_certificate(d.cpu().numpy(), topk_d.cpu().numpy(),
-                                rq.cpu().numpy(),
-                                float(rs_max.max().cpu()), eta, abs_err)
+    with span("knn.certificate"):
+        cert = two_pass_certificate(d.cpu().numpy(), topk_d.cpu().numpy(),
+                                    rq.cpu().numpy(),
+                                    float(rs_max.max().cpu()), eta, abs_err)
     bad = np.nonzero(~cert)[0]
     if bad.size:
         print(f"[knn] two-pass certificate failed for {bad.size} "
               f"queries; exact-f32 fallback search")
-        d_fix, i_fix = argmin_search(
-            embed_hi, queries[bad], syn,
-            engine="exact" if engine == "exact" else "pallas",
-            q_block=min(q_block, 1024), s_block=min(s_block, 1024),
-            query_cache_bytes=min(query_cache_bytes, 2 << 30),
-            timer=timer, auto_plan=auto_plan,
-            reuse_siblings=(query_reuse, rerank_reuse),
-            info=infos.setdefault("fallback", {}))
-        bad_t = torch.as_tensor(bad, device=d.device)
-        d, idx = d.clone(), idx.clone()
-        d[bad_t] = d_fix
-        idx[bad_t] = i_fix
+        with span("knn.fallback"):
+            d_fix, i_fix = argmin_search(
+                embed_hi, queries[bad], syn,
+                engine="exact" if engine == "exact" else "pallas",
+                q_block=min(q_block, 1024), s_block=min(s_block, 1024),
+                query_cache_bytes=min(query_cache_bytes, 2 << 30),
+                timer=timer, auto_plan=auto_plan,
+                reuse_siblings=(query_reuse, rerank_reuse),
+                info=infos.setdefault("fallback", {}))
+            bad_t = torch.as_tensor(bad, device=d.device)
+            d, idx = d.clone(), idx.clone()
+            d[bad_t] = d_fix
+            idx[bad_t] = i_fix
     if info is not None:
         info.update(infos, oom_resumes=sum(r["oom_resumes"]
                                            for r in infos.values()))

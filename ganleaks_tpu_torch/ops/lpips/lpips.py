@@ -41,6 +41,7 @@ from ganleaks_tpu_torch.ops.distance import images_unit_range
 from ganleaks_tpu_torch.ops.lpips.backbones import (Tower, backbone_channels,
                                                     tap_shapes)
 from ganleaks_tpu_torch.ops.lpips.epilogue import tap_epilogue, tap_phi
+from ganleaks_tpu_torch.utils.profiling import span
 
 # v0.1 input normalisation constants (networks_basic.py:115-116)
 LPIPS_SHIFT = (-0.030, -0.088, -0.188)
@@ -304,8 +305,10 @@ def lpips_embed_parts(model: LPIPS, x: torch.Tensor, weight: float = 1.0,
     last, such that the sum of per-part squared distances equals
     :func:`lpips_embed`'s flat ``||phi(x) - phi(y)||^2``. The channel norm
     takes the tap epilogue's summation order (``epilogue.channel_sumsq``),
-    so these parts equal the fused featuriser's bit for bit."""
-    feats = model.features(x, compute_dtype)
+    so these parts equal the fused featuriser's bit for bit. The tower
+    runs in the span ``lpips.tower``."""
+    with span("lpips.tower"):
+        feats = model.features(x, compute_dtype)
     parts = []
     for fl, w in zip(feats, model.lins):
         n, h, wd, c = fl.shape
@@ -347,21 +350,24 @@ def lpips_fast_parts_norms(model: LPIPS, weight: float, dtype: torch.dtype,
     order into the column slices of ``out`` (N, sum of widths) — cast to
     ``cdtype``, or int8 at ``bounds`` — and returns ``r`` plus each tap's
     float32 norms, added tap by tap. ``fast.widths(sample_shape)`` gives
-    the part widths H_l*W_l*C_l."""
+    the part widths H_l*W_l*C_l. Spans: ``lpips.tower`` (the tower) and
+    ``lpips.epilogue`` (the taps' epilogues)."""
     def fast(x: torch.Tensor, out: torch.Tensor, r: torch.Tensor
              ) -> torch.Tensor:
-        feats = model.features(x, compute_dtype)
+        with span("lpips.tower"):
+            feats = model.features(x, compute_dtype)
         off = 0
-        for i, (fl, w) in enumerate(zip(feats, model.lins)):
-            _n, h, wd, c = fl.shape
-            width = h * wd * c
-            _, rn = tap_epilogue(
-                fl, _tap_scale(w, weight, h * wd), embed_dtype=dtype,
-                out_dtype=cdtype,
-                quant_bound=None if bounds is None else bounds[i],
-                out=out[:, off:off + width])
-            r = r + rn
-            off += width
+        with span("lpips.epilogue"):
+            for i, (fl, w) in enumerate(zip(feats, model.lins)):
+                _n, h, wd, c = fl.shape
+                width = h * wd * c
+                _, rn = tap_epilogue(
+                    fl, _tap_scale(w, weight, h * wd), embed_dtype=dtype,
+                    out_dtype=cdtype,
+                    quant_bound=None if bounds is None else bounds[i],
+                    out=out[:, off:off + width])
+                r = r + rn
+                off += width
         return r
 
     fast.widths = lambda sample_shape: [

@@ -21,7 +21,10 @@ Times, at full width (VGG16 l2-lpips at ``--res`` px, K = 512,000 at
 * under the profiler (``utils/profiling.profile_to``), one more call of
   the search: the top device kernels by total time with their launches,
   the device's idle share of the call's window (both from the profiler's
-  kernel intervals) and the port's launch counters for the same call.
+  kernel intervals), the port's launch counters for the same call, and
+  what the program's spans say (``utils/profiling.span_breakdown``): the
+  device milliseconds each span launched and the card's idle milliseconds
+  by the span the host was in.
 
 CUDA events time every measurement after a warm-up call. Each prints one
 JSON line with the card's name and power limit (``nvidia-smi``).
@@ -59,9 +62,9 @@ from ganleaks_tpu_torch.ops.knn_fused import knn_argmin_fused
 from ganleaks_tpu_torch.ops.lpips.epilogue import tap_epilogue
 from ganleaks_tpu_torch.utils.profiling import (call_seconds,
                                                 device_activity,
-                                                idle_share, kernel_table,
-                                                profile_to, stage_window,
-                                                trace_stage)
+                                                kernel_table, profile_to,
+                                                span_breakdown,
+                                                stage_window, trace_stage)
 
 ENGINES = ("auto", "taps", "pallas")
 REPS = 3   # timed calls after the warm-up (the fold tile: twice as many)
@@ -181,14 +184,24 @@ def profile(n_q: int = 2000, n_syn: int = 20000, block: int = 2048,
     table = kernel_table(activity)
     profiled = {k: sum(r["launches"] for r in table if sub in r["name"])
                 for k, sub in PORT_KERNELS.items()}
+    spans = span_breakdown(run.raw, "profile_attack.search")
     report("profile", window_ms=(hi - lo) / 1e3,
            device_busy_ms=sum(r["total_ms"] for r in table) if cuda
            else None,
-           idle_share=idle_share(activity, lo, hi) if cuda else None,
+           idle_share=1.0 - spans["busy_s"] / spans["window_s"] if cuda
+           else None,
            kernels=table[:TOP], n_kernel_names=len(table),
            launches_profiled=profiled, launches_counted=counted,
+           launched_ms_by_span=_ms(spans["launched"]),
+           idle_ms_by_span=_ms(spans["idle"]) if cuda else None,
            trace=run.trace_path if trace_dir else None)
     return out
+
+
+def _ms(table: dict[str, float]) -> dict[str, float]:
+    """Seconds per name as milliseconds, largest first."""
+    return {k: v * 1e3 for k, v in sorted(table.items(),
+                                           key=lambda kv: -kv[1])}
 
 
 def main(argv=None) -> int:

@@ -1,6 +1,15 @@
 """Tracing and profiling (port of ``ganleaks_tpu.utils.profiling``):
-stage annotations with cumulative throughput meters, a profiler trace of
-a block of work, anomaly detection and a non-finite output guard.
+the program's spans, stage annotations with cumulative throughput meters,
+a profiler trace of a block of work and what its spans say, anomaly
+detection and a non-finite output guard.
+
+Spans (:func:`span`) are the program's named ranges at its layer
+boundaries: on while a torch profiler records, a flag test otherwise.
+Their names are ``<module>.<step>`` (``fbb.attack_arrays``,
+``knn.plan``, ``lpips.tower``, ...), and bare for ``ops/knn.PhaseTimer``'s
+phases (``featurize``, ``fold``). :func:`span_breakdown` reads them back
+from a trace: host seconds per span, the device seconds each span
+launched, and the card's idle time by the span the host was in.
 
 Differences from the JAX package, on purpose:
 
@@ -18,14 +27,31 @@ Differences from the JAX package, on purpose:
 
 from __future__ import annotations
 
+import bisect
 import contextlib
 import os
 import tempfile
 import time
 from dataclasses import dataclass, field
+from typing import NamedTuple
 
 import numpy as np
 import torch
+import torch.autograd.profiler as _autograd_profiler
+
+_OFF = contextlib.nullcontext()
+
+
+def span(name: str):
+    """The program's range ``name`` for the profiler: a
+    ``torch.profiler.record_function`` range while a torch profiler is
+    recording, otherwise one shared no-op context. Off, it costs a flag
+    test: no synchronisation, no clock read, no allocation. The ranges
+    share the device trace's clock and are kept by the profiler with its
+    trace (:func:`profile_to` writes them into its Chrome trace)."""
+    if _autograd_profiler._is_profiler_enabled:
+        return torch.profiler.record_function(name)
+    return _OFF
 
 
 def _device(device) -> torch.device:
@@ -73,12 +99,14 @@ def trace_stage(name: str, meters: dict | None = None,
 
 @dataclass
 class ProfileRun:
-    """What :func:`profile_to` recorded: the Chrome trace's path and the
+    """What :func:`profile_to` recorded: the Chrome trace's path, the
     profiler's events (``torch.profiler`` ``FunctionEvent`` s, CPU and
-    device, on one clock in microseconds)."""
+    device, on one clock in microseconds) and its raw events
+    (:func:`trace_events`, in nanoseconds)."""
 
     trace_path: str | None = None
     events: list = field(default_factory=list)
+    raw: list = field(default_factory=list)
 
 
 @contextlib.contextmanager
@@ -106,6 +134,7 @@ def profile_to(log_dir: str | None, device=None):
     os.close(fd)
     prof.export_chrome_trace(run.trace_path)
     run.events = list(prof.events())
+    run.raw = trace_events(prof)
     if cuda and not device_activity(run.events):
         raise RuntimeError(
             f"the profiler recorded no CUDA activity on {device or 'cuda'} "
@@ -138,18 +167,156 @@ def kernel_table(activity: list[tuple]) -> list[dict]:
     return sorted(table.values(), key=lambda r: -r["total_ms"])
 
 
-def idle_share(activity: list[tuple], start_us: float,
-               end_us: float) -> float:
-    """Share of the window [``start_us``, ``end_us``] in which no device
-    activity ran (the union of the intervals, clipped to the window)."""
-    busy, cursor = 0.0, start_us
-    for _name, s, e in activity:
-        s, e = max(s, cursor), min(e, end_us)
+class TraceEvent(NamedTuple):
+    """One raw profiler event as :func:`span_breakdown` reads it: times in
+    ns on the profiler's one clock for the host and the card; ``corr``
+    and ``linked`` are its correlation ids (a kernel and the CUDA runtime
+    call that launched it share ``corr``; ``linked`` names the torch
+    operation that was innermost at the launch, 0 where there was none)."""
+
+    name: str
+    on_host: bool
+    start: int
+    end: int
+    thread: int
+    corr: int
+    linked: int
+    annotation: bool
+
+
+def trace_events(prof) -> list[TraceEvent]:
+    """The raw events of a finished ``torch.profiler.profile``, read
+    without building its ``FunctionEvent`` s (ten times faster on a long
+    trace)."""
+    cpu = torch.autograd.DeviceType.CPU
+    return [TraceEvent(e.name(), e.device_type() == cpu, e.start_ns(),
+                       e.end_ns(), e.start_thread_id(), e.correlation_id(),
+                       e.linked_correlation_id(),
+                       bool(e.is_user_annotation()))
+            for e in prof.profiler.kineto_results.events()]
+
+
+def _innermost_segments(ranges) -> list[tuple]:
+    """``(start, end, name)`` pieces of one thread's nested ``ranges``
+    (sorted by start, the enclosing one first where two start together),
+    each piece labelled by the innermost range open over it."""
+    out, stack, cursor = [], [], 0
+    for r in ranges:
+        while stack and stack[-1].end <= r.start:
+            top = stack.pop()
+            out.append((cursor, top.end, top.name))
+            cursor = top.end
+        if stack:
+            out.append((cursor, r.start, stack[-1].name))
+        stack.append(r)
+        cursor = r.start
+    while stack:
+        top = stack.pop()
+        out.append((cursor, top.end, top.name))
+        cursor = top.end
+    return [seg for seg in out if seg[1] > seg[0]]
+
+
+def _overlaps(a, b):
+    """``(start, end, label of b)`` of the overlaps of two sorted lists of
+    disjoint ``(start, end, ...)`` intervals."""
+    i = j = 0
+    while i < len(a) and j < len(b):
+        s, e = max(a[i][0], b[j][0]), min(a[i][1], b[j][1])
         if e > s:
-            busy += e - s
-            cursor = e
-    span = end_us - start_us
-    return 1.0 - busy / span if span > 0 else 0.0
+            yield s, e, b[j][2]
+        if a[i][1] < b[j][1]:
+            i += 1
+        else:
+            j += 1
+
+
+def _add(table: dict, name: str, ns: float) -> None:
+    table[name] = table.get(name, 0.0) + ns / 1e9
+
+
+def span_breakdown(events: list[TraceEvent], within: str) -> dict:
+    """What the program's spans (host ranges: :func:`span` and every
+    ``record_function``) say of the trace inside the ranges named
+    ``within`` (one per timed call, say), on the thread that opened them:
+
+    * ``spans``: host seconds per span name, inclusive of inner spans;
+    * ``launched``: device seconds (kernels, copies, sets) per innermost
+      span open on the host when each was launched: at the CUDA runtime
+      call (``cu*``) that carries the device event's correlation id,
+      never the span whose interval the device interval falls in (the
+      card runs behind the host);
+    * ``idle``: seconds inside the ranges in which nothing ran on the
+      card, per innermost span the host was in then (each idle interval
+      split at span boundaries);
+    * ``window_s`` and ``busy_s``: the ranges' seconds and the card's busy
+      seconds inside them.
+    """
+    windows = sorted((e.start, e.end) for e in events
+                     if e.on_host and e.annotation and e.name == within)
+    out = {"spans": {}, "launched": {}, "idle": {}, "busy_s": 0.0,
+           "window_s": sum(b - a for a, b in windows) / 1e9}
+    if not windows:
+        return out
+    thread = next(e.thread for e in events if e.on_host and e.annotation
+                  and e.name == within)
+    spans = sorted((e for e in events if e.on_host and e.annotation
+                    and e.thread == thread), key=lambda e: (e.start, -e.end))
+    segs = _innermost_segments(spans)
+    seg_starts = [s[0] for s in segs]
+    win_starts = [a for a, _ in windows]
+
+    def clipped(start: int, end: int):
+        """The parts of [start, end) inside the ranges."""
+        i = max(0, bisect.bisect_right(win_starts, start) - 1)
+        while i < len(windows) and windows[i][0] < end:
+            a, b = max(start, windows[i][0]), min(end, windows[i][1])
+            if b > a:
+                yield a, b
+            i += 1
+
+    for s in spans:
+        for a, b in clipped(s.start, s.end):
+            _add(out["spans"], s.name, b - a)
+
+    # the CUDA runtime and driver calls, by the correlation id they share
+    # with their device work (torch operations number theirs apart, and
+    # a kernel launched outside every operation links to none)
+    launches = {e.corr: e for e in events
+                if e.on_host and not e.annotation and e.name.startswith("cu")}
+    pieces = []
+    for d in events:
+        if d.on_host or d.annotation:
+            continue
+        host = launches.get(d.corr)
+        if (host is not None and host.thread == thread
+                and any(clipped(host.start, host.start + 1))):
+            i = bisect.bisect_right(seg_starts, host.start) - 1
+            if i >= 0 and host.start < segs[i][1]:
+                _add(out["launched"], segs[i][2], d.end - d.start)
+        pieces.extend(clipped(d.start, d.end))
+    busy = []
+    for a, b in sorted(pieces):
+        if busy and a <= busy[-1][1]:
+            busy[-1][1] = max(busy[-1][1], b)
+        else:
+            busy.append([a, b])
+    out["busy_s"] = sum(b - a for a, b in busy) / 1e9
+    busy_starts = [a for a, _ in busy]
+    gaps = []
+    for a, b in windows:
+        cursor = a
+        for s, e in busy[bisect.bisect_left(busy_starts, a):]:
+            if s >= b:
+                break
+            if s > cursor:
+                gaps.append((cursor, s))
+            cursor = max(cursor, e)
+        if b > cursor:
+            gaps.append((cursor, b))
+    for a, b, name in _overlaps(gaps, segs):
+        _add(out["idle"], name, b - a)
+    return out
 
 
 def stage_window(events, name: str) -> tuple[float, float]:

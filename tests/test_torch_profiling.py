@@ -77,7 +77,7 @@ def _event(name, start, end, cpu=False, annotation=False):
 
 
 def test_kernel_table_and_idle_share_from_intervals():
-    events = [_event("search", 0, 100, cpu=True),
+    events = [_event("search", 0, 100, cpu=True, annotation=True),
               _event("search", 5, 95, annotation=True),  # GPU-side range
               _event("k_a", 10, 30), _event("k_b", 20, 40),
               _event("k_a", 50, 60), _event("k_c", 90, 120),
@@ -88,9 +88,15 @@ def test_kernel_table_and_idle_share_from_intervals():
     assert [(r["name"], r["launches"]) for r in table] == [
         ("k_a", 2), ("k_c", 1), ("k_b", 1)]
     assert table[0]["total_ms"] == pytest.approx(0.03)
-    lo, hi = profiling.stage_window(events, "search")
-    # busy: [10, 40] + [50, 60] + [90, 100] = 50 of 100
-    assert profiling.idle_share(act, lo, hi) == pytest.approx(0.5)
+    assert profiling.stage_window(events, "search") == (0, 100)
+    # busy: [10, 40] + [50, 60] + [90, 100] = 50 of 100; the GPU-side
+    # range is no device work
+    raw = [profiling.TraceEvent(
+        e.name, e.device_type == torch.autograd.DeviceType.CPU,
+        e.time_range.start, e.time_range.end, 1, 0, 0,
+        e.is_user_annotation) for e in events]
+    spans = profiling.span_breakdown(raw, "search")
+    assert spans["busy_s"] / spans["window_s"] == pytest.approx(0.5)
 
 
 @pytest.mark.parametrize("bad", ["nan_tensor", "inf_array", "nested"])
