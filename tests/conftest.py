@@ -91,3 +91,6 @@ def _mapcount_log(request):
 def pytest_configure(config):
     config.addinivalue_line(
         "markers", "cuda: needs a CUDA device (skips without one)")
+    config.addinivalue_line(
+        "markers", "timeout(seconds): this test's deadline in place of "
+        "the default of the repo's root conftest.py")

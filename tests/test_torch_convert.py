@@ -197,7 +197,7 @@ def _run_module(*argv):
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["OMP_NUM_THREADS"] = "1"
     return subprocess.run([sys.executable, "-c", BLOCKER, *argv],
-                          capture_output=True, text=True, timeout=600,
+                          capture_output=True, text=True, timeout=120,
                           env=env, cwd=REPO)
 
 

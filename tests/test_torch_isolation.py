@@ -88,7 +88,7 @@ def _run_isolated(code: str) -> subprocess.CompletedProcess:
     """)
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     return subprocess.run([sys.executable, "-c", blocker + code],
-                          capture_output=True, text=True, timeout=600,
+                          capture_output=True, text=True, timeout=120,
                           env=env, cwd=REPO)
 
 
@@ -597,7 +597,7 @@ def test_parallel_and_dryrun_stand_alone():
         import ganleaks_tpu_torch.parallel.mesh
         import ganleaks_tpu_torch.parallel.multihost
         from ganleaks_tpu_torch.dryrun import dryrun_multichip
-        out = dryrun_multichip(2, device="cpu", timeout_s=300)
+        out = dryrun_multichip(2, device="cpu", timeout_s=90)
         assert out["ranks"] == 2, out
         bad = [m for m in sys.modules if m.split(".")[0] in BLOCKED]
         assert not bad, bad
