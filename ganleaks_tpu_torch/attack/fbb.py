@@ -47,10 +47,11 @@ from ganleaks_tpu_torch.io.images import to_uint8
 from ganleaks_tpu_torch.io.native import encode_png
 from ganleaks_tpu_torch.io.stream import HostImageSet
 from ganleaks_tpu_torch.ops.distance import (make_embed_fn,
-                                             make_embed_parts_fn)
-from ganleaks_tpu_torch.ops.knn import (PARTS_ENGINES, PhaseTimer,
-                                        _part_bounds_for,
-                                        knn_argmin_streamed,
+                                             make_embed_parts_fn,
+                                             pixel_int_dot_bound)
+from ganleaks_tpu_torch.ops.knn import (PARTS_ENGINES, JoinedRows,
+                                        PhaseTimer, check_int_dot_bounds,
+                                        holds_queries, knn_argmin_streamed,
                                         knn_argmin_streamed_parts,
                                         knn_argmin_two_pass,
                                         stream_need_bytes,
@@ -123,26 +124,37 @@ def resolve_auto_engine(cfg: AttackConfig,
     ``lpips_compute_dtype`` defaulting to 'bfloat16'; add
     ``two_pass=True`` for certified-exact indices) — degraded to the bf16
     'taps' recipe where the int8 products could wrap their int32
-    accumulator at this input shape (``ops/knn._part_bounds_for`` on one
-    image; an explicit 'taps-int8' still raises there). Elsewhere the
-    reference-parity float32 gemm fold. Other engines pass through. The
-    check needs only shapes and the lin heads, so it runs on the CPU (in
-    the span ``fbb.resolve_engine``)."""
+    accumulator at this input shape (an explicit 'taps-int8' still raises
+    there). Elsewhere the reference-parity float32 gemm fold. Other
+    engines pass through. The check reads the parts' shapes alone — the
+    pixel part's and ``cfg.lpips_net``'s taps at the configured
+    resolution, through the bounds and the check the search applies
+    (``ops/knn._part_bounds_for``) — so it builds no featuriser and loads
+    no weights (in the span ``fbb.resolve_engine``)."""
     if cfg.engine != "auto":
         return cfg
     if torch.device(device).type != "cuda":
         return replace(cfg, engine="gemm")
     cfg = replace(cfg, engine="taps-int8", dtype="bfloat16",
                   lpips_compute_dtype=cfg.lpips_compute_dtype or "bfloat16")
-    probe = np.zeros((1, cfg.resolution, cfg.resolution, 3),
-                     np.uint8 if cfg.uint8_storage else np.float32)
+    shape = (cfg.resolution, cfg.resolution, 3)
     with span("fbb.resolve_engine"):
         try:
-            _part_bounds_for(build_embed_fn(cfg, "cpu", structured=True),
-                             probe)
+            check_int_dot_bounds(_part_int_dot_bounds(cfg, shape), shape)
         except ValueError:
             cfg = replace(cfg, engine="taps")
     return cfg
+
+
+def _part_int_dot_bounds(cfg: AttackConfig, shape: tuple) -> list[float]:
+    """The int8 cross-dot bounds of :func:`build_embed_fn`'s parts at one
+    ``shape`` input, from the shapes alone: what its featuriser's
+    ``part_int_dot_bound_fn`` returns."""
+    bounds = [pixel_int_dot_bound(shape)]
+    if cfg.distance == "l2-lpips":
+        from ganleaks_tpu_torch.ops.lpips import lpips_net_int_dot_bounds
+        bounds += lpips_net_int_dot_bounds(cfg.lpips_net, shape)
+    return bounds
 
 
 def _check_layout(cfg: AttackConfig, mesh: Mesh | None) -> None:
@@ -207,16 +219,33 @@ def _host_stream(cfg: AttackConfig, mesh: Mesh | None = None
     return bool(hs)
 
 
-def _stage_sets(cfg: AttackConfig, embed, queries: np.ndarray,
-                syn, device: torch.device, mesh: Mesh | None = None
-                ) -> tuple:
+def _query_rows(cfg: AttackConfig, pos, neg, syn,
+                sweep_cache: dict | None, mesh: Mesh | None):
+    """Both query sets as the search reads them: read in place
+    (:class:`ops/knn.JoinedRows`) where the sweep's held query cache
+    covers them — a single-device one-pass search over an array, whose
+    ``sweep_cache`` holds a ``query_reuse`` cache under their fingerprint,
+    so the search serves every row from it and none is joined or staged;
+    else joined into one array."""
+    rows = JoinedRows(np.asarray(pos), np.asarray(neg))
+    if (mesh is None and not cfg.two_pass and sweep_cache is not None
+            and not isinstance(syn, HostImageSet)
+            and holds_queries(sweep_cache.get("query_reuse"), rows)):
+        return rows
+    return np.concatenate(rows.sets, axis=0)
+
+
+def _stage_sets(cfg: AttackConfig, embed, queries, syn,
+                device: torch.device, mesh: Mesh | None = None) -> tuple:
     """``(queries, syn, on_device)``: the image sets where the search reads
     them. On the card they are copied once when ``host_stream`` is False,
     or when it is 'auto' and they fit beside what the search plans
     (``ops/knn.stream_need_bytes``: one sweep's query cache, or the
     requested one without the planner); otherwise (``host_stream`` True,
     or 'auto' where they do not fit) they stay in host memory and the
-    search ships one block at a time. A :class:`HostImageSet` (decoded
+    search ships one block at a time. Queries read in place
+    (:class:`ops/knn.JoinedRows`, :func:`_query_rows`) stay where they
+    are: a held cache serves them. A :class:`HostImageSet` (decoded
     block by block as the search reads it) always stays in host memory.
     On the CPU the arrays themselves."""
     hs = _host_stream(cfg, mesh)
@@ -234,8 +263,10 @@ def _stage_sets(cfg: AttackConfig, embed, queries: np.ndarray,
                   f"beside the search's {need / GIB:.2f} GiB (of "
                   f"{cap / GIB:.2f}): streaming blocks from host memory")
             return queries, syn, False
-    return (torch.from_numpy(np.ascontiguousarray(queries)).to(device),
-            torch.from_numpy(np.ascontiguousarray(syn)).to(device), True)
+    if not isinstance(queries, JoinedRows):
+        queries = torch.from_numpy(np.ascontiguousarray(queries)).to(device)
+    return (queries, torch.from_numpy(np.ascontiguousarray(syn)).to(device),
+            True)
 
 
 def attack_arrays(cfg: AttackConfig, syn, pos, neg,
@@ -248,19 +279,23 @@ def attack_arrays(cfg: AttackConfig, syn, pos, neg,
     it). Returns losses and true NN indices for both query
     sets, the query-pair rate, the device seconds spent featurising and
     folding, the host seconds of the set-up (``lpips_init_s``: building
-    the featurisers; ``host_copy_s``: joining the query sets and, where
-    they fit, copying both sets to the device once, ``sets_on_device``;
-    :func:`_stage_sets`), the search's OOM resumes and its plan (with
-    ``two_pass`` also the number of certificate fallbacks), and its
-    ``counters``: ``query_rows_featurised`` and ``query_rows_reused``
-    (query rows featurised into a search's cache, and served by a held
-    one, summed over the call's searches: the two-pass mode's pass 1,
-    re-rank and fallback each hold their own) and, with ``two_pass``,
-    ``rerank_candidates`` (the size of the re-rank's candidate union).
-    The logged record carries the same.
+    the featurisers; ``host_copy_s``: where the sets fit, copying the
+    synthetic set to the device once, ``sets_on_device``, and, unless a
+    held cache covers the queries, joining the query sets and copying
+    them too; :func:`_query_rows`, :func:`_stage_sets`), the search's OOM
+    resumes and its plan (with ``two_pass`` also the number of
+    certificate fallbacks), and its ``counters``:
+    ``query_rows_featurised`` and ``query_rows_reused`` (query rows
+    featurised into a search's cache, and served by a held one, summed
+    over the call's searches: the two-pass mode's pass 1, re-rank and
+    fallback each hold their own), ``query_rows_staged`` (the query rows
+    the call joined into one array and, with the sets on the device,
+    copied there: 0 where a held cache covers them) and, with
+    ``two_pass``, ``rerank_candidates`` (the size of the re-rank's
+    candidate union). The logged record carries the same.
 
-    Both query sets go through ONE synthetic sweep (concatenated on the
-    query axis, split after): featurising the generated set dominates and
+    Both query sets go through ONE synthetic sweep (one query axis, pos
+    then neg, split after): featurising the generated set dominates and
     would otherwise run twice (``fbb.py:156-171``).
 
     ``sweep_cache`` (a dict ``run_attack`` passes to every subdir of a
@@ -268,7 +303,9 @@ def attack_arrays(cfg: AttackConfig, syn, pos, neg,
     share: the featurisers and the featurised query caches
     (``ops/knn`` ``query_reuse``; separate holders for the two-pass pass
     1 and re-rank). The caller passes the same pos/neg every call; the
-    searches check shapes and a content fingerprint.
+    searches check shapes and a content fingerprint, which a
+    single-device one-pass call also takes of pos and neg in place, so
+    that queries its held cache covers are neither joined nor staged.
 
     ``mesh`` (``parallel/mesh.Mesh``, every rank calling with the same
     arrays): the search runs on the mesh's ranks, on this rank's device,
@@ -321,11 +358,11 @@ def _attack_arrays(cfg: AttackConfig, syn, pos, neg, device, logger,
     t1 = time.perf_counter()
     n_q = len(pos) + len(neg)
     with span("fbb.stage_sets"):
+        syn_h = syn if isinstance(syn, HostImageSet) else np.asarray(syn)
+        queries = _query_rows(cfg, pos, neg, syn_h, sweep_cache, mesh)
+        staged = 0 if isinstance(queries, JoinedRows) else n_q
         queries, syn_d, on_device = _stage_sets(
-            cfg, embed or embed_lo,
-            np.concatenate([np.asarray(pos), np.asarray(neg)], axis=0),
-            syn if isinstance(syn, HostImageSet) else np.asarray(syn),
-            device, mesh)
+            cfg, embed or embed_lo, queries, syn_h, device, mesh)
         sync()
     t2 = time.perf_counter()
     holder = (lambda name: None if sweep_cache is None
@@ -378,6 +415,7 @@ def _attack_arrays(cfg: AttackConfig, syn, pos, neg, device, logger,
                 if k in info] or [info]
     counters = {k: sum(r[k] for r in searches)
                 for k in ("query_rows_featurised", "query_rows_reused")}
+    counters["query_rows_staged"] = staged
     if "rerank" in info:
         counters["rerank_candidates"] = info["rerank"]["candidates"]
     # the planner's budget (None on the CPU or with auto_plan off)

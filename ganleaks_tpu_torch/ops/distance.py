@@ -115,6 +115,12 @@ def _numel(shape) -> int:
     return d
 
 
+def pixel_int_dot_bound(sample_shape) -> float:
+    """Bound on the pixel part's int8 cross dot at one input of
+    ``sample_shape``: every element can saturate to +-127 (+rounding)."""
+    return float(_numel(sample_shape)) * 127.5 ** 2
+
+
 def make_embed_parts_fn(distance: str, lpips_parts: Callable | None = None,
                         dtype: torch.dtype = torch.float32
                         ) -> Callable[[torch.Tensor], list[torch.Tensor]]:
@@ -137,15 +143,12 @@ def make_embed_parts_fn(distance: str, lpips_parts: Callable | None = None,
     def pix_bound(sample_shape):
         return 1.0 / float(_numel(sample_shape)) ** 0.5
 
-    def pix_dot_bound(sample_shape):
-        # every pixel element can saturate to +-127 (+rounding)
-        return float(_numel(sample_shape)) * 127.5 ** 2
-
     if distance == "l2":
         def embed_l2(x: torch.Tensor) -> list[torch.Tensor]:
             return [pixel_embedding(images_unit_range(x)).to(dtype)]
         embed_l2.part_bound_fn = lambda shape: [pix_bound(shape)]
-        embed_l2.part_int_dot_bound_fn = lambda shape: [pix_dot_bound(shape)]
+        embed_l2.part_int_dot_bound_fn = lambda shape: [
+            pixel_int_dot_bound(shape)]
         return embed_l2
     if distance != "l2-lpips":
         raise ValueError(f"unknown distance {distance!r}")
@@ -163,7 +166,8 @@ def make_embed_parts_fn(distance: str, lpips_parts: Callable | None = None,
             [pix_bound(shape)] + lpips_parts.part_bound_fn(shape))
     if hasattr(lpips_parts, "part_int_dot_bound_fn"):
         embed.part_int_dot_bound_fn = lambda shape: (
-            [pix_dot_bound(shape)] + lpips_parts.part_int_dot_bound_fn(shape))
+            [pixel_int_dot_bound(shape)]
+            + lpips_parts.part_int_dot_bound_fn(shape))
     if hasattr(lpips_parts, "make_fast_parts_norms"):
         def make_fast(cdtype: torch.dtype, bounds=None):
             lp_fast = lpips_parts.make_fast_parts_norms(

@@ -227,11 +227,45 @@ def _release(device: torch.device, holders) -> None:
         torch.cuda.empty_cache()
 
 
+class JoinedRows:
+    """Row sets read as one, in order, without joining them: what the
+    streamed search reads of its queries (``len``, ``shape``, ``dtype``,
+    ``nbytes``, rows by slice or index array), each row read in place from
+    the set that holds it, in the dtype ``np.concatenate`` would give."""
+
+    def __init__(self, *sets: np.ndarray):
+        self.sets = sets
+        sizes = [len(s) for s in sets]
+        self.starts = np.cumsum([0] + sizes[:-1])
+        self.ends = self.starts + sizes
+        self.dtype = np.result_type(*sets)
+        self.shape = (sum(sizes),) + tuple(sets[0].shape[1:])
+        self.nbytes = int(np.prod(self.shape)) * self.dtype.itemsize
+
+    def __len__(self) -> int:
+        return self.shape[0]
+
+    def __getitem__(self, rows) -> np.ndarray:
+        if isinstance(rows, slice):
+            lo, hi, step = rows.indices(len(self))
+            if step != 1:
+                raise IndexError("JoinedRows takes slices of step 1")
+            pieces = [s[max(lo - a, 0):max(hi - a, 0)]
+                      for s, a in zip(self.sets, self.starts)]
+        else:
+            rows = np.asarray(rows)
+            which = np.searchsorted(self.ends, rows, side="right")
+            pieces = [self.sets[w][r - self.starts[w]][None]
+                      for w, r in zip(which, rows)]
+        return np.concatenate(pieces, axis=0, dtype=self.dtype)
+
+
 def _fingerprint(queries, signature: tuple) -> tuple:
     """The key a held query cache is reused under: n_q, the embedding's
     signature (part shapes and dtypes, cache dtype) and a hash of the
     first row, the last row and 64 rows strided over the set — a set with
-    a swapped middle row, or a reversed one, does not match."""
+    a swapped middle row, or a reversed one, does not match. A
+    :class:`JoinedRows` gives the key its joined array gives."""
     n_q = len(queries)
     rows = sorted({0, n_q - 1, *range(0, n_q, max(1, n_q // 64))})
     sample = queries[np.asarray(rows)]
@@ -239,6 +273,14 @@ def _fingerprint(queries, signature: tuple) -> tuple:
         sample = sample.cpu().numpy()
     digest = hashlib.sha256(np.ascontiguousarray(sample).tobytes())
     return (n_q, signature, digest.hexdigest())
+
+
+def holds_queries(query_reuse: dict | None, queries) -> bool:
+    """Whether ``query_reuse`` holds a cache of ``queries``: their count
+    and hash match its :func:`_fingerprint` (the search also checks the
+    embedding's signature)."""
+    fp = (query_reuse or {}).get("fp")
+    return fp is not None and _fingerprint(queries, fp[1]) == fp
 
 
 def _halved(info: dict, dim: str, size: int, msg: str) -> None:
@@ -1049,6 +1091,15 @@ def _part_bounds_for(embed_fn: Callable, queries,
     else:  # generic worst case: every element saturates
         probe = _probe(embed_fn, queries, torch.device(device))
         dot_bounds = [float(p[0].numel()) * 127.5 ** 2 for p in probe]
+    check_int_dot_bounds(dot_bounds, shape)
+    return bounds
+
+
+def check_int_dot_bounds(dot_bounds, shape: tuple) -> None:
+    """Raise ``ValueError`` where a part's s8 x s8 -> s32 cross dot can
+    reach 2^31 (``dot_bounds``, one per part, at the input ``shape``): the
+    int32 accumulator would wrap silently. ``attack/fbb.
+    resolve_auto_engine`` asks the same from the shapes alone."""
     for i, db in enumerate(dot_bounds):
         if db >= 2.0 ** 31:
             raise ValueError(
@@ -1056,7 +1107,6 @@ def _part_bounds_for(embed_fn: Callable, queries,
                 f"{db:.3g} >= 2^31 and would silently wrap the int32 "
                 f"accumulator at this input shape {shape}; use "
                 f"engine='taps' (bf16) instead")
-    return bounds
 
 
 def _int_dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

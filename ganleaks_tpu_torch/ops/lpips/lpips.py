@@ -333,12 +333,18 @@ def lpips_part_bounds(model: LPIPS, sample_shape: tuple,
 
 def lpips_part_int_dot_bounds(model: LPIPS,
                               sample_shape: tuple) -> list[float]:
-    """Per-part bound on |int8 cross dot|: per position the channel vector
-    is unit-normalised, so its int8 image has L2 <= 127 + 0.5*sqrt(C)
-    (rounding), and Cauchy-Schwarz gives |dot per position| <= that
-    squared, summed over the H_l*W_l positions."""
+    """:func:`lpips_net_int_dot_bounds` of ``model``'s net."""
+    return lpips_net_int_dot_bounds(model.net, sample_shape)
+
+
+def lpips_net_int_dot_bounds(net: str, sample_shape: tuple) -> list[float]:
+    """Per-part bound on |int8 cross dot| of ``net``'s taps at one
+    ``sample_shape`` input, from the tap shapes alone (no weights): per
+    position the channel vector is unit-normalised, so its int8 image has
+    L2 <= 127 + 0.5*sqrt(C) (rounding), and Cauchy-Schwarz gives |dot per
+    position| <= that squared, summed over the H_l*W_l positions."""
     return [float(n_pos) * (127.0 + 0.5 * float(c) ** 0.5) ** 2
-            for n_pos, c in lpips_part_shapes(model.net, sample_shape)]
+            for n_pos, c in lpips_part_shapes(net, sample_shape)]
 
 
 def lpips_fast_parts_norms(model: LPIPS, weight: float, dtype: torch.dtype,

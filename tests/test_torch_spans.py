@@ -197,9 +197,9 @@ class _Records:
 
 @pytest.mark.parametrize("engine", ["gemm", "taps", "taps-int8"])
 def test_query_row_counters(engine):
-    """A first call featurises every query row and reuses none; a second
-    call with the same ``sweep_cache`` reuses all of them. The logged
-    record carries the same counters."""
+    """A first call featurises and stages every query row and reuses
+    none; a second call with the same ``sweep_cache`` reuses all of them
+    and stages none. The logged record carries the same counters."""
     syn, pos, neg = _sets()
     cfg = AttackConfig(distance="l2", resolution=8, engine=engine,
                        query_block=4, syn_block=8, save_plots=False)
@@ -211,9 +211,11 @@ def test_query_row_counters(engine):
     second = attack_arrays(cfg, syn, pos, neg, device="cpu",
                            sweep_cache=cache, logger=logger)
     assert first["counters"] == {"query_rows_featurised": n_q,
-                                 "query_rows_reused": 0}
+                                 "query_rows_reused": 0,
+                                 "query_rows_staged": n_q}
     assert second["counters"] == {"query_rows_featurised": 0,
-                                  "query_rows_reused": n_q}
+                                  "query_rows_reused": n_q,
+                                  "query_rows_staged": 0}
     assert [r["counters"] for r in logger.records
             if "counters" in r] == [first["counters"], second["counters"]]
     alone = attack_arrays(cfg, syn, pos, neg, device="cpu")
