@@ -25,6 +25,17 @@ Phases, each printing JSON lines:
    spans, K = 512,000 (zero-mean rows), k = 128 (the wrapper's limit),
    planted ties across tiles and spans; both types on non-negative rows
    at K = 512,000 against float64; per-pair invariance as in phase 2;
+3b. int8_fold: the int8 fold kernel (``csrc/knn_int8_fold.cu``) against
+   its plain version, the per-part chain (``ops/knn_int8.
+   _fold_block_parts_q``), minimum and index bit for bit, from a fresh
+   and from a tying running state: the main path's block (20,000 cached
+   queries x 8,192 synthetic rows of VGG16's parts, K = 512,000), rows
+   off the tiles with a padded block tail (n_valid < S), AlexNet's parts,
+   a 32-byte part, duplicated synthetic rows (ties across tiles and
+   blocks); pixel rows off the 32-byte steps through ``attack_arrays``
+   take the per-part chain (counters and launches); then at the main
+   block the kernel's ms, its bound and the chain's ms (plain and
+   library: one function);
 4. epilogue: the tap epilogue kernel (K2) against its plain version on
    every 64-px tap of 2,048 images as each LPIPS tower produces them
    (VGG16, AlexNet, SqueezeNet1.1 and ResNet18: 5, 5, 7 and 5 taps,
@@ -628,8 +639,10 @@ def phase_kernel(torch) -> float:
 def reset_launches() -> None:
     from ganleaks_tpu_torch.ops.knn_fused import (knn_argmin_fused,
                                                   knn_topk_fused)
+    from ganleaks_tpu_torch.ops.knn_int8 import int8_argmin_fold
     from ganleaks_tpu_torch.ops.lpips.epilogue import tap_epilogue
-    for fn in (knn_argmin_fused, knn_topk_fused, tap_epilogue):
+    for fn in (knn_argmin_fused, knn_topk_fused, tap_epilogue,
+               int8_argmin_fold):
         fn.launches = 0
     for fn in (knn_argmin_fused, knn_topk_fused):
         fn.launches_by_route = dict.fromkeys(fn.launches_by_route, 0)
@@ -637,9 +650,11 @@ def reset_launches() -> None:
 
 def read_launches() -> dict:
     """Launches per kernel, K1 and K3 per tile: 'knn_argmin.tf32x3'
-    (float32) and 'knn_argmin.wgmma' (bfloat16), likewise 'knn_topk.*'."""
+    (float32) and 'knn_argmin.wgmma' (bfloat16), likewise 'knn_topk.*';
+    K2 ('tap_epilogue') and the int8 fold ('knn_int8_fold')."""
     from ganleaks_tpu_torch.ops.knn_fused import (knn_argmin_fused,
                                                   knn_topk_fused)
+    from ganleaks_tpu_torch.ops.knn_int8 import int8_argmin_fold
     from ganleaks_tpu_torch.ops.lpips.epilogue import tap_epilogue
     out = {}
     for name, fn in (("knn_argmin", knn_argmin_fused),
@@ -650,6 +665,7 @@ def read_launches() -> dict:
         out.update({f"{name}.{r}": n
                     for r, n in fn.launches_by_route.items()})
     out["tap_epilogue"] = tap_epilogue.launches
+    out["knn_int8_fold"] = int8_argmin_fold.launches
     return out
 
 
@@ -751,6 +767,219 @@ def phase_topk(torch) -> float:
               **hold_invariance(torch, "per_pair_invariance", dtype, gen,
                                 k=TOPK_K)})
     return worst
+
+
+# ---------------------------------------------------------------------------
+# phase 3b: the int8 fold kernel against its plain version
+# ---------------------------------------------------------------------------
+
+# (label, cached query rows, block rows, valid rows, part widths): the
+# main path's block (20,000 queries x the grid cell's 8,192-row block of
+# VGG16's parts, K = 512,000), then the edges: rows off the tiles and a
+# block's padded tail, AlexNet's parts, a part 32 bytes wide
+INT8_FOLD_CASES = [
+    ("main", 20000, 8192, 8192, "vgg"),
+    ("ragged", 1000, 3000, 2900, "vgg"),
+    ("alex", 2000, 2048, 2040, "alex"),
+    ("part32", 700, 600, 600, (32, 4096, 64, 32, 8192)),
+]
+# pixel rows of 3 x 28 x 28 = 2,352 bytes (not a multiple of 32): the
+# per-part chain folds them; 32 px (3,072 bytes) takes the kernel
+INT8_ROUTE_RES = {"parts": 28, "kernel": 32}
+INT8_FOLD_REPS = 3
+# the l2-lpips parts at 64 px: the pixels, then the five taps
+INT8_WIDTHS = {"vgg": (12288, 262144, 131072, 65536, 32768, 8192),
+               "alex": (12288, 14400, 9408, 3456, 2304, 2304)}
+
+
+def int8_fold_inputs(torch, n_q: int, n_s: int, widths: tuple) -> dict:
+    """Seeded fold inputs drawn on the card: int8 query and synthetic rows
+    in [-20, 20] (every part's dot far below 2^31), the block's first rows
+    copies of query rows and 16 of its rows repeated further on (ties in a
+    tile and across tiles), float32 norms of the dequantised rows, factors
+    ``(a / 127)^2`` of per-part bounds ``a``, and a fresh running state
+    ``run``."""
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    k = sum(widths)
+    q, s = (torch.randint(-20, 21, (n, k), generator=gen, device=DEVICE,
+                          dtype=torch.int8) for n in (n_q, n_s))
+    n_copies = min(64, n_q, n_s)
+    s[:n_copies] = q[:n_copies]
+    if n_s > 32:
+        src = torch.arange(16, device=DEVICE)
+        s[n_s - 1 - src * 7 % (n_s // 2)] = s[src]
+    bounds = np.linspace(0.5, 2.0, len(widths))
+    factors = tuple(float((a / 127.0) ** 2) for a in bounds)
+
+    def norms(x, chunk: int = 512):
+        out = torch.zeros(x.shape[0], device=DEVICE, dtype=torch.float64)
+        for r0 in range(0, x.shape[0], chunk):
+            off = 0
+            for w, f in zip(widths, factors):
+                part = x[r0:r0 + chunk, off:off + w].double()
+                out[r0:r0 + chunk] += part.square().sum(1) * f
+                off += w
+        return out.float()
+
+    return {"q": q, "rq": norms(q), "s": s, "rs": norms(s),
+            "factors": factors, "widths": tuple(widths),
+            "run": (torch.full((n_q,), torch.inf, device=DEVICE),
+                    torch.zeros(n_q, dtype=torch.int32, device=DEVICE))}
+
+
+def int8_fold_args(inp: dict, run: tuple, n_valid: int, col0: int) -> tuple:
+    return (*run, inp["q"], inp["rq"], inp["s"], inp["rs"], col0, n_valid,
+            inp["widths"], inp["factors"])
+
+
+def int8_tying_state(torch, inp: dict, n_valid: int) -> tuple:
+    """A running state from an earlier block: on even rows the plain fold
+    of this very block (folding it again ties on every such row: the
+    earlier block must keep its index), +inf on odd rows (the block's own
+    minimum must come out)."""
+    from ganleaks_tpu_torch.ops.knn_int8 import _fold_block_parts_q
+    d, i = _fold_block_parts_q(*int8_fold_args(inp, inp["run"], n_valid, 0))
+    odd = torch.arange(d.shape[0], device=d.device) % 2 == 1
+    return (torch.where(odd, torch.inf, d),
+            torch.where(odd, 0, i).to(torch.int32))
+
+
+def bits_differ(torch, want: tuple, got: tuple) -> dict:
+    """Rows whose minimum (as bits) or index differ, and the largest
+    |difference| of the minima (0 where both are the same value)."""
+    same = want[0] == got[0]
+    gap = torch.where(same, 0.0, (want[0] - got[0]).abs())
+    return {"min_mismatch": int((want[0].view(torch.int32)
+                                 != got[0].view(torch.int32)).sum()),
+            "idx_mismatch": int((want[1] != got[1]).sum()),
+            "max_abs_err": float(gap.max())}
+
+
+def event_ms(torch, fn, reps: int) -> float:
+    """ms a call of ``fn`` on the card: one warm-up call, then CUDA events
+    around ``reps`` calls."""
+    fn()
+    torch.cuda.synchronize()
+    a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / reps
+
+
+def int8_fold_case(torch, label: str, n_q: int, n_s: int, n_valid: int,
+                   widths) -> tuple[dict, list]:
+    """The kernel against ``_fold_block_parts_q`` bit for bit (minimum and
+    index) on seeded rows with planted copies and duplicates, from a fresh
+    state and from a running state that ties on every other row (the
+    earlier block must keep its index); returns the inputs and each
+    state's :func:`bits_differ`."""
+    from ganleaks_tpu_torch.ops.knn_int8 import (_fold_block_parts_q,
+                                                 int8_argmin_fold)
+    widths = INT8_WIDTHS.get(widths, widths)
+    with torch.inference_mode():
+        inp = int8_fold_inputs(torch, n_q, n_s, widths)
+        rec = {"phase": "int8_fold", "case": label, "n_q": n_q,
+               "n_s": n_s, "n_valid": n_valid, "widths": list(widths)}
+        diffs = []
+        for state, run in (("fresh", inp["run"]),
+                           ("running", int8_tying_state(torch, inp,
+                                                        n_valid))):
+            args = int8_fold_args(inp, run, n_valid, 4096)
+            want = _fold_block_parts_q(*args)
+            before = int8_argmin_fold.launches
+            got = int8_argmin_fold(*args)
+            diff = bits_differ(torch, want, got)
+            rec[state] = diff
+            diffs.append(diff)
+            check(diff["min_mismatch"] == 0 and diff["idx_mismatch"] == 0,
+                  f"int8_fold {label} {state}: {diff} rows differ from "
+                  f"the plain version")
+            check(DEVICE != "cuda"
+                  or int8_argmin_fold.launches == before + 1,
+                  f"int8_fold {label}: the kernel did not launch")
+            del want, got
+    emit(rec)
+    return inp, diffs
+
+
+def int8_fold_routes(torch) -> dict:
+    """``attack_arrays`` with 'taps-int8' on pixel rows off and on the
+    kernel's 32-byte steps: the counters and the launches show which
+    route folded every block."""
+    from ganleaks_tpu_torch.attack.fbb import attack_arrays
+    from ganleaks_tpu_torch.config import AttackConfig
+    rng = np.random.default_rng(SEED)
+    out = {}
+    for route, res in INT8_ROUTE_RES.items():
+        syn, pos, neg = (rng.integers(0, 256, (n, res, res, 3), np.uint8)
+                         for n in (600, 200, 200))
+        cfg = AttackConfig(distance="l2", resolution=res, engine="taps-int8",
+                           query_block=256, syn_block=256, save_plots=False)
+        reset_launches()
+        got = attack_arrays(cfg, syn, pos, neg, device=DEVICE)
+        c = got["counters"]
+        blocks = -(-600 // got["plan"]["s_block"]) * got["plan"]["sweeps"]
+        want = ({"int8_fold_kernel_blocks": blocks,
+                 "int8_fold_parts_blocks": 0} if route == "kernel" else
+                {"int8_fold_kernel_blocks": 0,
+                 "int8_fold_parts_blocks": blocks})
+        launches = read_launches()["knn_int8_fold"]
+        check({k: c[k] for k in want} == want
+              and (DEVICE != "cuda"
+                   or launches == want["int8_fold_kernel_blocks"]),
+              f"int8_fold route {route} ({res} px): counters {c}, kernel "
+              f"launches {launches}, want {want}")
+        out[route] = {"res": res, "counters": c, "launches": launches}
+    emit({"phase": "int8_fold", "case": "routes", **out})
+    return out
+
+
+def phase_int8_fold(torch) -> dict:
+    """Phase 3b: every case of ``INT8_FOLD_CASES`` bit for bit, the route
+    by widths through ``attack_arrays``, then times at the main block: the
+    kernel, its bound, and the plain version, which is the per-part chain
+    the kernel replaces (``library_ms``: the same ``torch._int_mm`` calls
+    and float32 chain). Returns the times with the largest mismatch counts
+    and |minimum difference| over every case and state."""
+    from ganleaks_tpu_torch.ops import knn_int8
+    from ganleaks_tpu_torch.ops.knn_int8 import (_fold_block_parts_q,
+                                                 int8_argmin_fold)
+    main, worst = None, {}
+    for label, n_q, n_s, n_valid, widths in INT8_FOLD_CASES:
+        inp, diffs = int8_fold_case(torch, label, n_q, n_s, n_valid, widths)
+        for diff in diffs:
+            for key, v in diff.items():
+                worst[key] = max(worst.get(key, v), v)
+        if label == "main":
+            main = inp
+        else:
+            del inp
+    int8_fold_routes(torch)
+    if DEVICE != "cuda":
+        return worst
+    n_q, n_s = main["q"].shape[0], main["s"].shape[0]
+    k = main["q"].shape[1]
+    args = int8_fold_args(main, main["run"], n_s, 0)
+    # 2 n_q n_s K int8 operations at 1,979 TOP/s (the operands' bytes at
+    # 3.35 TB/s take ~4 ms)
+    t = {"bound_ms": 1e3 * 2.0 * n_q * n_s * k / 1979e12,
+         "bound_by": "operations", **worst}
+    with torch.inference_mode():
+        t["ms"] = event_ms(torch, lambda: int8_argmin_fold(*args),
+                           INT8_FOLD_REPS)
+        t["cluster"] = knn_int8.CLUSTER
+        t["clusters_resident"] = knn_int8.max_clusters(torch.device(DEVICE))
+        t["plain_ms"] = t["library_ms"] = event_ms(
+            torch, lambda: _fold_block_parts_q(*args), INT8_FOLD_REPS)
+    t["roofline_pct"] = 100.0 * t["bound_ms"] / t["ms"]
+    emit({"phase": "int8_fold", "case": "timing", "n_q": n_q, "n_s": n_s,
+          "k": k, "card": nvidia_smi_line(), **t})
+    del main
+    torch.cuda.empty_cache()
+    return t
 
 
 # ---------------------------------------------------------------------------
@@ -938,17 +1167,18 @@ TOWER_RUNS = [
     ("auto", "auto", False, {}),
 ]
 # which kernels each run launches, K1 (knn_argmin) and K3 (knn_topk) per
-# tile — '.tf32x3' on float32, '.wgmma' on bf16 — and K2 (tap_epilogue);
-# pass 1 of two-pass runs K3 on bf16 embeddings, the float32 re-rank and
-# fallbacks run K1 on the 3xTF32 tile
+# tile — '.tf32x3' on float32, '.wgmma' on bf16 —, K2 (tap_epilogue) and
+# the int8 fold (knn_int8_fold: one-pass int8 parts); pass 1 of two-pass
+# runs K3 on bf16 embeddings, the float32 re-rank and fallbacks run K1 on
+# the 3xTF32 tile
 WANT_LAUNCHES = {
     "pallas": ("knn_argmin.tf32x3",), "gemm": (),
     "pallas_two_pass": ("knn_topk.wgmma", "knn_argmin.tf32x3"),
     "taps": ("tap_epilogue", "knn_argmin.tf32x3"),
     "taps_bf16": ("tap_epilogue", "knn_argmin.wgmma"),
-    "taps_int8": ("tap_epilogue",),
+    "taps_int8": ("tap_epilogue", "knn_int8_fold"),
     "taps_int8_two_pass": ("tap_epilogue", "knn_argmin.tf32x3"),
-    "auto": ("tap_epilogue",)}
+    "auto": ("tap_epilogue", "knn_int8_fold")}
 
 
 def cert_error_bound(torch, cfg, rq, rs, quantized: bool):
@@ -2130,14 +2360,16 @@ def phase_north_star(torch) -> dict:
     sweep: dict = {}
     a = runs["auto"] = north_star_run(
         torch, data, "auto", replace(base, engine="auto"),
-        {"tap_epilogue": taps * (q_blocks + s_blocks)}, sweep_cache=sweep)
+        {"tap_epilogue": taps * (q_blocks + s_blocks),
+         "knn_int8_fold": s_blocks}, sweep_cache=sweep)
     check(a["out"]["plan"]["sweeps"] == 1 and a["out"]["oom_resumes"] == 0,
           f"north star auto: plan {a['out']['plan']}, not one sweep")
     # the next subdir of a hyperparameter search: the held query cache is
     # planned as budget and reused, so K2 runs for the synthetic set only
     r = north_star_run(torch, data, "auto_reused",
                        replace(base, engine="auto"),
-                       {"tap_epilogue": taps * s_blocks}, sweep_cache=sweep)
+                       {"tap_epilogue": taps * s_blocks,
+                        "knn_int8_fold": s_blocks}, sweep_cache=sweep)
     check(r["out"]["plan"]["query_reused"]
           and r["out"]["plan"]["sweeps"] == 1,
           f"north star auto_reused: plan {r['out']['plan']}")
@@ -2158,7 +2390,8 @@ def phase_north_star(torch) -> dict:
     # sweeps; int8 products are exact, so the results are identical
     c = north_star_run(torch, data, "auto_no_plan",
                        replace(base, engine="auto", auto_plan=False),
-                       {"tap_epilogue": taps * (q_blocks + 2 * s_blocks)})
+                       {"tap_epilogue": taps * (q_blocks + 2 * s_blocks),
+                        "knn_int8_fold": 2 * s_blocks})
     check(c["out"]["plan"]["sweeps"] == 2, f"north star auto_no_plan: plan "
                                            f"{c['out']['plan']}")
     check(bool((c["idx"] == a["idx"]).all() and (c["loss"] == a["loss"])
@@ -2175,7 +2408,7 @@ def phase_north_star(torch) -> dict:
     try:
         d = north_star_run(torch, data, "auto_forced_oom",
                            replace(base, engine="auto"),
-                           {"tap_epilogue": True})
+                           {"tap_epilogue": True, "knn_int8_fold": True})
     finally:
         torch.cuda.set_per_process_memory_fraction(1.0)
     emit({"phase": "north_star_oom", "allowed_gb": allowed / 1e9,
@@ -3942,10 +4175,11 @@ def phase_pipeline(torch, tmp: str, north_plan: dict) -> dict:
     plan = res["plan"]
     n_q, n_s = files["pos"] + files["neg"], PIPE_GENERATED + PIPE_PLANT
     taps = 5  # VGG16's taps: one K2 launch each per featurised block
-    want = taps * (-(-n_q // plan["q_block"])
-                   + plan["sweeps"] * -(-n_s // plan["s_block"]))
+    s_blocks = plan["sweeps"] * -(-n_s // plan["s_block"])
+    wants = {"tap_epilogue": taps * (-(-n_q // plan["q_block"]) + s_blocks),
+             "knn_int8_fold": s_blocks}
     for name, n in launches.items():
-        w = want if name == "tap_epilogue" else 0
+        w = wants.get(name, 0)
         check(n == w, f"pipeline attack: {name} launched {n} times, want "
                       f"{w} (plan {plan})")
     roc = evaluate(EvalConfig(result_load_dir=res["save_dir"]))
@@ -4044,13 +4278,13 @@ NCCL_RUNS = [("nccl_sharded_auto", "sharded", "auto", False, {}, "auto"),
               "auto")]
 # the kernels each rank runs per search (K1 and K3 per tile, K2)
 RANK_WANT = {
-    "sharded_auto": ("tap_epilogue",),
+    "sharded_auto": ("tap_epilogue", "knn_int8_fold"),
     "sharded_pallas": ("knn_argmin.tf32x3",),
     "sharded_pallas_two_pass": ("knn_topk.wgmma", "knn_argmin.tf32x3"),
-    "ring_auto": ("tap_epilogue",),
+    "ring_auto": ("tap_epilogue", "knn_int8_fold"),
     "ring_taps_bf16": ("tap_epilogue", "knn_argmin.wgmma"),
-    "nccl_sharded_auto": ("tap_epilogue",),
-    "nccl_sharded_auto_again": ("tap_epilogue",),
+    "nccl_sharded_auto": ("tap_epilogue", "knn_int8_fold"),
+    "nccl_sharded_auto_again": ("tap_epilogue", "knn_int8_fold"),
 }
 TAPS = 5  # VGG16's LPIPS taps: K2 launches per featurised block
 
@@ -4112,8 +4346,9 @@ def rank_want_launches(label: str, rank: dict, n_q: int, size: int) -> dict:
     (its shares of the query blocks, or its query shard's blocks on the
     ring, then its home synthetic blocks per sweep), K1 per synthetic
     block on the sharded 'pallas' search and per hop holding rows on the
-    ring, K3 per synthetic block of two-pass's pass 1; None where the
-    count depends on the data (two-pass's re-rank)."""
+    ring, the int8 fold likewise on 'auto', K3 per synthetic block of
+    two-pass's pass 1; None where the count depends on the data
+    (two-pass's re-rank)."""
     plan = rank["plan"]
     qb, sb, sweeps = plan["q_block"], plan["s_block"], plan["sweeps"]
     s_local = rank["s_rows"][1] - rank["s_rows"][0]
@@ -4132,10 +4367,13 @@ def rank_want_launches(label: str, rank: dict, n_q: int, size: int) -> dict:
     if label == "sharded_pallas_two_pass":
         want["knn_topk.wgmma"] = s_blocks
         want["knn_argmin.tf32x3"] = None
+    # every hop of every home step folds a block holding rows
+    hops = sweeps * size * -(-rank["s_rows"][2] // sb)
     if label == "ring_taps_bf16":
-        # every hop of every home step folds a block holding rows
-        want["knn_argmin.wgmma"] = sweeps * size * -(-rank["s_rows"][2]
-                                                     // sb)
+        want["knn_argmin.wgmma"] = hops
+    if "knn_int8_fold" in RANK_WANT[label]:
+        want["knn_int8_fold"] = hops if label.startswith("ring") \
+            else s_blocks
     return want
 
 
@@ -4846,6 +5084,8 @@ def main() -> int:
     lap("kernel")
     k3_err = phase_topk(torch)
     lap("topk")
+    t_int8 = phase_int8_fold(torch)
+    lap("int8_fold")
     k2_err = phase_epilogue(torch)
     lap("epilogue")
     with tempfile.TemporaryDirectory() as tmp:
@@ -4932,6 +5172,11 @@ def main() -> int:
          "ganleaks_tpu/ops/lpips/epilogue_pallas.py:114",
          north["launches"]["auto"]["tap_epilogue"],
          max(k2_err, t_k2["bf16_int8"]["max_abs_err"]), t_k2["bf16_int8"]),
+        # the largest |minimum - the plain version's| phase 3b measured
+        ("knn_int8_fold", "ganleaks_tpu_torch/csrc/knn_int8_fold.cu",
+         "none (the JAX package leaves the int8 dot to XLA)",
+         north["launches"]["auto"]["knn_int8_fold"],
+         t_int8["max_abs_err"], t_int8),
     ]
     print(smi, flush=True)
     emit({"kernels": [{

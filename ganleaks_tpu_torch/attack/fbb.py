@@ -49,8 +49,9 @@ from ganleaks_tpu_torch.io.stream import HostImageSet
 from ganleaks_tpu_torch.ops.distance import (make_embed_fn,
                                              make_embed_parts_fn,
                                              pixel_int_dot_bound)
-from ganleaks_tpu_torch.ops.knn import (PARTS_ENGINES, JoinedRows,
-                                        PhaseTimer, check_int_dot_bounds,
+from ganleaks_tpu_torch.ops.knn import (FOLD_COUNTERS, PARTS_ENGINES,
+                                        JoinedRows, PhaseTimer,
+                                        check_int_dot_bounds,
                                         holds_queries, knn_argmin_streamed,
                                         knn_argmin_streamed_parts,
                                         knn_argmin_two_pass,
@@ -290,9 +291,12 @@ def attack_arrays(cfg: AttackConfig, syn, pos, neg,
     over the call's searches: the two-pass mode's pass 1, re-rank and
     fallback each hold their own), ``query_rows_staged`` (the query rows
     the call joined into one array and, with the sets on the device,
-    copied there: 0 where a held cache covers them) and, with
-    ``two_pass``, ``rerank_candidates`` (the size of the re-rank's
-    candidate union). The logged record carries the same.
+    copied there: 0 where a held cache covers them),
+    ``int8_fold_kernel_blocks`` and ``int8_fold_parts_blocks`` (the int8
+    argmin searches' blocks folded by the int8 fold kernel and by the
+    per-part chain, ``ops/knn.FOLD_COUNTERS``, summed like the query rows)
+    and, with ``two_pass``, ``rerank_candidates`` (the size of the
+    re-rank's candidate union). The logged record carries the same.
 
     Both query sets go through ONE synthetic sweep (one query axis, pos
     then neg, split after): featurising the generated set dominates and
@@ -413,8 +417,9 @@ def _attack_arrays(cfg: AttackConfig, syn, pos, neg, device, logger,
                                    "sweeps", "query_reused")}
     searches = [info[k] for k in ("pass1", "rerank", "fallback")
                 if k in info] or [info]
-    counters = {k: sum(r[k] for r in searches)
-                for k in ("query_rows_featurised", "query_rows_reused")}
+    counters = {k: sum(r.get(k, 0) for r in searches)
+                for k in ("query_rows_featurised", "query_rows_reused",
+                          *FOLD_COUNTERS)}
     counters["query_rows_staged"] = staged
     if "rerank" in info:
         counters["rerank_candidates"] = info["rerank"]["candidates"]

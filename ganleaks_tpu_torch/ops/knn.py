@@ -17,9 +17,13 @@ over flat embeddings and over tap-structured parts.
   attack): the featuriser writes every part into one (N, K) buffer in
   part order (``make_fast_parts_norms``, the tap epilogue kernel), so the
   cross term sum_l q_l.s_l is the flat dot and the float32/bfloat16 fold
-  runs the fused kernels on that buffer unchanged; the int8 fold takes one
-  s8 x s8 -> s32 product per part (``torch._int_mm``), scaled by the
-  part's static dequantisation factor.
+  runs the fused kernels on that buffer unchanged; the int8 argmin fold
+  runs the int8 fold kernel (``ops/knn_int8``: every part's exact s8 x s8
+  -> s32 dot on the tensor cores, scaled by the part's static
+  dequantisation factor, and the argmin, in one kernel) where every part
+  width is a multiple of 32 and K of 16 (``knn_int8.kernel_route``),
+  else one s8 x s8 -> s32 product per part (``torch._int_mm``); the int8
+  top-k fold takes one product per part.
 * Every streamed search shares one loop (``_stream_search``): the query
   embeddings are cached on the device in chunks of ``query_cache_bytes``
   and the synthetic set is featurised once per chunk. On the card the
@@ -45,6 +49,9 @@ import torch
 from ganleaks_tpu_torch.ops import stream_plan
 from ganleaks_tpu_torch.ops.knn_fused import (knn_argmin_fused,
                                               knn_topk_fused, sq_norms)
+from ganleaks_tpu_torch.ops.knn_int8 import (_fold_block_parts_q,
+                                             _int8_cross, argmin_fold,
+                                             kernel_route)
 from ganleaks_tpu_torch.ops.stream_plan import (FOLD_BYTES_PER_PAIR,
                                                 activation_bytes_per_row,
                                                 plan_bytes, plan_stream)
@@ -346,8 +353,10 @@ class SearchSpec(NamedTuple):
     ``init_state(padded_rows)``, ``fold(state, cache, rq, s_emb, rs, col0,
     n_valid)`` (a new state; a fold that fails leaves the old one intact)
     and ``take(state, n_rows) -> tuple of per-query outputs``; the
-    planner's ``charges`` (:func:`_plan_charges`); and the signature a held
-    query cache is reused under."""
+    planner's ``charges`` (:func:`_plan_charges`); the signature a held
+    query cache is reused under; and ``counters``, the fold's own counts
+    (:data:`FOLD_COUNTERS`, bumped as blocks are folded), which the search
+    copies into its ``info``."""
 
     block_norms: Callable
     k_dim: int
@@ -357,6 +366,13 @@ class SearchSpec(NamedTuple):
     take: Callable
     charges: dict
     signature: tuple
+    counters: dict | None = None
+
+
+# blocks of an int8 argmin search folded by the int8 fold kernel (its
+# plain version on the CPU) and by the per-part chain (widths off the
+# kernel's steps): every search's ``info`` has both, 0 where unused
+FOLD_COUNTERS = ("int8_fold_kernel_blocks", "int8_fold_parts_blocks")
 
 
 class RankHooks(NamedTuple):
@@ -461,7 +477,8 @@ def _stream_search(spec: SearchSpec, queries, syn, *, q_block: int,
     held (``cache_bytes``), the number of synthetic ``sweeps``,
     ``query_reused``, the query rows it featurised into its cache and
     those a held cache served (``query_rows_featurised``,
-    ``query_rows_reused``) and the planner's budget (``capacity_bytes``:
+    ``query_rows_reused``), the blocks folded per int8 route
+    (:data:`FOLD_COUNTERS`) and the planner's budget (``capacity_bytes``:
     what the card reported plus a held cache of these queries; None
     without the planner).
 
@@ -477,7 +494,7 @@ def _stream_search(spec: SearchSpec, queries, syn, *, q_block: int,
     block_norms, k_dim, cdtype = spec.block_norms, spec.k_dim, spec.cdtype
     info = {} if info is None else info
     info.update(oom_resumes=0, halvings=[], query_rows_featurised=0,
-                query_rows_reused=0)
+                query_rows_reused=0, **dict.fromkeys(FOLD_COUNTERS, 0))
     row_bytes = k_dim * torch.empty((), dtype=cdtype).element_size()
     with span("knn.plan"):
         fp = (_fingerprint(queries, (spec.signature, str(cdtype), k_dim))
@@ -709,7 +726,8 @@ def _stream_search(spec: SearchSpec, queries, syn, *, q_block: int,
             qs0 = end
     info.update(q_block=q_block, s_block=s_block,
                 cache_bytes=cache_rows * row_bytes, sweeps=sweeps,
-                query_reused=info["query_rows_reused"] > 0)
+                query_reused=info["query_rows_reused"] > 0,
+                **(spec.counters or {}))
     return tuple(torch.cat(cols) for cols in zip(*outs))
 
 
@@ -1109,46 +1127,6 @@ def check_int_dot_bounds(dot_bounds, shape: tuple) -> None:
                 f"engine='taps' (bf16) instead")
 
 
-def _int_dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Exact int32 ``a @ b.T`` of int8 rows a (M, K) and b (N, K) through
-    ``torch._int_mm``. On CUDA it needs M > 16 and K, N multiples of 8:
-    zero rows and columns pad the operands where they fall short (zeros add
-    nothing to the dots; the padded rows are cut off)."""
-    m, k = a.shape
-    n = b.shape[0]
-    if a.device.type == "cuda" and (m <= 16 or k % 8 or n % 8):
-        pm, pk, pn = max(0, 17 - m), (-k) % 8, (-n) % 8
-        a = torch.nn.functional.pad(a, (0, pk, 0, pm))
-        b = torch.nn.functional.pad(b, (0, pk, 0, pn))
-        return torch._int_mm(a, b.T)[:m, :n]
-    return torch._int_mm(a, b.T)
-
-
-def _int8_cross(q: torch.Tensor, s: torch.Tensor, widths: tuple,
-                factors: tuple) -> torch.Tensor:
-    """float32 sum_l f_l * (q_l . s_l) over the parts' column slices: one
-    s8 x s8 -> s32 product per part, dequantised by its static factor."""
-    cross, off = None, 0
-    for w, f in zip(widths, factors):
-        c = _int_dot(q[:, off:off + w], s[:, off:off + w]).float() * f
-        cross = c if cross is None else cross + c
-        off += w
-    return cross
-
-
-def _fold_block_parts_q(run_min, run_idx, q, rq, s, rs, col0: int,
-                        n_valid: int, widths: tuple, factors: tuple):
-    """int8 argmin fold: the dequantised per-part cross term, masking and
-    the first-index tie-break as :func:`_fold_block`."""
-    d = rq[:, None] + rs[None, :] - 2.0 * _int8_cross(q, s, widths, factors)
-    local = torch.arange(s.shape[0], device=d.device)
-    d = torch.where(local[None, :] < n_valid, d, torch.inf)
-    blk_min, blk_arg = torch.min(d, dim=1)
-    better = blk_min < run_min
-    return (torch.where(better, blk_min, run_min),
-            torch.where(better, col0 + blk_arg.to(torch.int32), run_idx))
-
-
 def _fold_block_topk_parts_q(run_d, run_i, q, rq, s, rs, col0: int,
                              n_valid: int, k: int, widths: tuple,
                              factors: tuple):
@@ -1180,21 +1158,31 @@ def argmin_parts_spec(embed_fn: Callable, queries, quantize: bool,
                       device: torch.device, timer: PhaseTimer
                       ) -> SearchSpec:
     """:class:`SearchSpec` of a 1-NN search over a parts featuriser: the
-    fused kernel on the (N, K) parts buffer, or int8 products per part
-    with ``quantize``."""
+    fused kernel on the (N, K) parts buffer; with ``quantize`` the int8
+    fold kernel (``ops/knn_int8.int8_argmin_fold``) where the part widths
+    take its route (``knn_int8.kernel_route``: every width a multiple of
+    32, K of 16), else one int8 product per part. The spec counts the
+    blocks of each route (:data:`FOLD_COUNTERS`)."""
     block_norms, k_dim, cdtype, widths, factors, sig = _parts_setup(
         embed_fn, queries, quantize, device, timer)
+    counters = dict.fromkeys(FOLD_COUNTERS, 0)
     if quantize:
+        fold_q = argmin_fold(widths, k_dim)
+        key = FOLD_COUNTERS[0] if kernel_route(widths, k_dim) \
+            else FOLD_COUNTERS[1]
+
         def fold(state, cache, rq, s_emb, rs, ss, n_valid):
-            return _fold_block_parts_q(state[0], state[1], cache, rq, s_emb,
-                                       rs, ss, n_valid, widths, factors)
+            out = fold_q(state[0], state[1], cache, rq, s_emb, rs, ss,
+                         n_valid, widths, factors)
+            counters[key] += 1
+            return out
     else:
         fold = _fold_fused
     init_state, take = _argmin_state_hooks(device)
     charges = _plan_charges(embed_fn, queries,
                             "int8" if quantize else "fused", 8)
     return SearchSpec(block_norms, k_dim, cdtype, init_state, fold, take,
-                      charges, sig)
+                      charges, sig, counters)
 
 
 def knn_argmin_streamed_parts(embed_fn: Callable, queries, syn, *,
@@ -1215,9 +1203,11 @@ def knn_argmin_streamed_parts(embed_fn: Callable, queries, syn, *,
 
     ``quantize=True`` streams int8 parts (static per-part scales from
     ``embed_fn.part_bound_fn``, float32 norms from the unquantised parts)
-    folded by one int8 product per part: approximate scores with a
-    rigorously bounded error (:func:`_quant_abs_err`); for exact results
-    run it as pass 1 of :func:`knn_argmin_two_pass` (``taps-int8``)."""
+    folded by the int8 fold kernel where every part width is a multiple
+    of 32 (``ops/knn_int8``), else by one int8 product per part, with the
+    same bits either way: approximate scores with a rigorously bounded
+    error (:func:`_quant_abs_err`); for exact results run it as pass 1 of
+    :func:`knn_argmin_two_pass` (``taps-int8``)."""
     device = torch.device(device)
     if len(syn) == 0:
         raise ValueError("empty synthetic set")

@@ -9,8 +9,12 @@ Times, at full width (VGG16 l2-lpips at ``--res`` px, K = 512,000 at
   (``ops/knn._fused_parts_norms``);
 * one ``block x block`` fold tile of ``--engine``:
   'auto' (default) the attack's 'auto' on the card, taps-int8 parts on a
-  bf16 tower folded by one int8 product per part
-  (``_fold_block_parts_q``), the main path;
+  bf16 tower folded as the search folds them (``knn_int8.argmin_fold``):
+  by the int8 fold kernel (``ops/knn_int8.int8_argmin_fold``,
+  ``csrc/knn_int8_fold.cu``) where every part width is a multiple of 32
+  and K of 16 (``knn_int8.kernel_route``: VGG16, AlexNet and SqueezeNet
+  at 64 px), else by one int8 product per part
+  (``knn_int8._fold_block_parts_q``): the main path;
   'taps' bf16 parts on a bf16 tower folded by K1 on the wgmma tile (the
   JAX tool's recipe); 'pallas' float32 parts folded by K1 on the 3xTF32
   tile;
@@ -53,11 +57,11 @@ from ganleaks_tpu_torch.attack.fbb import (build_embed_fn,
                                            resolve_auto_engine)
 from ganleaks_tpu_torch.config import AttackConfig
 from ganleaks_tpu_torch.device import card_line, resolve_device
-from ganleaks_tpu_torch.ops.knn import (_fold_block_parts_q, _fold_fused,
-                                        _fused_parts_norms,
+from ganleaks_tpu_torch.ops.knn import (_fold_fused, _fused_parts_norms,
                                         _part_bounds_for, _probe,
                                         _quant_factors,
                                         knn_argmin_streamed_parts)
+from ganleaks_tpu_torch.ops.knn_int8 import argmin_fold
 from ganleaks_tpu_torch.ops.knn_fused import knn_argmin_fused
 from ganleaks_tpu_torch.ops.lpips.epilogue import tap_epilogue
 from ganleaks_tpu_torch.utils.profiling import (call_seconds,
@@ -135,10 +139,11 @@ def profile(n_q: int = 2000, n_syn: int = 20000, block: int = 2048,
                  torch.zeros(block, dtype=torch.int32, device=device))
         if quantize:
             factors = _quant_factors(bounds)
+            fold_q = argmin_fold(widths, q.shape[1])
 
             def fold():
-                return _fold_block_parts_q(*state, q, rq, s, rs, 0, block,
-                                           widths, factors)
+                return fold_q(*state, q, rq, s, rs, 0, block, widths,
+                              factors)
         else:
             def fold():
                 return _fold_fused(state, q, rq, s, rs, 0, block)

@@ -11,9 +11,12 @@ as the streamed search folds them (``ops/knn``), at ``s_block`` 2,048,
   library);
 * 'pallas' float32: K1 on the 3xTF32 tile (``_fold_fused``);
 * 'pallas' bfloat16: K1 on the wgmma tile;
-* 'taps-int8': the int8 parts fold, one ``torch._int_mm`` per part of
-  VGG16's 64-px widths when ``--k`` is 512,000, else one part
-  (``_fold_block_parts_q``).
+* 'taps-int8': the int8 parts fold over VGG16's 64-px widths when
+  ``--k`` is 512,000, else one part, routed as the search routes it
+  (``knn_int8.argmin_fold``): the int8 fold kernel
+  (``ops/knn_int8.int8_argmin_fold``) where every width is a multiple of
+  32 and K of 16 (``knn_int8.kernel_route``), else one ``torch._int_mm``
+  per part (``knn_int8._fold_block_parts_q``).
 
 Prints one JSON line per configuration: ms per sweep of the ``s_rows``
 and per block, query-pairs/s, and whether the row is what the attack runs
@@ -39,10 +42,10 @@ import torch
 
 from ganleaks_tpu_torch.config import AttackConfig
 from ganleaks_tpu_torch.device import card_line, resolve_device
-from ganleaks_tpu_torch.ops.knn import (_fold_block, _fold_block_parts_q,
-                                        _fold_fused, fold_s_block,
-                                        stream_fold_kind)
+from ganleaks_tpu_torch.ops.knn import (_fold_block, _fold_fused,
+                                        fold_s_block, stream_fold_kind)
 from ganleaks_tpu_torch.ops.knn_fused import sq_norms
+from ganleaks_tpu_torch.ops.knn_int8 import argmin_fold
 from ganleaks_tpu_torch.utils.profiling import call_seconds
 
 BLOCKS = (2048, 4096, 8192)
@@ -56,6 +59,7 @@ def _fold_fn(engine: str, q, rq, s, rs, s_block: int, widths, factors):
     """One sweep of ``s`` in blocks of ``s_block``, folded into a running
     (min, argmin) as the streamed search folds each block."""
     n_q, n_s = q.shape[0], s.shape[0]
+    fold_q = argmin_fold(widths, q.shape[1])
 
     def sweep():
         state = (torch.full((n_q,), torch.inf, device=q.device),
@@ -68,8 +72,8 @@ def _fold_fn(engine: str, q, rq, s, rs, s_block: int, widths, factors):
             elif engine == "pallas":
                 state = _fold_fused(state, q, rq, blk, r, col0, n)
             else:
-                state = _fold_block_parts_q(*state, q, rq, blk, r, col0, n,
-                                            widths, factors)
+                state = fold_q(*state, q, rq, blk, r, col0, n, widths,
+                               factors)
         return state
     return sweep
 

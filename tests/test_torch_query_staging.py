@@ -46,6 +46,15 @@ def _sets(res=8, n_syn=40, n_pos=7, n_neg=5, seed=0):
                  for n in (n_syn, n_pos, n_neg))
 
 
+def _folds(cfg) -> dict:
+    """The fold counters of one call over ``_sets``' 40 synthetic rows:
+    5 blocks, in the int8 fold kernel's route for the int8 engines (every
+    part width a multiple of 32)."""
+    return {"int8_fold_kernel_blocks":
+            5 if cfg.engine == "taps-int8" else 0,
+            "int8_fold_parts_blocks": 0}
+
+
 def _eq(out, ref):
     for key in ("pos_loss", "neg_loss", "pos_nn_idx", "neg_nn_idx"):
         np.testing.assert_array_equal(out[key], ref[key])
@@ -86,7 +95,7 @@ def test_held_queries_are_not_staged(staged, case):
     assert first["counters"]["query_rows_staged"] == n_q
     assert second["counters"] == {"query_rows_featurised": 0,
                                   "query_rows_reused": n_q,
-                                  "query_rows_staged": 0}
+                                  "query_rows_staged": 0, **_folds(cfg)}
 
 
 def test_changed_middle_row_is_featurised_and_staged(staged):
@@ -106,7 +115,7 @@ def test_changed_middle_row_is_featurised_and_staged(staged):
     assert staged == [np.ndarray]
     assert out["counters"] == {"query_rows_featurised": n_q,
                                "query_rows_reused": 0,
-                               "query_rows_staged": n_q}
+                               "query_rows_staged": n_q, **_folds(cfg)}
     _eq(out, fbb.attack_arrays(cfg, syn, changed, neg, device="cpu"))
 
 

@@ -210,12 +210,16 @@ def test_query_row_counters(engine):
                           sweep_cache=cache, logger=logger)
     second = attack_arrays(cfg, syn, pos, neg, device="cpu",
                            sweep_cache=cache, logger=logger)
+    # every call folds the 40 synthetic rows in 5 blocks; 'taps-int8'
+    # folds them in the int8 fold kernel's route (192-byte pixel rows)
+    folds = {"int8_fold_kernel_blocks": 5 if engine == "taps-int8" else 0,
+             "int8_fold_parts_blocks": 0}
     assert first["counters"] == {"query_rows_featurised": n_q,
                                  "query_rows_reused": 0,
-                                 "query_rows_staged": n_q}
+                                 "query_rows_staged": n_q, **folds}
     assert second["counters"] == {"query_rows_featurised": 0,
                                   "query_rows_reused": n_q,
-                                  "query_rows_staged": 0}
+                                  "query_rows_staged": 0, **folds}
     assert [r["counters"] for r in logger.records
             if "counters" in r] == [first["counters"], second["counters"]]
     alone = attack_arrays(cfg, syn, pos, neg, device="cpu")
