@@ -53,7 +53,6 @@ from ganleaks_tpu_torch.ops.knn import (FOLD_COUNTERS, PARTS_ENGINES,
                                         JoinedRows, PhaseTimer,
                                         check_int_dot_bounds,
                                         holds_queries, knn_argmin_streamed,
-                                        knn_argmin_streamed_parts,
                                         knn_argmin_two_pass,
                                         stream_need_bytes,
                                         truncate_to_batches)
@@ -399,10 +398,6 @@ def _attack_arrays(cfg: AttackConfig, syn, pos, neg, device, logger,
             engine=cfg.engine, return_cert=True,
             query_reuse=holder("query_reuse_lo"),
             rerank_reuse=holder("query_reuse_hi"), device=device, **common)
-    elif structured:
-        d, i = knn_argmin_streamed_parts(
-            embed, queries, syn_d, quantize=cfg.engine == "taps-int8",
-            query_reuse=holder("query_reuse"), device=device, **common)
     else:
         d, i = knn_argmin_streamed(embed, queries, syn_d, engine=cfg.engine,
                                    query_reuse=holder("query_reuse"),

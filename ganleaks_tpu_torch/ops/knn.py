@@ -7,23 +7,26 @@ over flat embeddings and over tap-structured parts.
 * The tie-break matches ``torch.min``: the FIRST index attaining the
   minimum wins — blocks are visited in index order, argmin updates use
   strict ``<`` and top-k merges are stable with running entries first.
-* Flat engines (``knn_argmin_streamed``, ``knn_topk_streamed``):
+* One entry point per search kind (``knn_argmin_streamed``,
+  ``knn_topk_streamed``) takes every engine; ``search_spec`` alone turns
+  an engine into its featuriser layout, cache dtype, fold and planner
+  charges. Flat engines:
   - 'gemm'   : d = ||q||^2 + ||s||^2 - 2 q.s with ``torch.matmul``
                (float32 products; TF32 is off, ``device.set_f32_numerics``);
   - 'pallas' : the same math in the fused CUDA distance+argmin / top-k
                kernels (``ops/knn_fused``; the name is the JAX package's);
   - 'exact'  : d = sum((q - s)^2) elementwise, the reference's order.
-* Parts engines (``*_streamed_parts``; 'taps' and 'taps-int8' in the
-  attack): the featuriser writes every part into one (N, K) buffer in
-  part order (``make_fast_parts_norms``, the tap epilogue kernel), so the
-  cross term sum_l q_l.s_l is the flat dot and the float32/bfloat16 fold
-  runs the fused kernels on that buffer unchanged; the int8 argmin fold
-  runs the int8 fold kernel (``ops/knn_int8``: every part's exact s8 x s8
-  -> s32 dot on the tensor cores, scaled by the part's static
-  dequantisation factor, and the argmin, in one kernel) where every part
-  width is a multiple of 32 and K of 16 (``knn_int8.kernel_route``),
-  else one s8 x s8 -> s32 product per part (``torch._int_mm``); the int8
-  top-k fold takes one product per part.
+* Parts engines ('taps' and 'taps-int8'): the featuriser writes every
+  part into one (N, K) buffer in part order (``make_fast_parts_norms``,
+  the tap epilogue kernel), so the cross term sum_l q_l.s_l is the flat
+  dot and the float32/bfloat16 fold runs the fused kernels on that buffer
+  unchanged; the int8 argmin fold runs the int8 fold kernel
+  (``ops/knn_int8``: every part's exact s8 x s8 -> s32 dot on the tensor
+  cores, scaled by the part's static dequantisation factor, and the
+  argmin, in one kernel) where every part width is a multiple of 32 and
+  K of 16 (``knn_int8.kernel_route``), else one s8 x s8 -> s32 product
+  per part (``torch._int_mm``); the int8 top-k fold takes one product per
+  part.
 * Every streamed search shares one loop (``_stream_search``): the query
   embeddings are cached on the device in chunks of ``query_cache_bytes``
   and the synthetic set is featurised once per chunk. On the card the
@@ -57,7 +60,9 @@ from ganleaks_tpu_torch.ops.stream_plan import (FOLD_BYTES_PER_PAIR,
                                                 plan_bytes, plan_stream)
 from ganleaks_tpu_torch.utils.profiling import span
 
-ENGINES = ("gemm", "pallas", "exact")
+# the streamed searches' engines (:func:`search_spec`); the last two read
+# a parts featuriser
+ENGINES = ("gemm", "exact", "pallas", "taps", "taps-int8")
 PARTS_ENGINES = ("taps", "taps-int8")
 # the fused kernels tile a synthetic block themselves: the streamed
 # searches cap their blocks here, since a larger one buys nothing
@@ -82,12 +87,6 @@ def pad_rows(x: torch.Tensor, block: int) -> torch.Tensor:
     if pad:
         x = torch.cat([x, x.new_zeros((pad,) + tuple(x.shape[1:]))], dim=0)
     return x
-
-
-def _check_engine(engine: str) -> None:
-    if engine not in ENGINES:
-        raise ValueError(f"unknown kNN engine {engine!r}; the flat search "
-                         f"supports {ENGINES}")
 
 
 def _fold_block(run_min: torch.Tensor, run_idx: torch.Tensor,
@@ -122,8 +121,11 @@ def knn_argmin(emb_q: torch.Tensor, emb_s: torch.Tensor, *,
                engine: str = "gemm", q_block: int = 4096,
                s_block: int = 8192) -> tuple[torch.Tensor, torch.Tensor]:
     """1-NN distances (float32) and first-min indices (int32) of every
-    query row among materialised synthetic embeddings."""
-    _check_engine(engine)
+    query row among materialised synthetic embeddings ('gemm', 'pallas'
+    or 'exact')."""
+    if engine not in ("gemm", "pallas", "exact"):
+        raise ValueError(f"unknown kNN engine {engine!r}; the materialised "
+                         f"search supports 'gemm', 'pallas' and 'exact'")
     if engine == "pallas":
         return knn_argmin_fused(emb_q.contiguous(), emb_s.contiguous())
     n_q, n_s = emb_q.shape[0], emb_s.shape[0]
@@ -347,16 +349,20 @@ def plan_search(n_q: int, n_s: int, row_bytes: int, *, q_block: int,
 
 
 class SearchSpec(NamedTuple):
-    """What a streamed search folds (:func:`_stream_search`):
+    """What a streamed search folds (:func:`_stream_search`), as
+    :func:`search_spec` builds it for an engine:
     ``block_norms(x, start, block) -> (emb, f32 norms, n_valid)``; the
     cached row width ``k_dim`` and dtype ``cdtype``; the state hooks
     ``init_state(padded_rows)``, ``fold(state, cache, rq, s_emb, rs, col0,
     n_valid)`` (a new state; a fold that fails leaves the old one intact)
     and ``take(state, n_rows) -> tuple of per-query outputs``; the
     planner's ``charges`` (:func:`_plan_charges`); the signature a held
-    query cache is reused under; and ``counters``, the fold's own counts
+    query cache is reused under; ``counters``, the fold's own counts
     (:data:`FOLD_COUNTERS`, bumped as blocks are folded), which the search
-    copies into its ``info``."""
+    copies into its ``info``; and for the two-pass mode, the L2 bound on
+    a row's int8 error (``abs_err``, :func:`_quant_abs_err`) and the
+    float32 engine that searches the candidates exactly
+    (``exact_engine``)."""
 
     block_norms: Callable
     k_dim: int
@@ -366,7 +372,14 @@ class SearchSpec(NamedTuple):
     take: Callable
     charges: dict
     signature: tuple
-    counters: dict | None = None
+    counters: dict
+    abs_err: float
+    exact_engine: str
+
+    @property
+    def row_bytes(self) -> int:
+        """Bytes of one cached query row."""
+        return self.k_dim * torch.empty((), dtype=self.cdtype).element_size()
 
 
 # blocks of an int8 argmin search folded by the int8 fold kernel (its
@@ -495,7 +508,7 @@ def _stream_search(spec: SearchSpec, queries, syn, *, q_block: int,
     info = {} if info is None else info
     info.update(oom_resumes=0, halvings=[], query_rows_featurised=0,
                 query_rows_reused=0, **dict.fromkeys(FOLD_COUNTERS, 0))
-    row_bytes = k_dim * torch.empty((), dtype=cdtype).element_size()
+    row_bytes = spec.row_bytes
     with span("knn.plan"):
         fp = (_fingerprint(queries, (spec.signature, str(cdtype), k_dim))
               if query_reuse is not None else None)
@@ -726,8 +739,7 @@ def _stream_search(spec: SearchSpec, queries, syn, *, q_block: int,
             qs0 = end
     info.update(q_block=q_block, s_block=s_block,
                 cache_bytes=cache_rows * row_bytes, sweeps=sweeps,
-                query_reused=info["query_rows_reused"] > 0,
-                **(spec.counters or {}))
+                query_reused=info["query_rows_reused"] > 0, **spec.counters)
     return tuple(torch.cat(cols) for cols in zip(*outs))
 
 
@@ -752,42 +764,23 @@ def _plan_charges(embed_fn: Callable, queries, fold_kind: str,
 def stream_need_bytes(embed_fn: Callable, queries, *, engine: str,
                       q_block: int, s_block: int, query_cache_bytes: int,
                       auto_plan: bool, device: torch.device) -> int:
-    """Device bytes the streamed search of ``queries`` through
-    ``embed_fn`` (flat, or parts for the 'taps' engines) plans beside its
-    image sets, as the planner charges them: every query row cached (one
-    sweep), or the requested cache with ``auto_plan=False``, plus the
-    stream's blocks and activations and, for the fused engines on rows
-    that are not 16-byte multiples, K1's padded copies. One query is
-    featurised to learn the row width."""
-    row_bytes = stream_row_bytes(embed_fn, queries, engine=engine,
-                                 device=device)
+    """Device bytes the streamed 1-NN search of ``queries`` through
+    ``embed_fn`` on ``engine`` plans beside its image sets, as the planner
+    charges them: every query row cached (one sweep), or the requested
+    cache with ``auto_plan=False``, plus the stream's blocks and
+    activations and, for the fused folds on rows that are not 16-byte
+    multiples, K1's padded copies. The row width, cache dtype and charges
+    are the search's own (:func:`search_spec`, which featurises one
+    query)."""
+    spec = search_spec(embed_fn, queries, engine, device,
+                       PhaseTimer(torch.device(device)))
     n_q = len(queries)
     q_block = max(1, min(q_block, n_q))
     rows = n_q + (-n_q) % q_block
     if not auto_plan:
-        rows = min(rows, max(q_block, query_cache_bytes // row_bytes))
-    return plan_bytes(rows, row_bytes, s_block=s_block, q_block=q_block,
-                      **_plan_charges(embed_fn, queries,
-                                      stream_fold_kind(engine), 8))
-
-
-def stream_row_bytes(embed_fn: Callable, queries, *, engine: str,
-                     device: torch.device | str) -> int:
-    """Bytes of one cached query row of the streamed search through
-    ``embed_fn`` (flat, or parts for the 'taps' engines; int8 parts for
-    'taps-int8'), from one featurised query."""
-    probe = _probe(embed_fn, queries, torch.device(device))
-    if engine in PARTS_ENGINES:
-        size = 1 if engine == "taps-int8" else probe[0].element_size()
-        return sum(int(p[0].numel()) for p in probe) * size
-    return probe.shape[1] * probe.element_size()
-
-
-def stream_fold_kind(engine: str) -> str:
-    """The ``stream_plan.FOLD_BYTES_PER_PAIR`` kind of an argmin search on
-    ``engine``."""
-    return ("int8" if engine == "taps-int8"
-            else "fused" if engine in ("pallas", "taps") else "gemm")
+        rows = min(rows, max(q_block, query_cache_bytes // spec.row_bytes))
+    return plan_bytes(rows, spec.row_bytes, s_block=s_block,
+                      q_block=q_block, **spec.charges)
 
 
 def _probe(embed_fn: Callable, queries, device: torch.device):
@@ -829,61 +822,6 @@ def _fold_fused(state, cache, rq, s_emb, rs, ss, n_valid):
     better = d_blk < run_min
     return (torch.where(better, d_blk, run_min),
             torch.where(better, ss + i_blk, run_idx))
-
-
-def argmin_spec(embed_fn: Callable, queries, engine: str,
-                device: torch.device, timer: PhaseTimer) -> SearchSpec:
-    """:class:`SearchSpec` of a flat 1-NN search on ``engine``: the
-    embedding cached as it comes (no demotion), float32 norms taken from it
-    before the cache write; 'pallas' folds through the fused kernel."""
-    _check_engine(engine)
-    probe = _probe(embed_fn, queries, device)
-    if engine == "pallas":
-        fold = _fold_fused
-    else:
-        def fold(state, cache, rq, s_emb, rs, ss, n_valid):
-            return _fold_block(state[0], state[1], cache, rq, s_emb, ss,
-                               n_valid, engine, rs)
-    init_state, take = _argmin_state_hooks(device)
-    charges = _plan_charges(embed_fn, queries,
-                            "fused" if engine == "pallas" else "gemm", 8)
-    return SearchSpec(_flat_block_fn(embed_fn, device, timer),
-                      probe.shape[1], probe.dtype, init_state, fold, take,
-                      charges, ("flat",))
-
-
-def knn_argmin_streamed(embed_fn: Callable[[torch.Tensor], torch.Tensor],
-                        queries, syn, *, engine: str = "gemm",
-                        q_block: int = 2048, s_block: int = 2048,
-                        query_cache_bytes: int = 8 << 30,
-                        device: torch.device | str = "cpu",
-                        timer: PhaseTimer | None = None,
-                        auto_plan: bool = True,
-                        query_reuse: dict | None = None,
-                        reuse_siblings: tuple = (),
-                        info: dict | None = None
-                        ) -> tuple[torch.Tensor, torch.Tensor]:
-    """1-NN where embeddings are produced block by block — for feature
-    spaces too large to materialise (LPIPS at 64x64 is 512,000 dims per
-    image).
-
-    ``queries``/``syn``: image arrays (numpy, or torch on the host or on
-    ``device``, axis 0 = samples), taken onto ``device`` one block at a
-    time (``_stream_search``, which also documents ``auto_plan``'s
-    planner, the OOM resume, ``query_reuse`` and ``info``). Query norms
-    are float32, taken from the embedding before the cache write."""
-    _check_engine(engine)
-    device = torch.device(device)
-    if len(syn) == 0:
-        raise ValueError("empty synthetic set")
-    timer = timer or PhaseTimer(device)
-    with span("knn.plan"):
-        spec = argmin_spec(embed_fn, queries, engine, device, timer)
-    return _stream_search(
-        spec, queries, syn, q_block=q_block, s_block=s_block,
-        query_cache_bytes=query_cache_bytes, device=device, timer=timer,
-        auto_plan=auto_plan, query_reuse=query_reuse,
-        reuse_siblings=reuse_siblings, info=info)
 
 
 # ---------------------------------------------------------------------------
@@ -979,61 +917,6 @@ def _topk_state_hooks(fold_one: Callable, k: int, with_info: bool,
     return init_state, fold, take
 
 
-def topk_spec(embed_fn: Callable, queries, engine: str, k: int,
-              with_info: bool, device: torch.device,
-              timer: PhaseTimer) -> SearchSpec:
-    """:class:`SearchSpec` of a flat top-k search on ``engine`` ('pallas':
-    the fused top-k kernel); ``with_info`` appends ``(rq, rs_max)``."""
-    _check_engine(engine)
-    probe = _probe(embed_fn, queries, device)
-    if engine == "pallas":
-        def fold_one(run_d, run_i, cache, rq, s_emb, rs, ss, n_valid):
-            return _fold_fused_topk(run_d, run_i, cache, rq, s_emb, rs, ss,
-                                    n_valid, k)
-    else:
-        def fold_one(run_d, run_i, cache, rq, s_emb, rs, ss, n_valid):
-            return _fold_block_topk(run_d, run_i, cache, rq, s_emb, ss,
-                                    n_valid, k, engine, rs)
-    init_state, fold, take = _topk_state_hooks(fold_one, k, with_info,
-                                               device)
-    charges = _plan_charges(embed_fn, queries, "topk_fused"
-                            if engine == "pallas" else "topk_gemm", 8 * k + 4)
-    return SearchSpec(_flat_block_fn(embed_fn, device, timer),
-                      probe.shape[1], probe.dtype, init_state, fold, take,
-                      charges, ("flat",))
-
-
-def knn_topk_streamed(embed_fn: Callable[[torch.Tensor], torch.Tensor],
-                      queries, syn, *, k: int = 8, engine: str = "gemm",
-                      q_block: int = 2048, s_block: int = 2048,
-                      query_cache_bytes: int = 8 << 30,
-                      with_info: bool = False,
-                      device: torch.device | str = "cpu",
-                      timer: PhaseTimer | None = None,
-                      auto_plan: bool = True,
-                      query_reuse: dict | None = None,
-                      reuse_siblings: tuple = (),
-                      info: dict | None = None) -> tuple:
-    """Per-query k smallest distances (float32 (N_q, k)) and their indices
-    (int32, -1 past N_s), streamed like :func:`knn_argmin_streamed`.
-    ``engine='pallas'`` folds every block through the fused top-k kernel
-    (it launches or raises). ``with_info`` appends ``(rq, rs_max)`` for the
-    two-pass certificate."""
-    _check_engine(engine)
-    device = torch.device(device)
-    if len(syn) == 0:
-        raise ValueError("empty synthetic set")
-    timer = timer or PhaseTimer(device)
-    with span("knn.plan"):
-        spec = topk_spec(embed_fn, queries, engine, k, with_info, device,
-                         timer)
-    return _stream_search(
-        spec, queries, syn, q_block=q_block, s_block=s_block,
-        query_cache_bytes=query_cache_bytes, device=device, timer=timer,
-        auto_plan=auto_plan, query_reuse=query_reuse,
-        reuse_siblings=reuse_siblings, info=info)
-
-
 # ---------------------------------------------------------------------------
 # tap-structured parts ('taps', 'taps-int8')
 # ---------------------------------------------------------------------------
@@ -1099,7 +982,7 @@ def _part_bounds_for(embed_fn: Callable, queries,
     ``part_int_dot_bound_fn`` is probed on the first one, on ``device``."""
     if not hasattr(embed_fn, "part_bound_fn"):
         raise ValueError(
-            "quantize=True needs embed_fn.part_bound_fn (per-part "
+            "engine 'taps-int8' needs embed_fn.part_bound_fn (per-part "
             "elementwise magnitude bounds; see "
             "ops/distance.make_embed_parts_fn)")
     shape = tuple(queries.shape[1:])
@@ -1136,84 +1019,163 @@ def _fold_block_topk_parts_q(run_d, run_i, q, rq, s, rs, col0: int,
     return _masked_topk_merge(run_d, run_i, d, col0, n_valid, k)
 
 
-def _parts_setup(embed_fn: Callable, queries, quantize: bool,
+def _parts_setup(embed_fn: Callable, queries, bounds: tuple | None,
                  device: torch.device, timer: PhaseTimer):
-    """(block_norms, K, cache dtype, widths, dequantisation factors or
-    None, the query-reuse signature) of a parts featuriser; the cache
-    dtype is the parts' own (int8 with ``quantize``)."""
-    factors = bounds = None
-    if quantize:
-        bounds = _part_bounds_for(embed_fn, queries, device)
-        factors = _quant_factors(bounds)
+    """(block_norms, K, cache dtype, widths, the query-reuse signature) of
+    a parts featuriser; the cache dtype is the parts' own, int8 where
+    quantised at ``bounds``."""
     probe = _probe(embed_fn, queries, device)
     widths = tuple(int(p[0].numel()) for p in probe)
-    cdtype = torch.int8 if quantize else probe[0].dtype
+    cdtype = torch.int8 if bounds is not None else probe[0].dtype
     parts_norms = _fused_parts_norms(embed_fn, cdtype, bounds)
     block_norms = _block_fn(lambda blk: parts_norms(blk)[:2], device, timer)
     signature = ("parts", widths, str(probe[0].dtype), bounds)
-    return block_norms, sum(widths), cdtype, widths, factors, signature
+    return block_norms, sum(widths), cdtype, widths, signature
 
 
-def argmin_parts_spec(embed_fn: Callable, queries, quantize: bool,
-                      device: torch.device, timer: PhaseTimer
-                      ) -> SearchSpec:
-    """:class:`SearchSpec` of a 1-NN search over a parts featuriser: the
-    fused kernel on the (N, K) parts buffer; with ``quantize`` the int8
-    fold kernel (``ops/knn_int8.int8_argmin_fold``) where the part widths
-    take its route (``knn_int8.kernel_route``: every width a multiple of
-    32, K of 16), else one int8 product per part. The spec counts the
-    blocks of each route (:data:`FOLD_COUNTERS`)."""
-    block_norms, k_dim, cdtype, widths, factors, sig = _parts_setup(
-        embed_fn, queries, quantize, device, timer)
-    counters = dict.fromkeys(FOLD_COUNTERS, 0)
-    if quantize:
-        fold_q = argmin_fold(widths, k_dim)
-        key = FOLD_COUNTERS[0] if kernel_route(widths, k_dim) \
-            else FOLD_COUNTERS[1]
+def _counted_int8_fold(widths: tuple, k_dim: int, factors: tuple,
+                       counters: dict) -> Callable:
+    """The int8 argmin fold of these part widths
+    (``knn_int8.argmin_fold``: the int8 fold kernel where the widths take
+    its route, else the per-part chain), counting its blocks under its
+    route's :data:`FOLD_COUNTERS` key."""
+    fold_q = argmin_fold(widths, k_dim)
+    key = FOLD_COUNTERS[0] if kernel_route(widths, k_dim) \
+        else FOLD_COUNTERS[1]
 
-        def fold(state, cache, rq, s_emb, rs, ss, n_valid):
-            out = fold_q(state[0], state[1], cache, rq, s_emb, rs, ss,
-                         n_valid, widths, factors)
-            counters[key] += 1
-            return out
+    def fold(state, cache, rq, s_emb, rs, ss, n_valid):
+        out = fold_q(state[0], state[1], cache, rq, s_emb, rs, ss, n_valid,
+                     widths, factors)
+        counters[key] += 1
+        return out
+    return fold
+
+
+# ---------------------------------------------------------------------------
+# the search of an engine
+# ---------------------------------------------------------------------------
+
+def check_engine(engine: str) -> None:
+    """The one refusal of an engine that is not one of :data:`ENGINES`,
+    for every streamed search, on one device or on a mesh."""
+    if engine not in ENGINES:
+        raise ValueError(f"unknown kNN engine {engine!r}; expected one of "
+                         f"{ENGINES}")
+
+
+def search_spec(embed_fn: Callable, queries, engine: str,
+                device: torch.device | str, timer: PhaseTimer, *,
+                k: int | None = None, with_info: bool = False
+                ) -> SearchSpec:
+    """The :class:`SearchSpec` of the streamed search of ``queries``
+    through ``embed_fn`` on ``engine``: the 1-NN search (``k`` None) or
+    the top-``k`` one (``with_info`` appends ``(rq, rs_max)`` for the
+    two-pass certificate). The only code that turns an engine into a
+    search:
+
+    * 'gemm', 'exact': the flat embedding cached as it comes (no
+      demotion), folded by ``torch.matmul`` or elementwise
+      (:func:`_fold_block`, :func:`_fold_block_topk`);
+    * 'pallas': the same cache, folded by the fused kernels K1 / K3
+      (:func:`_fold_fused`, :func:`_fold_fused_topk`);
+    * 'taps': the parts featuriser's parts in one (N, K) buffer of their
+      own dtype (:func:`_fused_parts_norms`), folded by K1 / K3;
+    * 'taps-int8': the parts int8-quantised at static per-part scales
+      (:func:`_part_bounds_for`, float32 norms from the unquantised
+      parts), the argmin folded by ``knn_int8.argmin_fold`` (the int8
+      fold kernel where every part width is a multiple of 32 and K of 16,
+      else one int8 product per part; the same bits either way, counted
+      per route in :data:`FOLD_COUNTERS`), the top-k by one int8 product
+      per part (:func:`_fold_block_topk_parts_q`). Its scores are
+      approximate with a rigorously bounded error (``abs_err``); exact
+      results take :func:`knn_argmin_two_pass`.
+
+    The planner is charged the fold's kind (``int8``, ``fused`` or
+    ``gemm``, ``topk_`` before it for top-k), 8 bytes of state a query
+    row (top-k: ``8 k + 4``) and, for K1 / K3, their padded copies
+    (:func:`_plan_charges`). One query is featurised to learn the widths
+    and dtype. An unknown engine raises :func:`check_engine`'s error."""
+    check_engine(engine)
+    device = torch.device(device)
+    quantized = engine == "taps-int8"
+    fused = engine in ("pallas", "taps")
+    bounds = _part_bounds_for(embed_fn, queries, device) if quantized \
+        else None
+    if engine in PARTS_ENGINES:
+        block_norms, k_dim, cdtype, widths, signature = _parts_setup(
+            embed_fn, queries, bounds, device, timer)
     else:
-        fold = _fold_fused
-    init_state, take = _argmin_state_hooks(device)
-    charges = _plan_charges(embed_fn, queries,
-                            "int8" if quantize else "fused", 8)
+        probe = _probe(embed_fn, queries, device)
+        block_norms = _flat_block_fn(embed_fn, device, timer)
+        k_dim, cdtype, signature = probe.shape[1], probe.dtype, ("flat",)
+    factors = _quant_factors(bounds) if quantized else None
+    kind = "int8" if quantized else "fused" if fused else "gemm"
+    counters = dict.fromkeys(FOLD_COUNTERS, 0)
+    if k is None:
+        init_state, take = _argmin_state_hooks(device)
+        if quantized:
+            fold = _counted_int8_fold(widths, k_dim, factors, counters)
+        elif fused:
+            fold = _fold_fused
+        else:
+            def fold(state, cache, rq, s_emb, rs, ss, n_valid):
+                return _fold_block(state[0], state[1], cache, rq, s_emb, ss,
+                                   n_valid, engine, rs)
+        state_bytes = 8
+    else:
+        if quantized:
+            def fold_one(run_d, run_i, cache, rq, s_emb, rs, ss, n_valid):
+                return _fold_block_topk_parts_q(run_d, run_i, cache, rq,
+                                                s_emb, rs, ss, n_valid, k,
+                                                widths, factors)
+        elif fused:
+            def fold_one(run_d, run_i, cache, rq, s_emb, rs, ss, n_valid):
+                return _fold_fused_topk(run_d, run_i, cache, rq, s_emb, rs,
+                                        ss, n_valid, k)
+        else:
+            def fold_one(run_d, run_i, cache, rq, s_emb, rs, ss, n_valid):
+                return _fold_block_topk(run_d, run_i, cache, rq, s_emb, ss,
+                                        n_valid, k, engine, rs)
+        init_state, fold, take = _topk_state_hooks(fold_one, k, with_info,
+                                                   device)
+        kind, state_bytes = "topk_" + kind, 8 * k + 4
+    abs_err = _quant_abs_err(bounds, [(w,) for w in widths]) \
+        if quantized else 0.0
     return SearchSpec(block_norms, k_dim, cdtype, init_state, fold, take,
-                      charges, sig, counters)
+                      _plan_charges(embed_fn, queries, kind, state_bytes),
+                      signature, counters, abs_err,
+                      "exact" if engine == "exact" else "pallas")
 
 
-def knn_argmin_streamed_parts(embed_fn: Callable, queries, syn, *,
-                              q_block: int = 2048, s_block: int = 2048,
-                              query_cache_bytes: int = 8 << 30,
-                              quantize: bool = False,
-                              device: torch.device | str = "cpu",
-                              timer: PhaseTimer | None = None,
-                              auto_plan: bool = True,
-                              query_reuse: dict | None = None,
-                              reuse_siblings: tuple = (),
-                              info: dict | None = None
-                              ) -> tuple[torch.Tensor, torch.Tensor]:
-    """1-NN like :func:`knn_argmin_streamed` over a STRUCTURED embedding
-    (``embed_fn`` returns a list of parts, ``ops/distance.
-    make_embed_parts_fn``): the parts stream as one (N, K) buffer per
-    block, folded by the fused distance+argmin kernel.
+def knn_argmin_streamed(embed_fn: Callable, queries, syn, *,
+                        engine: str = "gemm", q_block: int = 2048,
+                        s_block: int = 2048,
+                        query_cache_bytes: int = 8 << 30,
+                        device: torch.device | str = "cpu",
+                        timer: PhaseTimer | None = None,
+                        auto_plan: bool = True,
+                        query_reuse: dict | None = None,
+                        reuse_siblings: tuple = (),
+                        info: dict | None = None
+                        ) -> tuple[torch.Tensor, torch.Tensor]:
+    """1-NN where embeddings are produced block by block — for feature
+    spaces too large to materialise (LPIPS at 64x64 is 512,000 dims per
+    image) — on any of :data:`ENGINES` (:func:`search_spec`; 'taps' and
+    'taps-int8' take a parts featuriser, ``ops/distance.
+    make_embed_parts_fn``).
 
-    ``quantize=True`` streams int8 parts (static per-part scales from
-    ``embed_fn.part_bound_fn``, float32 norms from the unquantised parts)
-    folded by the int8 fold kernel where every part width is a multiple
-    of 32 (``ops/knn_int8``), else by one int8 product per part, with the
-    same bits either way: approximate scores with a rigorously bounded
-    error (:func:`_quant_abs_err`); for exact results run it as pass 1 of
-    :func:`knn_argmin_two_pass` (``taps-int8``)."""
+    ``queries``/``syn``: image arrays (numpy, or torch on the host or on
+    ``device``, axis 0 = samples), taken onto ``device`` one block at a
+    time (``_stream_search``, which also documents ``auto_plan``'s
+    planner, the OOM resume, ``query_reuse`` and ``info``). Query norms
+    are float32, taken from the embedding before the cache write."""
+    check_engine(engine)
     device = torch.device(device)
     if len(syn) == 0:
         raise ValueError("empty synthetic set")
     timer = timer or PhaseTimer(device)
     with span("knn.plan"):
-        spec = argmin_parts_spec(embed_fn, queries, quantize, device, timer)
+        spec = search_spec(embed_fn, queries, engine, device, timer)
     return _stream_search(
         spec, queries, syn, q_block=q_block, s_block=s_block,
         query_cache_bytes=query_cache_bytes, device=device, timer=timer,
@@ -1221,50 +1183,29 @@ def knn_argmin_streamed_parts(embed_fn: Callable, queries, syn, *,
         reuse_siblings=reuse_siblings, info=info)
 
 
-def topk_parts_spec(embed_fn: Callable, queries, k: int, with_info: bool,
-                    quantize: bool, device: torch.device,
-                    timer: PhaseTimer) -> SearchSpec:
-    """Top-k analog of :func:`argmin_parts_spec`."""
-    block_norms, k_dim, cdtype, widths, factors, sig = _parts_setup(
-        embed_fn, queries, quantize, device, timer)
-    if quantize:
-        def fold_one(run_d, run_i, cache, rq, s_emb, rs, ss, n_valid):
-            return _fold_block_topk_parts_q(run_d, run_i, cache, rq, s_emb,
-                                            rs, ss, n_valid, k, widths,
-                                            factors)
-    else:
-        def fold_one(run_d, run_i, cache, rq, s_emb, rs, ss, n_valid):
-            return _fold_fused_topk(run_d, run_i, cache, rq, s_emb, rs, ss,
-                                    n_valid, k)
-    init_state, fold, take = _topk_state_hooks(fold_one, k, with_info,
-                                               device)
-    charges = _plan_charges(embed_fn, queries, "topk_int8" if quantize
-                            else "topk_fused", 8 * k + 4)
-    return SearchSpec(block_norms, k_dim, cdtype, init_state, fold, take,
-                      charges, sig)
-
-
-def knn_topk_streamed_parts(embed_fn: Callable, queries, syn, *, k: int = 8,
-                            q_block: int = 2048, s_block: int = 2048,
-                            query_cache_bytes: int = 8 << 30,
-                            with_info: bool = False, quantize: bool = False,
-                            device: torch.device | str = "cpu",
-                            timer: PhaseTimer | None = None,
-                            auto_plan: bool = True,
-                            query_reuse: dict | None = None,
-                            reuse_siblings: tuple = (),
-                            info: dict | None = None) -> tuple:
-    """Top-k analog of :func:`knn_argmin_streamed_parts`: pass 1 of the
-    two-pass mode with ``engine='taps'`` (fused top-k kernel on the parts
-    buffer) or ``'taps-int8'`` (``quantize=True``). ``with_info`` appends
-    ``(rq, rs_max)`` for the certificate."""
+def knn_topk_streamed(embed_fn: Callable, queries, syn, *, k: int = 8,
+                      engine: str = "gemm", q_block: int = 2048,
+                      s_block: int = 2048,
+                      query_cache_bytes: int = 8 << 30,
+                      with_info: bool = False,
+                      device: torch.device | str = "cpu",
+                      timer: PhaseTimer | None = None,
+                      auto_plan: bool = True,
+                      query_reuse: dict | None = None,
+                      reuse_siblings: tuple = (),
+                      info: dict | None = None) -> tuple:
+    """Per-query k smallest distances (float32 (N_q, k)) and their indices
+    (int32, -1 past N_s), streamed like :func:`knn_argmin_streamed` on any
+    of :data:`ENGINES`: pass 1 of the two-pass mode. ``with_info`` appends
+    ``(rq, rs_max)`` for the two-pass certificate."""
+    check_engine(engine)
     device = torch.device(device)
     if len(syn) == 0:
         raise ValueError("empty synthetic set")
     timer = timer or PhaseTimer(device)
     with span("knn.plan"):
-        spec = topk_parts_spec(embed_fn, queries, k, with_info, quantize,
-                               device, timer)
+        spec = search_spec(embed_fn, queries, engine, device, timer, k=k,
+                           with_info=with_info)
     return _stream_search(
         spec, queries, syn, q_block=q_block, s_block=s_block,
         query_cache_bytes=query_cache_bytes, device=device, timer=timer,
@@ -1321,7 +1262,8 @@ def _rerank_candidates(embed_hi: Callable, queries, syn, cand: np.ndarray,
                        timer: PhaseTimer, **search
                        ) -> tuple[torch.Tensor, torch.Tensor]:
     """Exact re-rank restricted to the candidate union: the float32
-    ``embed_hi`` search through the fused distance+argmin kernel ('pallas';
+    ``embed_hi`` search on ``engine``, pass 1's ``exact_engine``
+    (:func:`search_spec`): the fused distance+argmin kernel ('pallas';
     its two-level float32 sum stays within ~4e-6 of float64 at
     K = 512,000 where cuBLAS's SGEMM drifts to ~1.3e-4, ROADMAP C), or the
     elementwise 'exact' engine when that was asked for. Only the few
@@ -1331,9 +1273,7 @@ def _rerank_candidates(embed_hi: Callable, queries, syn, cand: np.ndarray,
     the size of the union, ``candidates``."""
     sub = syn[np.asarray(cand)]
     d, i_sub = knn_argmin_streamed(
-        embed_hi, queries, sub,
-        engine="exact" if engine == "exact" else "pallas",
-        q_block=min(q_block, 1024),
+        embed_hi, queries, sub, engine=engine, q_block=min(q_block, 1024),
         s_block=min(s_block, 1024, max(8, len(cand))),
         query_cache_bytes=min(query_cache_bytes, 2 << 30), device=device,
         timer=timer, **search)
@@ -1342,16 +1282,6 @@ def _rerank_candidates(embed_hi: Callable, queries, syn, cand: np.ndarray,
     cand_t = torch.as_tensor(np.asarray(cand), dtype=torch.int32,
                              device=i_sub.device)
     return d, cand_t[i_sub.long()]
-
-
-def _topk_search(embed_fn: Callable, queries, syn, *, engine: str,
-                 **kw) -> tuple:
-    """Pass 1's top-k search on one device: flat, or parts for the 'taps'
-    engines (int8 for 'taps-int8')."""
-    if engine in PARTS_ENGINES:
-        return knn_topk_streamed_parts(embed_fn, queries, syn,
-                                       quantize=engine == "taps-int8", **kw)
-    return knn_topk_streamed(embed_fn, queries, syn, engine=engine, **kw)
 
 
 def knn_argmin_two_pass(embed_lo: Callable, embed_hi: Callable, queries,
@@ -1386,7 +1316,8 @@ def knn_argmin_two_pass(embed_lo: Callable, embed_hi: Callable, queries,
     either search drops both, since the other one pins device memory the
     recovery needs. ``info`` receives each search's record (``pass1``,
     ``rerank``, ``fallback``) and their summed ``oom_resumes``. Its spans:
-    ``knn.plan`` (the probe and the int8 error bound), ``knn.topk`` (pass
+    ``knn.plan`` (pass 1's spec: the probe and the int8 error bound),
+    ``knn.topk`` (pass
     1), ``knn.rerank`` (the union and its search), ``knn.certificate`` and
     ``knn.fallback``.
 
@@ -1396,18 +1327,12 @@ def knn_argmin_two_pass(embed_lo: Callable, embed_hi: Callable, queries,
     sharded ones)."""
     device = torch.device(device)
     timer = timer or PhaseTimer(device)
-    topk_search = topk_search or functools.partial(_topk_search,
+    topk_search = topk_search or functools.partial(knn_topk_streamed,
                                                    device=device)
     argmin_search = argmin_search or functools.partial(knn_argmin_streamed,
                                                        device=device)
     with span("knn.plan"):
-        probe = _probe(embed_lo, queries, device)
-        abs_err = 0.0
-        if engine == "taps-int8":
-            abs_err = _quant_abs_err(
-                _part_bounds_for(embed_lo, queries, device),
-                [tuple(p.shape[1:]) for p in probe])
-    probe_dt = probe[0].dtype if engine in PARTS_ENGINES else probe.dtype
+        spec = search_spec(embed_lo, queries, engine, device, timer, k=k)
     infos = {"pass1": {}, "rerank": {}}
     with span("knn.topk"):
         topk_d, top_i, rq, rs_max = topk_search(
@@ -1420,28 +1345,28 @@ def knn_argmin_two_pass(embed_lo: Callable, embed_hi: Callable, queries,
         top = top_i.cpu().numpy()
         cand = np.unique(top[top >= 0])  # -1 marks a slot past N_s
         d, idx = _rerank_candidates(
-            embed_hi, queries, syn, cand, engine=engine, q_block=q_block,
+            embed_hi, queries, syn, cand, engine=spec.exact_engine,
+            q_block=q_block,
             s_block=s_block, query_cache_bytes=query_cache_bytes,
             device=device, timer=timer, auto_plan=auto_plan,
             query_reuse=rerank_reuse, reuse_siblings=(query_reuse,),
             info=infos["rerank"])
     # reduced precision anywhere in pass 1 selects the wide eta: a bf16
-    # (or float16) embedding, or int8 parts (whose tower runs bf16)
-    demoted = (torch.empty((), dtype=probe_dt).element_size() < 4
-               or engine == "taps-int8")
+    # (or float16) cache, or int8 parts (whose tower runs bf16)
+    demoted = torch.empty((), dtype=spec.cdtype).element_size() < 4
     eta = cert_eta if cert_eta is not None else _default_cert_eta(demoted)
     with span("knn.certificate"):
         cert = two_pass_certificate(d.cpu().numpy(), topk_d.cpu().numpy(),
                                     rq.cpu().numpy(),
-                                    float(rs_max.max().cpu()), eta, abs_err)
+                                    float(rs_max.max().cpu()), eta,
+                                    spec.abs_err)
     bad = np.nonzero(~cert)[0]
     if bad.size:
         print(f"[knn] two-pass certificate failed for {bad.size} "
               f"queries; exact-f32 fallback search")
         with span("knn.fallback"):
             d_fix, i_fix = argmin_search(
-                embed_hi, queries[bad], syn,
-                engine="exact" if engine == "exact" else "pallas",
+                embed_hi, queries[bad], syn, engine=spec.exact_engine,
                 q_block=min(q_block, 1024), s_block=min(s_block, 1024),
                 query_cache_bytes=min(query_cache_bytes, 2 << 30),
                 timer=timer, auto_plan=auto_plan,

@@ -34,9 +34,10 @@ collective (``_stream_search`` says where), and
   union re-ranked on every rank through K1 on float32, the certificate's
   fallback re-searched sharded through K1.
 
-Engines: 'gemm', 'exact', 'pallas', 'taps', 'taps-int8'. The JAX mesh
-searches map 'pallas' to 'gemm'; here 'pallas' keeps the port's fused
-kernels (K1, K3) on every rank (ROADMAP C).
+Engines: the single-device ones, each rank's search built by
+``ops/knn.search_spec``. The JAX mesh searches map 'pallas' to 'gemm';
+here 'pallas' keeps the port's fused kernels (K1, K3) on every rank
+(ROADMAP C).
 """
 
 from __future__ import annotations
@@ -47,21 +48,17 @@ from typing import Callable
 import numpy as np
 import torch
 
-from ganleaks_tpu_torch.ops.knn import (ENGINES, PARTS_ENGINES, PhaseTimer,
-                                        RankHooks, _as_device_block,
-                                        _fold_block, _stream_search,
-                                        argmin_parts_spec, argmin_spec,
+from ganleaks_tpu_torch.ops.knn import (PhaseTimer, RankHooks,
+                                        _as_device_block, _fold_block,
+                                        _stream_search, check_engine,
                                         knn_argmin_two_pass, pad_rows,
-                                        sq_norms, topk_parts_spec,
-                                        topk_spec)
+                                        search_spec, sq_norms)
 from ganleaks_tpu_torch.parallel.mesh import (Mesh, RingTransfer, RowGather,
                                               all_gather_rows, any_rank,
                                               gather_state,
                                               reduce_max_tensor,
                                               reduce_scalar, ring_shift,
                                               shard_rows)
-
-_ALL_ENGINES = ENGINES + PARTS_ENGINES
 
 
 def _pad_to(x, rows: int):
@@ -219,23 +216,21 @@ def _combine_topk(mesh: Mesh) -> Callable:
     return combine
 
 
-def _check_engine(engine: str) -> None:
-    if engine not in _ALL_ENGINES:
-        raise ValueError(f"unknown mesh kNN engine {engine!r}; expected "
-                         f"one of {_ALL_ENGINES}")
-
-
-def _sharded_search(spec_fn: Callable, combine: Callable, queries, syn,
-                    mesh: Mesh, *, q_block: int, s_block: int,
+def _sharded_search(embed_fn, combine: Callable, queries, syn, mesh: Mesh,
+                    *, engine: str, q_block: int, s_block: int,
                     query_cache_bytes: int, timer, auto_plan: bool,
-                    query_reuse, reuse_siblings, info) -> tuple:
-    """Run ``spec_fn(device, timer)``'s search with the synthetic set
-    sharded and the queries featurised a share per rank."""
+                    query_reuse, reuse_siblings, info, k: int | None = None,
+                    with_info: bool = False) -> tuple:
+    """Run the search of ``engine`` (``ops/knn.search_spec``; top-``k``
+    where ``k`` is given) with the synthetic set sharded and the queries
+    featurised a share per rank."""
+    check_engine(engine)
     n_s = len(syn)
     if n_s == 0:
         raise ValueError("empty synthetic set")
     timer = timer or PhaseTimer(mesh.device)
-    spec = spec_fn(mesh.device, timer)
+    spec = search_spec(embed_fn, queries, engine, mesh.device, timer, k=k,
+                       with_info=with_info)
     spec = spec._replace(signature=spec.signature
                          + ("mesh-sharded", mesh.size))
     start, stop, per = shard_rows(n_s, mesh, s_block)
@@ -269,16 +264,8 @@ def knn_argmin_sharded_streamed(embed_fn, queries, syn, mesh: Mesh, *,
     the parts featuriser (``ops/distance.make_embed_parts_fn``). The
     result is on every rank: the single-device search's indices, the
     first index winning ties across shards."""
-    _check_engine(engine)
-    if engine in PARTS_ENGINES:
-        def spec_fn(device, timer):
-            return argmin_parts_spec(embed_fn, queries,
-                                     engine == "taps-int8", device, timer)
-    else:
-        def spec_fn(device, timer):
-            return argmin_spec(embed_fn, queries, engine, device, timer)
     return _sharded_search(
-        spec_fn, _combine_argmin(mesh), queries, syn, mesh,
+        embed_fn, _combine_argmin(mesh), queries, syn, mesh, engine=engine,
         q_block=q_block, s_block=s_block,
         query_cache_bytes=query_cache_bytes, timer=timer,
         auto_plan=auto_plan, query_reuse=query_reuse,
@@ -300,18 +287,10 @@ def knn_topk_sharded_streamed(embed_fn, queries, syn, mesh: Mesh, *,
     :func:`knn_argmin_sharded_streamed`; the per-rank lists merge by the
     first-index-stable device-major concatenation. ``with_info`` appends
     ``(rq, rs_max)`` for the certificate."""
-    _check_engine(engine)
-    if engine in PARTS_ENGINES:
-        def spec_fn(device, timer):
-            return topk_parts_spec(embed_fn, queries, k, with_info,
-                                   engine == "taps-int8", device, timer)
-    else:
-        def spec_fn(device, timer):
-            return topk_spec(embed_fn, queries, engine, k, with_info,
-                             device, timer)
     return _sharded_search(
-        spec_fn, _combine_topk(mesh), queries, syn, mesh, q_block=q_block,
-        s_block=s_block, query_cache_bytes=query_cache_bytes, timer=timer,
+        embed_fn, _combine_topk(mesh), queries, syn, mesh, engine=engine,
+        k=k, with_info=with_info, q_block=q_block, s_block=s_block,
+        query_cache_bytes=query_cache_bytes, timer=timer,
         auto_plan=auto_plan, query_reuse=query_reuse,
         reuse_siblings=reuse_siblings, info=info)
 
@@ -354,7 +333,7 @@ def knn_argmin_ring_streamed(embed_fn, queries, syn, mesh: Mesh, *,
     blocks — flat in both set sizes. The result, gathered, is on every
     rank. ``query_reuse`` holds this rank's query-shard cache (its
     fingerprint tagged with the layout, the world and the rank)."""
-    _check_engine(engine)
+    check_engine(engine)
     n_q, n_s = len(queries), len(syn)
     if n_s == 0:
         raise ValueError("empty synthetic set")
@@ -365,11 +344,7 @@ def knn_argmin_ring_streamed(embed_fn, queries, syn, mesh: Mesh, *,
     # every rank holds q_per query rows: padding is tail-only, so the
     # gathered rows keep the global order and the first n_q are real
     q_loc = _pad_to(queries[q0:q1], q_per)
-    if engine in PARTS_ENGINES:
-        spec = argmin_parts_spec(embed_fn, q_loc, engine == "taps-int8",
-                                 device, timer)
-    else:
-        spec = argmin_spec(embed_fn, q_loc, engine, device, timer)
+    spec = search_spec(embed_fn, q_loc, engine, device, timer)
 
     fold, init_state = spec.fold, spec.init_state
 

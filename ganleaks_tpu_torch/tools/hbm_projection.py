@@ -5,11 +5,11 @@ and how many synthetic featurise sweeps will the streamed search make?
 
 Every number comes from the calls ``attack/fbb.attack_arrays`` makes to
 plan: the featuriser it builds (``build_embed_fn``; 'auto' resolved as on
-a card), the row width of its cache (``ops/knn.stream_row_bytes``), the
-one-sweep need that decides whether the image sets are copied to the
-card (``ops/knn.stream_need_bytes``, ``ops/stream_plan.sets_fit``), the
-planner's charges (``ops/knn._plan_charges``) and the schedule the
-streamed search starts from (``ops/knn.plan_search``, which runs
+a card), the row width of its cache and the planner's charges (the
+search's own spec, ``ops/knn.search_spec``), the one-sweep need that
+decides whether the image sets are copied to the card
+(``ops/knn.stream_need_bytes``, ``ops/stream_plan.sets_fit``) and the
+schedule the streamed search starts from (``ops/knn.plan_search``, which runs
 ``ops/stream_plan.plan_stream``). The budget is what
 ``stream_plan.device_capacity`` would read on a card with ``--mem_gb``
 GiB free before the attack (``stream_plan.capacity_of``, less the sets
@@ -31,14 +31,15 @@ import sys
 from dataclasses import replace
 
 import numpy as np
+import torch
 
 from ganleaks_tpu_torch.attack.fbb import (build_embed_fn,
                                            resolve_auto_engine)
 from ganleaks_tpu_torch.config import AttackConfig
 from ganleaks_tpu_torch.ops import stream_plan
-from ganleaks_tpu_torch.ops.knn import (PARTS_ENGINES, _plan_charges,
-                                        plan_search, stream_fold_kind,
-                                        stream_need_bytes, stream_row_bytes)
+from ganleaks_tpu_torch.ops.knn import (PARTS_ENGINES, PhaseTimer,
+                                        plan_search, search_spec,
+                                        stream_need_bytes)
 from ganleaks_tpu_torch.ops.stream_plan import GIB
 
 H100_MEM_GB = 80.0  # the H100 80GB HBM3's memory
@@ -67,7 +68,9 @@ def project(n_q: int, n_syn: int, resolution: int = 64,
     # zero pages: only the row the planner featurises is ever touched
     queries = np.zeros((n_q, resolution, resolution, 3),
                        np.uint8 if store == "uint8" else np.float32)
-    row = stream_row_bytes(embed, queries, engine=cfg.engine, device="cpu")
+    spec = search_spec(embed, queries, cfg.engine, "cpu",
+                       PhaseTimer(torch.device("cpu")))
+    row = spec.row_bytes
     sets = (n_q + n_syn) * resolution * resolution * 3 * STORE_BYTES[store]
     request = int(cfg.query_cache_gb * GIB)
     # attack_arrays._stage_sets: the sets go to the card where they fit
@@ -81,13 +84,12 @@ def project(n_q: int, n_syn: int, resolution: int = 64,
     if capacity_bytes is None:
         capacity_bytes = stream_plan.capacity_of(
             mem - (sets if on_device else 0))
-    charges = _plan_charges(embed, queries, stream_fold_kind(cfg.engine), 8)
     plan = plan_search(n_q, n_syn, row, q_block=cfg.query_block,
                        s_block=cfg.syn_block, cache_bytes=request,
-                       charges=charges, capacity=capacity_bytes)
+                       charges=spec.charges, capacity=capacity_bytes)
     held = stream_plan.plan_bytes(plan.cache_rows, row,
                                   s_block=plan.s_block,
-                                  q_block=plan.q_block, **charges)
+                                  q_block=plan.q_block, **spec.charges)
     return {"engine": cfg.engine, "dtype": cfg.dtype,
             "tower_dtype": cfg.lpips_compute_dtype or "float32",
             "row_bytes": row, "chunk_rows": plan.chunk_rows,

@@ -5,9 +5,9 @@ Times, at full width (VGG16 l2-lpips at ``--res`` px, K = 512,000 at
 64 px, seeded surrogate backbone with the real lin heads):
 
 * the featurise unit per block of ``--block`` images: the tower, the tap
-  epilogue (K2) and the row norms into one (N, K) buffer
-  (``ops/knn._fused_parts_norms``);
-* one ``block x block`` fold tile of ``--engine``:
+  epilogue (K2) and the row norms into one (N, K) buffer, as the search's
+  spec featurises a block (``ops/knn.search_spec``);
+* one ``block x block`` fold tile of ``--engine``, the spec's fold:
   'auto' (default) the attack's 'auto' on the card, taps-int8 parts on a
   bf16 tower folded as the search folds them (``knn_int8.argmin_fold``):
   by the int8 fold kernel (``ops/knn_int8.int8_argmin_fold``,
@@ -20,7 +20,7 @@ Times, at full width (VGG16 l2-lpips at ``--res`` px, K = 512,000 at
   tile;
 * the projected end-to-end time ``(n_q + n_syn) / images_per_s + n_q *
   n_syn / pairs_per_s`` beside one measured
-  ``knn_argmin_streamed_parts`` call of the same recipe (after a warm-up
+  ``knn_argmin_streamed`` call of the same recipe (after a warm-up
   call) and the gap;
 * under the profiler (``utils/profiling.profile_to``), one more call of
   the search: the top device kernels by total time with their launches,
@@ -57,11 +57,8 @@ from ganleaks_tpu_torch.attack.fbb import (build_embed_fn,
                                            resolve_auto_engine)
 from ganleaks_tpu_torch.config import AttackConfig
 from ganleaks_tpu_torch.device import card_line, resolve_device
-from ganleaks_tpu_torch.ops.knn import (_fold_fused, _fused_parts_norms,
-                                        _part_bounds_for, _probe,
-                                        _quant_factors,
-                                        knn_argmin_streamed_parts)
-from ganleaks_tpu_torch.ops.knn_int8 import argmin_fold
+from ganleaks_tpu_torch.ops.knn import (PhaseTimer, knn_argmin_streamed,
+                                        search_spec)
 from ganleaks_tpu_torch.ops.knn_fused import knn_argmin_fused
 from ganleaks_tpu_torch.ops.lpips.epilogue import tap_epilogue
 from ganleaks_tpu_torch.utils.profiling import (call_seconds,
@@ -117,38 +114,28 @@ def profile(n_q: int = 2000, n_syn: int = 20000, block: int = 2048,
         (emit or (lambda r: print(json.dumps(r), flush=True)))(rec)
 
     cfg = recipe(engine, res)
-    quantize = cfg.engine == "taps-int8"
     embed = build_embed_fn(cfg, device, structured=True)
     gen = torch.Generator(device=device).manual_seed(0)
     with torch.inference_mode():
         blk_q = _images(gen, block, res, device)
         blk_s = _images(gen, block, res, device)
-        bounds = _part_bounds_for(embed, blk_q, device) if quantize else None
-        cdtype = torch.int8 if quantize else _probe(embed, blk_q,
-                                                    device)[0].dtype
-        fused = _fused_parts_norms(embed, cdtype, bounds)
-        t_feat = call_seconds(lambda: fused(blk_q), device, REPS)
+        spec = search_spec(embed, blk_q, cfg.engine, device,
+                           PhaseTimer(device))
+        t_feat = call_seconds(lambda: spec.block_norms(blk_q, 0, block),
+                              device, REPS)
         img_rate = block / t_feat
         report("featurize", block=block, res=res, ms=t_feat * 1e3,
                images_per_sec=img_rate, tower_dtype=cfg.lpips_compute_dtype
-               or "float32", cache_dtype=str(cdtype).replace("torch.", ""))
+               or "float32",
+               cache_dtype=str(spec.cdtype).replace("torch.", ""))
 
-        q, rq, widths = fused(blk_q)
-        s, rs, _ = fused(blk_s)
-        state = (torch.full((block,), torch.inf, device=device),
-                 torch.zeros(block, dtype=torch.int32, device=device))
-        if quantize:
-            factors = _quant_factors(bounds)
-            fold_q = argmin_fold(widths, q.shape[1])
-
-            def fold():
-                return fold_q(*state, q, rq, s, rs, 0, block, widths,
-                              factors)
-        else:
-            def fold():
-                return _fold_fused(state, q, rq, s, rs, 0, block)
-        t_fold = call_seconds(fold, device, 2 * REPS)
-        k_dim = sum(widths)
+        q, rq, _ = spec.block_norms(blk_q, 0, block)
+        s, rs, _ = spec.block_norms(blk_s, 0, block)
+        state = spec.init_state(block)
+        t_fold = call_seconds(
+            lambda: spec.fold(state, q, rq, s, rs, 0, block), device,
+            2 * REPS)
+        k_dim = spec.k_dim
         pair_rate = block * block / t_fold
         report("fold", block=block, k=k_dim, ms=t_fold * 1e3,
                pairs_per_sec=pair_rate,
@@ -162,9 +149,9 @@ def profile(n_q: int = 2000, n_syn: int = 20000, block: int = 2048,
         info: dict = {}
 
         def search():
-            return knn_argmin_streamed_parts(
-                embed, queries, syn, q_block=block, s_block=block,
-                quantize=quantize, device=device, info=info)
+            return knn_argmin_streamed(
+                embed, queries, syn, engine=cfg.engine, q_block=block,
+                s_block=block, device=device, info=info)
 
         measured_s = call_seconds(search, device, reps=1)
         report("end_to_end", n_q=n_q, n_syn=n_syn,

@@ -38,12 +38,15 @@ from __future__ import annotations
 import argparse
 import json
 
+import numpy as np
 import torch
 
 from ganleaks_tpu_torch.config import AttackConfig
 from ganleaks_tpu_torch.device import card_line, resolve_device
-from ganleaks_tpu_torch.ops.knn import (_fold_block, _fold_fused,
-                                        fold_s_block, stream_fold_kind)
+from ganleaks_tpu_torch.ops.distance import make_embed_fn, make_embed_parts_fn
+from ganleaks_tpu_torch.ops.knn import (PARTS_ENGINES, PhaseTimer,
+                                        _fold_block, _fold_fused,
+                                        fold_s_block, search_spec)
 from ganleaks_tpu_torch.ops.knn_fused import sq_norms
 from ganleaks_tpu_torch.ops.knn_int8 import argmin_fold
 from ganleaks_tpu_torch.utils.profiling import call_seconds
@@ -76,6 +79,18 @@ def _fold_fn(engine: str, q, rq, s, rs, s_block: int, widths, factors):
                                factors)
         return state
     return sweep
+
+
+def _attack_block(engine: str, syn_block: int) -> int:
+    """The synthetic block the attack's 1-NN search on ``engine`` folds at
+    when asked for ``syn_block``: capped where its fold is fused
+    (``ops/knn.fold_s_block``), as the search's own spec says
+    (``ops/knn.search_spec``, built on one 8-px image through the pixel
+    featuriser)."""
+    maker = make_embed_parts_fn if engine in PARTS_ENGINES else make_embed_fn
+    spec = search_spec(maker("l2"), np.zeros((1, 8, 8, 3), np.float32),
+                       engine, "cpu", PhaseTimer(torch.device("cpu")))
+    return fold_s_block(syn_block, spec.charges["fused_fold"])
 
 
 def _embeddings(gen, n_q: int, n_s: int, k: int, dtype, device):
@@ -111,8 +126,7 @@ def sweep(n_q: int = 2000, s_rows: int = 8192, k: int = 512000,
         for engine, dtype in CONFIGS:
             q, rq, s, rs = _embeddings(gen, n_q, s_rows, k, dtype, device)
             # the block the attack's search folds at the default syn_block
-            default_block = fold_s_block(
-                cfg.syn_block, stream_fold_kind(engine) == "fused")
+            default_block = _attack_block(engine, cfg.syn_block)
             for s_block in BLOCKS:
                 fn = _fold_fn(engine, q, rq, s, rs, s_block, widths, factors)
                 t = call_seconds(fn, device, reps)

@@ -155,7 +155,7 @@ def test_streamed_timer_and_errors(rng):
     assert set(secs) == {"featurize", "fold"}
     assert all(v >= 0 for v in secs.values())
     with pytest.raises(ValueError, match="unknown kNN engine"):
-        tknn.knn_argmin_streamed(_identity, q, s, engine="taps",
+        tknn.knn_argmin_streamed(_identity, q, s, engine="bogus",
                                  device="cpu")
     with pytest.raises(ValueError, match="empty"):
         tknn.knn_argmin_streamed(_identity, q, s[:0], device="cpu")

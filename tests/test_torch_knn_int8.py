@@ -265,7 +265,7 @@ def test_fold_counters_in_attack_arrays(res, engine, want):
 
 
 def test_streamed_search_routes_and_counts(monkeypatch):
-    """``knn_argmin_streamed_parts(quantize=True)``: the spec folds every
+    """``knn_argmin_streamed(engine='taps-int8')``: the spec folds every
     block through ``int8_argmin_fold`` where the widths take its route
     and through the per-part chain otherwise, and ``info`` counts both."""
     from ganleaks_tpu_torch.attack.fbb import build_embed_fn
@@ -283,8 +283,8 @@ def test_streamed_search_routes_and_counts(monkeypatch):
         cfg = AttackConfig(distance="l2", resolution=res, engine="taps-int8")
         embed = build_embed_fn(cfg, "cpu", structured=True)
         info: dict = {}
-        knn.knn_argmin_streamed_parts(embed, pos, syn, quantize=True,
-                                      q_block=4, s_block=8, info=info)
+        knn.knn_argmin_streamed(embed, pos, syn, engine="taps-int8",
+                                q_block=4, s_block=8, info=info)
         assert (info["int8_fold_kernel_blocks"],
                 info["int8_fold_parts_blocks"]) == ((3, 0) if kernel
                                                     else (0, 3))
@@ -304,8 +304,8 @@ def test_topk_int8_fold_keeps_the_chain(monkeypatch):
     cfg = AttackConfig(distance="l2", resolution=8, engine="taps-int8")
     embed = build_embed_fn(cfg, "cpu", structured=True)
     info: dict = {}
-    d, i = knn.knn_topk_streamed_parts(embed, pos, syn, k=3, quantize=True,
-                                       q_block=4, s_block=8, info=info)
+    d, i = knn.knn_topk_streamed(embed, pos, syn, k=3, engine="taps-int8",
+                                 q_block=4, s_block=8, info=info)
     assert d.shape == (len(pos), 3)
     assert (info["int8_fold_kernel_blocks"],
             info["int8_fold_parts_blocks"]) == (0, 0)

@@ -1,8 +1,8 @@
 """The tap-structured parts of the port against the JAX package on the CPU:
 ``lpips_embed_parts`` (JAX output unpacked from its lane packing),
 ``quantize_int8``, the static part bounds and the int32 guard, and the
-parts searches ``knn_argmin_streamed_parts`` / ``knn_topk_streamed_parts``
-in float32, bfloat16 and int8.
+parts searches (``knn_argmin_streamed`` / ``knn_topk_streamed`` on
+'taps' and 'taps-int8') in float32, bfloat16 and int8.
 
 Tolerances, with their reasons:
 * LPIPS parts: rtol 1e-5 / atol 1e-6, the float32 towers' own difference
@@ -148,8 +148,8 @@ def test_part_bounds_for_raises_where_jax_raises(shared, res, raises):
     with pytest.raises(ValueError, match="part_bound_fn"):
         tknn._part_bounds_for(bare, q)
     with pytest.raises(ValueError, match="part_bound_fn"):
-        tknn.knn_argmin_streamed_parts(bare, q, q, quantize=True,
-                                       device="cpu")
+        tknn.knn_argmin_streamed(bare, q, q, engine="taps-int8",
+                                 device="cpu")
 
 
 def test_generic_dot_bound_probes_the_parts():
@@ -165,36 +165,40 @@ def test_generic_dot_bound_probes_the_parts():
         tknn._part_bounds_for(two_parts, huge)
 
 
-@pytest.mark.parametrize("quantize", [False, True])
+@pytest.mark.parametrize("engine", ["taps", "taps-int8"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_streamed_parts_pixel_match_jax(rng, quantize, dtype):
+def test_streamed_parts_pixel_match_jax(rng, engine, dtype):
     """l2 parts: identical embeddings on both sides, so indices are
     identical and distances agree to float32 rounding."""
     q, s = _planted(rng, 9, 37, 8)
-    kw = dict(q_block=4, s_block=8, quantize=quantize)
+    kw = dict(q_block=4, s_block=8)
     d_j, i_j = jknn.knn_argmin_streamed_parts(
         j_parts_fn("l2", dtype=J_DT[dtype]), jnp.asarray(q), jnp.asarray(s),
-        **kw)
-    d_t, i_t = tknn.knn_argmin_streamed_parts(
-        make_embed_parts_fn("l2", dtype=dtype), q, s, device="cpu", **kw)
+        quantize=engine == "taps-int8", **kw)
+    d_t, i_t = tknn.knn_argmin_streamed(
+        make_embed_parts_fn("l2", dtype=dtype), q, s, engine=engine,
+        device="cpu", **kw)
     np.testing.assert_array_equal(i_t.numpy(), np.asarray(i_j))
     np.testing.assert_allclose(d_t.numpy(), np.asarray(d_j), rtol=RTOL,
                                atol=ATOL)
     np.testing.assert_array_equal(i_t[:4].numpy(), np.arange(3, 7))
 
 
-@pytest.mark.parametrize("quantize", [False, True])
-def test_streamed_parts_lpips_match_jax(shared, rng, quantize):
+@pytest.mark.parametrize("engine", ["taps", "taps-int8"])
+def test_streamed_parts_lpips_match_jax(shared, rng, engine):
     """l2-lpips parts in bfloat16 (or int8 from bfloat16) on float32
     towers, query cache in two chunks."""
     port, jax_ = _lpips_embeds(shared, torch.bfloat16)
     q, s = _planted(rng, 6, 20, 32)
-    kw = dict(q_block=2, s_block=8, quantize=quantize)
+    quantize = engine == "taps-int8"
+    kw = dict(q_block=2, s_block=8)
     cache = 4 * 125 * 32 * 32 * (1 if quantize else 2)  # 4 rows per chunk
     d_j, i_j = jknn.knn_argmin_streamed_parts(
-        jax_, jnp.asarray(q), jnp.asarray(s), query_cache_bytes=cache, **kw)
-    d_t, i_t = tknn.knn_argmin_streamed_parts(
-        port, q, s, query_cache_bytes=cache, device="cpu", **kw)
+        jax_, jnp.asarray(q), jnp.asarray(s), query_cache_bytes=cache,
+        quantize=quantize, **kw)
+    d_t, i_t = tknn.knn_argmin_streamed(
+        port, q, s, query_cache_bytes=cache, engine=engine, device="cpu",
+        **kw)
     np.testing.assert_array_equal(i_t.numpy(), np.asarray(i_j))
     np.testing.assert_array_equal(i_t[:3].numpy(), np.arange(3, 6))
     with torch.no_grad():
@@ -208,14 +212,15 @@ def test_streamed_parts_lpips_match_jax(shared, rng, quantize):
     assert np.all(err <= 2e-5 * scale), float((err / scale).max())
 
 
-@pytest.mark.parametrize("quantize", [False, True])
-def test_topk_streamed_parts_match_jax(rng, quantize):
+@pytest.mark.parametrize("engine", ["taps", "taps-int8"])
+def test_topk_streamed_parts_match_jax(rng, engine):
     q, s = _planted(rng, 9, 37, 8)
-    kw = dict(k=3, q_block=4, s_block=8, quantize=quantize, with_info=True)
+    kw = dict(k=3, q_block=4, s_block=8, with_info=True)
     d_j, i_j, rq_j, rs_j = jknn.knn_topk_streamed_parts(
-        j_parts_fn("l2"), jnp.asarray(q), jnp.asarray(s), **kw)
-    d_t, i_t, rq_t, rs_t = tknn.knn_topk_streamed_parts(
-        make_embed_parts_fn("l2"), q, s, device="cpu", **kw)
+        j_parts_fn("l2"), jnp.asarray(q), jnp.asarray(s),
+        quantize=engine == "taps-int8", **kw)
+    d_t, i_t, rq_t, rs_t = tknn.knn_topk_streamed(
+        make_embed_parts_fn("l2"), q, s, engine=engine, device="cpu", **kw)
     np.testing.assert_array_equal(i_t.numpy(), np.asarray(i_j))
     np.testing.assert_allclose(d_t.numpy(), np.asarray(d_j), rtol=RTOL,
                                atol=ATOL)

@@ -99,12 +99,9 @@ def jmesh():
 
 
 def _single(engine, q, s, q_block=4, s_block=4):
-    if engine in ("taps", "taps-int8"):
-        return tknn.knn_argmin_streamed_parts(
-            workers.embed_for(engine), q, s, quantize=engine == "taps-int8",
-            q_block=q_block, s_block=s_block)
-    return tknn.knn_argmin_streamed(make_embed_fn("l2"), q, s, engine=engine,
-                                    q_block=q_block, s_block=s_block)
+    return tknn.knn_argmin_streamed(workers.embed_for(engine), q, s,
+                                    engine=engine, q_block=q_block,
+                                    s_block=s_block)
 
 
 def _per_shard(engine, q, s, size, q_block=4, s_block=4):

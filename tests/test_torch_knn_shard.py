@@ -95,12 +95,8 @@ def jmesh():
 
 
 def _single(engine, q, s, **kw):
-    if engine in ("taps", "taps-int8"):
-        return tknn.knn_argmin_streamed_parts(
-            workers.embed_for(engine), q, s, quantize=engine == "taps-int8",
-            q_block=4, s_block=4, **kw)
-    return tknn.knn_argmin_streamed(make_embed_fn("l2"), q, s, engine=engine,
-                                    q_block=4, s_block=4, **kw)
+    return tknn.knn_argmin_streamed(workers.embed_for(engine), q, s,
+                                    engine=engine, q_block=4, s_block=4, **kw)
 
 
 _JAX = {}
@@ -139,14 +135,9 @@ def test_sharded_multi_chunk_ties_take_the_first_index(ranks):
 @pytest.mark.parametrize("engine", ("gemm", "pallas", "taps"))
 def test_sharded_topk_equals_single_and_jax(ranks, jmesh, engine):
     td, ti, rq, rs_max = ranks[f"topk_{engine}"]
-    if engine == "taps":
-        ref = tknn.knn_topk_streamed_parts(
-            workers.embed_for(engine), DATA["q"], DATA["s"], k=5, q_block=4,
-            s_block=4, with_info=True)
-    else:
-        ref = tknn.knn_topk_streamed(
-            make_embed_fn("l2"), DATA["q"], DATA["s"], k=5, engine=engine,
-            q_block=4, s_block=4, with_info=True)
+    ref = tknn.knn_topk_streamed(
+        workers.embed_for(engine), DATA["q"], DATA["s"], k=5, engine=engine,
+        q_block=4, s_block=4, with_info=True)
     np.testing.assert_array_equal(ti, ref[1].numpy())
     np.testing.assert_array_equal(td, ref[0].numpy())
     np.testing.assert_array_equal(rq, ref[2].numpy())

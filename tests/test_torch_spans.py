@@ -169,9 +169,9 @@ def test_phase_timer_keys_unchanged(traced):
     timer = knn.PhaseTimer(torch.device("cpu"))
 
     def search():
-        return knn.knn_argmin_streamed_parts(
-            embed, np.concatenate([pos, neg]), syn, q_block=4, s_block=8,
-            quantize=True, timer=timer)
+        return knn.knn_argmin_streamed(
+            embed, np.concatenate([pos, neg]), syn, engine="taps-int8",
+            q_block=4, s_block=8, timer=timer)
 
     if traced:
         _, events = _profiled(search)

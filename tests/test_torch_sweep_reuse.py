@@ -105,19 +105,19 @@ def test_reuse_parts_engine(allocs):
     embed = make_embed_parts_fn("l2")
     jd, ji = jknn.knn_argmin_streamed_parts(j_make_embed_parts_fn("l2"),
                                             q4, s4, q_block=8, s_block=16)
-    for quantize in (False, True):
-        ref = knn.knn_argmin_streamed_parts(embed, q4, s4, q_block=8,
-                                            s_block=16, quantize=quantize)
+    for engine in ("taps", "taps-int8"):
+        ref = knn.knn_argmin_streamed(embed, q4, s4, engine=engine,
+                                      q_block=8, s_block=16)
         holder: dict = {}
-        knn.knn_argmin_streamed_parts(embed, q4, s4, q_block=8, s_block=16,
-                                      quantize=quantize, query_reuse=holder)
+        knn.knn_argmin_streamed(embed, q4, s4, engine=engine, q_block=8,
+                                s_block=16, query_reuse=holder)
         n = allocs["n"]
-        again = knn.knn_argmin_streamed_parts(
-            embed, q4, s4, q_block=8, s_block=16, quantize=quantize,
-            query_reuse=holder)
+        again = knn.knn_argmin_streamed(embed, q4, s4, engine=engine,
+                                        q_block=8, s_block=16,
+                                        query_reuse=holder)
         assert allocs["n"] == n, "the held parts cache is reused"
         _eq(ref, again)
-        if not quantize:
+        if engine == "taps":
             np.testing.assert_array_equal(again[1].numpy(), np.asarray(ji))
             np.testing.assert_allclose(again[0].numpy(), np.asarray(jd),
                                        rtol=1e-5, atol=1e-5)
