@@ -45,6 +45,16 @@ Phases, each printing JSON lines:
    40, 96 and 1056, one image, an NCHW-contiguous tap, an out slice at an
    unaligned column): parts bit for bit, row norms within rtol 1e-6 and
    identical over two launches;
+4b. tower_epilogue: the tower's pass after each convolution
+   (``csrc/bias_relu_pool.cu``: bias, ReLU and the 2x2 max pool in one
+   pass) against its plain version, PyTorch's ops on the card, bit for bit
+   (NaN, signed zeros and exact cancellations among the inputs): each of
+   VGG16's 13 convolution outputs of a 1,024-image bf16 block, pooled and
+   not; conv2_2 in float32; odd, one-pixel and 16-channel shapes in both
+   types; then each tower's taps, bf16 and float32, on the kernel's route
+   against the PyTorch route; then each bf16 layer timed as the tower
+   runs it (pooled where it pools) beside its byte bound and the plain
+   version, summed over the block and scaled to a 100,000-image call;
 5. attack: the full-width fbb l2-lpips attack (VGG16 at 64x64x3,
    K = 512,000, seeded surrogate backbone with the real lin heads) through
    ``run_attack`` and ``evaluate`` on 1,024 members, 1,024 non-members and
@@ -640,9 +650,10 @@ def reset_launches() -> None:
     from ganleaks_tpu_torch.ops.knn_fused import (knn_argmin_fused,
                                                   knn_topk_fused)
     from ganleaks_tpu_torch.ops.knn_int8 import int8_argmin_fold
+    from ganleaks_tpu_torch.ops.lpips.bias_relu import bias_relu_pool
     from ganleaks_tpu_torch.ops.lpips.epilogue import tap_epilogue
     for fn in (knn_argmin_fused, knn_topk_fused, tap_epilogue,
-               int8_argmin_fold):
+               int8_argmin_fold, bias_relu_pool):
         fn.launches = 0
     for fn in (knn_argmin_fused, knn_topk_fused):
         fn.launches_by_route = dict.fromkeys(fn.launches_by_route, 0)
@@ -651,10 +662,12 @@ def reset_launches() -> None:
 def read_launches() -> dict:
     """Launches per kernel, K1 and K3 per tile: 'knn_argmin.tf32x3'
     (float32) and 'knn_argmin.wgmma' (bfloat16), likewise 'knn_topk.*';
-    K2 ('tap_epilogue') and the int8 fold ('knn_int8_fold')."""
+    K2 ('tap_epilogue'), the int8 fold ('knn_int8_fold') and the tower's
+    pass after each convolution ('bias_relu_pool')."""
     from ganleaks_tpu_torch.ops.knn_fused import (knn_argmin_fused,
                                                   knn_topk_fused)
     from ganleaks_tpu_torch.ops.knn_int8 import int8_argmin_fold
+    from ganleaks_tpu_torch.ops.lpips.bias_relu import bias_relu_pool
     from ganleaks_tpu_torch.ops.lpips.epilogue import tap_epilogue
     out = {}
     for name, fn in (("knn_argmin", knn_argmin_fused),
@@ -666,6 +679,7 @@ def read_launches() -> dict:
                     for r, n in fn.launches_by_route.items()})
     out["tap_epilogue"] = tap_epilogue.launches
     out["knn_int8_fold"] = int8_argmin_fold.launches
+    out["bias_relu_pool"] = bias_relu_pool.launches
     return out
 
 
@@ -1117,6 +1131,177 @@ def epilogue_edge_case(torch, mode, name, n, h, w, c, layout, col) -> float:
 
 
 # ---------------------------------------------------------------------------
+# phase 4b: the tower's pass after each convolution
+# ---------------------------------------------------------------------------
+
+TOWER_BLOCK = 1024  # images a featurised block of the main path
+CALL_IMAGES = 100000  # images a call of the benchmark's cell featurises
+# (N, C, H, W) off the main path's shapes: odd rows and columns, a
+# one-pixel row, a one-pixel image, 16 channels
+TOWER_PASS_EDGES = ((3, 64, 7, 9), (2, 192, 13, 1), (1, 512, 1, 1),
+                    (5, 16, 33, 2))
+
+
+def vgg_conv_outputs() -> list[tuple[int, int, int, bool]]:
+    """(C, H, W, pooled) of VGG16's 13 convolution outputs at ``RES`` px;
+    pooled where the tower's pass takes the pool."""
+    from ganleaks_tpu_torch.ops.lpips.backbones import Tower
+    tower = Tower("vgg")
+    size, out = RES, []
+    for i, el in enumerate(tower.elems):
+        if el[0] == "conv":  # 3x3, stride 1, padding 1: the same size
+            out.append((el[1], size, size, i in tower.pool_after))
+        elif el[0] == "maxpool":
+            size //= 2
+    return out
+
+
+def conv_output(torch, n, c, h, w, dtype, gen):
+    """A channels-last (N, C, H, W) tensor on the card, normal values with
+    NaN, -0 and +0 among them and pixels the bias cancels exactly, and a
+    bias with signed zeros."""
+    b = torch.randn(c, generator=gen, device=DEVICE).to(dtype)
+    b[::5] = -0.0
+    b[1::5] = 0.0
+    x = torch.randn((n, h, w, c), generator=gen, device=DEVICE).to(dtype)
+    x[:, ::3, ::2] = -b
+    flat = x.view(-1)
+    flat[::1013] = float("nan")
+    flat[1::1011] = -0.0
+    flat[2::1007] = 0.0
+    return x.permute(0, 3, 1, 2), b
+
+
+def bit_mismatches(torch, got, want) -> int:
+    """Elements of two (N, C, H, W) tensors whose bits differ."""
+    def bits(t):
+        t = t.permute(0, 2, 3, 1).contiguous()
+        return t.view(torch.int16 if t.dtype == torch.bfloat16
+                      else torch.int32)
+    check(got.shape == want.shape, f"shape {tuple(got.shape)}, want "
+                                   f"{tuple(want.shape)}")
+    return int((bits(got) != bits(want)).sum())
+
+
+def tower_pass_case(torch, shape, dtype, pool: bool, gen) -> int:
+    """The kernel against its plain version (PyTorch's ops on the card) on
+    one conv output of ``shape``: y and the pool, bit for bit; returns the
+    mismatches."""
+    from ganleaks_tpu_torch.ops.lpips.bias_relu import (
+        bias_relu_pool, bias_relu_pool_plain)
+    x, b = conv_output(torch, *shape, dtype, gen)
+    want_y, want_p = bias_relu_pool_plain(x, b, pool)
+    before = bias_relu_pool.launches
+    y, p = bias_relu_pool(x, b, pool)
+    check(bias_relu_pool.launches == before + 1 and y.data_ptr()
+          == x.data_ptr(), f"bias_relu_pool {shape}: not one launch in place")
+    mism = bit_mismatches(torch, y, want_y)
+    if pool:
+        mism += bit_mismatches(torch, p, want_p)
+    return mism
+
+
+def tower_routes(torch, net: str, dtype) -> int:
+    """``net``'s whole tower on 256 images on the card: its taps on the
+    kernel's route (inference mode) against the PyTorch route (autograd
+    recording the weights: the bias inside the convolution, ``F.relu``,
+    ``F.max_pool2d``), bit for bit; returns the mismatches."""
+    from ganleaks_tpu_torch.ops.lpips import default_lpips_params
+    from ganleaks_tpu_torch.ops.lpips.bias_relu import (TOWER_COUNTERS,
+                                                       tower_counts)
+    model = default_lpips_params(net).to(DEVICE).eval().requires_grad_(True)
+    x = torch.from_numpy(make_images(np.random.default_rng(SEED + 9), 256,
+                                     RES)).to(DEVICE)
+    kernel, plain = TOWER_COUNTERS
+    c0 = dict(tower_counts)
+    with torch.inference_mode():
+        fast = model.features(x, dtype)
+    c1 = dict(tower_counts)
+    slow = [t.detach() for t in model.features(x, dtype)]
+    check(c1[kernel] > c0[kernel] and c1[plain] == c0[plain]
+          and tower_counts[kernel] == c1[kernel]
+          and tower_counts[plain] - c1[plain] == c1[kernel] - c0[kernel],
+          f"tower {net}: routes {c0} -> {c1} -> {dict(tower_counts)}: "
+          f"not every convolution on the kernel's route, then on "
+          f"PyTorch's")
+    return sum(bit_mismatches(torch, f.permute(0, 3, 1, 2),
+                              p.permute(0, 3, 1, 2))
+               for f, p in zip(fast, slow))
+
+
+def phase_tower_epilogue(torch) -> dict:
+    """Phase 4b: the tower's pass (``csrc/bias_relu_pool.cu``) against its
+    plain version, bit for bit: every VGG16 convolution output of one
+    1,024-image bf16 block, pooled and not; one layer in float32; edge
+    shapes in both; each tower's taps on both routes. Then each bf16
+    layer timed with the tower's pools beside its byte bound and the
+    plain chain (its plain version: ``F.relu(x + b)``, ``F.max_pool2d``).
+    Returns the kernels line's timing."""
+    from ganleaks_tpu_torch.ops.lpips.bias_relu import (
+        bias_relu_pool, bias_relu_pool_plain)
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 8)
+    layers = vgg_conv_outputs()
+    mism = {}
+    with torch.inference_mode():
+        for i, (c, h, w, _) in enumerate(layers):
+            for pool in (False, True):
+                mism[f"bf16.conv{i}.pool{int(pool)}"] = tower_pass_case(
+                    torch, (TOWER_BLOCK, c, h, w), torch.bfloat16, pool, gen)
+        c, h, w, _ = layers[3]  # conv2_2
+        for pool in (False, True):
+            mism[f"float32.conv3.pool{int(pool)}"] = tower_pass_case(
+                torch, (TOWER_BLOCK, c, h, w), torch.float32, pool, gen)
+        for shape in TOWER_PASS_EDGES:
+            for dtype in (torch.bfloat16, torch.float32):
+                # a 2x2 pool needs two rows and two columns
+                for pool in (False, True)[:1 + (min(shape[2:]) >= 2)]:
+                    mism[f"{dtype_name(dtype)}.{list(shape)}.pool"
+                         f"{int(pool)}"] = tower_pass_case(
+                             torch, shape, dtype, pool, gen)
+    for net in LPIPS_NETS:
+        for dtype in (torch.bfloat16, torch.float32):
+            mism[f"tower.{net}.{dtype_name(dtype)}"] = tower_routes(
+                torch, net, dtype)
+    bad = {k: v for k, v in mism.items() if v}
+    emit({"phase": "tower_epilogue", "cases": len(mism),
+          "mismatches": sum(mism.values()), "cases_with_mismatches": bad})
+    check(not bad, f"tower_epilogue: bits differ from the plain version "
+                   f"in {bad}")
+
+    rows = []
+    with torch.inference_mode():
+        for i, (c, h, w, pool) in enumerate(layers):
+            x, b = conv_output(torch, TOWER_BLOCK, c, h, w, torch.bfloat16,
+                               gen)
+            t = time_ms(torch, lambda: bias_relu_pool(x, b, pool), reps=10)
+            td = device_ms(torch, lambda: bias_relu_pool(x, b, pool))
+            tp = time_ms(torch, lambda: bias_relu_pool_plain(x, b, pool))
+            nbytes = x.numel() * x.element_size() * (2.25 if pool else 2)
+            row = {"layer": i, "shape": [TOWER_BLOCK, c, h, w],
+                   "pool": pool, "ms": t, "device_ms": td, "plain_ms": tp,
+                   "gb": nbytes / 1e9, **bound(0.0, 1.0, nbytes)}
+            row["bound_share"] = row["bound_ms"] / t
+            rows.append(row)
+            emit({"phase": "timing", "kernel": "bias_relu_pool", **row})
+            del x, b
+    per_call = CALL_IMAGES / TOWER_BLOCK
+    res = {"kernel": "bias_relu_pool", "n_images": TOWER_BLOCK,
+           "ms": sum(r["ms"] for r in rows),
+           "device_ms": sum(r["device_ms"] for r in rows),
+           "plain_ms": sum(r["plain_ms"] for r in rows),
+           "bound_ms": sum(r["bound_ms"] for r in rows), "bound_by": "bytes",
+           "library_ms": None, "max_abs_err": 0.0,
+           "gb": sum(r["gb"] for r in rows)}
+    res["bound_share"] = res["bound_ms"] / res["ms"]
+    res["device_bound_share"] = res["bound_ms"] / res["device_ms"]
+    res["per_call_s"] = {k: res[k] * per_call / 1e3
+                         for k in ("ms", "device_ms", "plain_ms",
+                                   "bound_ms")}
+    emit({"phase": "timing", "summed_over_layers": True, **res})
+    return res
+
+
+# ---------------------------------------------------------------------------
 # phase 5: the attack at full width
 # ---------------------------------------------------------------------------
 
@@ -1170,15 +1355,16 @@ TOWER_RUNS = [
 # tile — '.tf32x3' on float32, '.wgmma' on bf16 —, K2 (tap_epilogue) and
 # the int8 fold (knn_int8_fold: one-pass int8 parts); pass 1 of two-pass
 # runs K3 on bf16 embeddings, the float32 re-rank and fallbacks run K1 on
-# the 3xTF32 tile
-WANT_LAUNCHES = {
+# the 3xTF32 tile; every run's tower, float32 or bf16, runs the pass
+# after each convolution (bias_relu_pool)
+WANT_LAUNCHES = {label: ("bias_relu_pool", *names) for label, names in {
     "pallas": ("knn_argmin.tf32x3",), "gemm": (),
     "pallas_two_pass": ("knn_topk.wgmma", "knn_argmin.tf32x3"),
     "taps": ("tap_epilogue", "knn_argmin.tf32x3"),
     "taps_bf16": ("tap_epilogue", "knn_argmin.wgmma"),
     "taps_int8": ("tap_epilogue", "knn_int8_fold"),
     "taps_int8_two_pass": ("tap_epilogue", "knn_argmin.tf32x3"),
-    "auto": ("tap_epilogue", "knn_int8_fold")}
+    "auto": ("tap_epilogue", "knn_int8_fold")}.items()}
 
 
 def cert_error_bound(torch, cfg, rq, rs, quantized: bool):
@@ -1378,10 +1564,11 @@ def phase_attack_towers(torch, data: dict) -> dict:
 def topk_search(torch, embed, queries, syn, p) -> dict:
     """The float32 top-k search through the port's entry point
     (``knn_topk_streamed``, engine 'pallas', which folds every block with
-    K3 on the 3xTF32 tile) on the attack's arrays: each query's list
-    ascending, its first entry the 'pallas' run's nearest row (or a
-    near-tie of it) at that row's float64 distance within TOL. Returns the
-    launches of the search."""
+    K3 on the 3xTF32 tile; the float32 tower through the pass after each
+    convolution) on the attack's arrays: each query's list ascending, its
+    first entry the 'pallas' run's nearest row (or a near-tie of it) at
+    that row's float64 distance within TOL. Returns the launches of the
+    search."""
     from ganleaks_tpu_torch.ops.knn import knn_topk_streamed
     reset_launches()
     t0 = time.perf_counter()
@@ -1390,7 +1577,8 @@ def topk_search(torch, embed, queries, syn, p) -> dict:
     d, i = d.cpu().numpy().astype(np.float64), i.cpu().numpy()
     secs = time.perf_counter() - t0
     launches = read_launches()
-    want = {name: int(name == "knn_topk.tf32x3") for name in launches}
+    want = {name: int(name in ("knn_topk.tf32x3", "bias_relu_pool"))
+            for name in launches}
     for name, n in launches.items():
         check((n > 0) == bool(want[name]),
               f"topk_f32: {name} launched {n} times")
@@ -2208,8 +2396,9 @@ def north_star_run(torch, data: dict, label: str, cfg, want: dict,
     """``attack_arrays`` once on the north-star sets (with
     ``sweep_cache``, as ``run_attack`` passes it to each subdir of a
     hyperparameter search); checks the kernels of ``want`` (name -> exact
-    launches, or True for some) launched and no other, and prints the
-    run's seconds, rate, memory, plan and launches."""
+    launches, or True for some) launched and no other, and the tower's
+    counters (``tower_convs_checked``), and prints the run's seconds,
+    rate, memory, plan, launches and counters."""
     from ganleaks_tpu_torch.attack.fbb import attack_arrays
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -2223,6 +2412,8 @@ def north_star_run(torch, data: dict, label: str, cfg, want: dict,
         w = want.get(name, 0)
         check(n > 0 if w is True else n == w,
               f"north star {label}: {name} launched {n} times, want {w}")
+    tower_convs_checked(f"north star {label}", out["counters"],
+                        want["tap_epilogue"], launches["bias_relu_pool"])
     idx = np.concatenate([out["pos_nn_idx"], out["neg_nn_idx"]])
     loss = np.concatenate([out["pos_loss"], out["neg_loss"]])
     check(loss.shape == (2 * NS_POS,) and bool(np.isfinite(loss).all()),
@@ -2246,8 +2437,28 @@ def north_star_run(torch, data: dict, label: str, cfg, want: dict,
                    "s_block": plan["s_block"], "q_block": plan["q_block"],
                    "sweeps": plan["sweeps"],
                    "query_reused": plan["query_reused"]},
-          "oom_resumes": out["oom_resumes"], "kernel_launches": launches})
+          "oom_resumes": out["oom_resumes"], "kernel_launches": launches,
+          "counters": out["counters"]})
     return r
+
+
+def tower_convs_checked(label: str, counters: dict, k2, launches: int
+                        ) -> None:
+    """VGG16's tower on the card: none of its convolutions through the
+    PyTorch ops, each of the 13 a featurised block through the kernel's
+    pass (``k2``: K2's launches, one a tap a block; True where the count
+    is not planned), each pass one launch (the searches' probes add whole
+    forwards)."""
+    kernel = counters["tower_epilogue_kernel_convs"]
+    check(counters["tower_epilogue_plain_convs"] == 0,
+          f"{label}: {counters['tower_epilogue_plain_convs']} convolutions "
+          f"through the PyTorch ops")
+    check(kernel > 0 and (k2 is True or kernel == VGG_CONVS * k2 // TAPS),
+          f"{label}: {kernel} convolutions through the kernel's pass, K2 "
+          f"launched {k2}")
+    check(launches >= kernel and launches % VGG_CONVS == 0,
+          f"{label}: bias_relu_pool launched {launches} times for "
+          f"{kernel} convolutions")
 
 
 def f64_embeddings(torch, embed, images: np.ndarray, chunk: int = 256):
@@ -2361,7 +2572,8 @@ def phase_north_star(torch) -> dict:
     a = runs["auto"] = north_star_run(
         torch, data, "auto", replace(base, engine="auto"),
         {"tap_epilogue": taps * (q_blocks + s_blocks),
-         "knn_int8_fold": s_blocks}, sweep_cache=sweep)
+         "knn_int8_fold": s_blocks, "bias_relu_pool": True},
+        sweep_cache=sweep)
     check(a["out"]["plan"]["sweeps"] == 1 and a["out"]["oom_resumes"] == 0,
           f"north star auto: plan {a['out']['plan']}, not one sweep")
     # the next subdir of a hyperparameter search: the held query cache is
@@ -2369,7 +2581,8 @@ def phase_north_star(torch) -> dict:
     r = north_star_run(torch, data, "auto_reused",
                        replace(base, engine="auto"),
                        {"tap_epilogue": taps * s_blocks,
-                        "knn_int8_fold": s_blocks}, sweep_cache=sweep)
+                        "knn_int8_fold": s_blocks, "bias_relu_pool": True},
+                       sweep_cache=sweep)
     check(r["out"]["plan"]["query_reused"]
           and r["out"]["plan"]["sweeps"] == 1,
           f"north star auto_reused: plan {r['out']['plan']}")
@@ -2383,7 +2596,7 @@ def phase_north_star(torch) -> dict:
         torch, data, "taps_bf16",
         replace(base, engine="taps", query_block=blk, syn_block=blk, **BF16),
         {"tap_epilogue": taps * (-(-n_q // blk) + -(-NS_SYN // blk)),
-         "knn_argmin.wgmma": True})
+         "knn_argmin.wgmma": True, "bias_relu_pool": True})
     check(b["out"]["plan"]["sweeps"] == 1,
           f"north star taps_bf16: plan {b['out']['plan']}, not one sweep")
     # the same blocks without the planner: the 8 GiB cache takes two
@@ -2391,7 +2604,8 @@ def phase_north_star(torch) -> dict:
     c = north_star_run(torch, data, "auto_no_plan",
                        replace(base, engine="auto", auto_plan=False),
                        {"tap_epilogue": taps * (q_blocks + 2 * s_blocks),
-                        "knn_int8_fold": 2 * s_blocks})
+                        "knn_int8_fold": 2 * s_blocks,
+                        "bias_relu_pool": True})
     check(c["out"]["plan"]["sweeps"] == 2, f"north star auto_no_plan: plan "
                                            f"{c['out']['plan']}")
     check(bool((c["idx"] == a["idx"]).all() and (c["loss"] == a["loss"])
@@ -2408,7 +2622,8 @@ def phase_north_star(torch) -> dict:
     try:
         d = north_star_run(torch, data, "auto_forced_oom",
                            replace(base, engine="auto"),
-                           {"tap_epilogue": True, "knn_int8_fold": True})
+                           {"tap_epilogue": True, "knn_int8_fold": True,
+                            "bias_relu_pool": True})
     finally:
         torch.cuda.set_per_process_memory_fraction(1.0)
     emit({"phase": "north_star_oom", "allowed_gb": allowed / 1e9,
@@ -2423,8 +2638,9 @@ def phase_north_star(torch) -> dict:
     return {"launches": {"auto": a["launches"],
                          "taps_bf16": b["launches"]}, "tower": tower,
             "plan": a["out"]["plan"],
-            "data": data, "auto": {k: a[k] for k in ("idx", "loss",
-                                                     "launches")}}
+            "data": data, "auto": {"counters": a["out"]["counters"],
+                                   **{k: a[k] for k in ("idx", "loss",
+                                                        "launches")}}}
 
 
 # ---------------------------------------------------------------------------
@@ -2464,7 +2680,8 @@ class RssPeak:
 def ingest_run(torch, label: str, cfg, auto: dict) -> dict:
     """``run_attack`` once from the PNG directories; its indices and
     losses must equal phase 10's 'auto' ``attack_arrays`` run on the same
-    arrays exactly, and K2 must launch as often as there."""
+    arrays exactly, and K2 must launch, and the tower's convolutions take
+    the kernel's pass, as often as there."""
     from ganleaks_tpu_torch.attack.fbb import run_attack
     torch.cuda.empty_cache()
     reset_launches()
@@ -2478,9 +2695,16 @@ def ingest_run(torch, label: str, cfg, auto: dict) -> dict:
     check(bool((idx == auto["idx"]).all() and (loss == auto["loss"]).all()),
           f"ingest {label}: results differ from attack_arrays' on the "
           f"same arrays")
-    check(launches == auto["launches"], f"ingest {label}: launches "
-                                        f"{launches}, phase 10 'auto' "
-                                        f"{auto['launches']}")
+    # the pass also runs in the probe of the staging estimate, which a
+    # streamed run skips: its searches' convolutions are compared instead
+    def searches(lau: dict, counters: dict) -> dict:
+        return {**{k: n for k, n in lau.items() if k != "bias_relu_pool"},
+                **{k: n for k, n in counters.items()
+                   if k.startswith("tower_epilogue")}}
+    got = searches(launches, out["counters"])
+    want = searches(auto["launches"], auto["counters"])
+    check(got == want, f"ingest {label}: launches and tower counters "
+                       f"{got}, phase 10 'auto' {want}")
     n_img = 2 * NS_POS + NS_SYN
     rec = {"phase": "ingest", "run": label,
            "decode_cache": cfg.decode_cache, "host_stream": cfg.host_stream,
@@ -4177,11 +4401,15 @@ def phase_pipeline(torch, tmp: str, north_plan: dict) -> dict:
     taps = 5  # VGG16's taps: one K2 launch each per featurised block
     s_blocks = plan["sweeps"] * -(-n_s // plan["s_block"])
     wants = {"tap_epilogue": taps * (-(-n_q // plan["q_block"]) + s_blocks),
-             "knn_int8_fold": s_blocks}
+             "knn_int8_fold": s_blocks,
+             # the pass: held against the tower's counters below
+             "bias_relu_pool": launches["bias_relu_pool"]}
     for name, n in launches.items():
         w = wants.get(name, 0)
         check(n == w, f"pipeline attack: {name} launched {n} times, want "
                       f"{w} (plan {plan})")
+    tower_convs_checked("pipeline attack", res["counters"],
+                        wants["tap_epilogue"], launches["bias_relu_pool"])
     roc = evaluate(EvalConfig(result_load_dir=res["save_dir"]))
     caught = int((res["pos_loss"][:PIPE_PLANT] < res["neg_loss"].min())
                  .sum())
@@ -4277,7 +4505,8 @@ NCCL_RUNS = [("nccl_sharded_auto", "sharded", "auto", False, {}, "auto"),
              ("nccl_sharded_auto_again", "sharded", "auto", False, {},
               "auto")]
 # the kernels each rank runs per search (K1 and K3 per tile, K2)
-RANK_WANT = {
+# (every rank's tower also runs the pass after each convolution)
+RANK_WANT = {label: ("bias_relu_pool", *names) for label, names in {
     "sharded_auto": ("tap_epilogue", "knn_int8_fold"),
     "sharded_pallas": ("knn_argmin.tf32x3",),
     "sharded_pallas_two_pass": ("knn_topk.wgmma", "knn_argmin.tf32x3"),
@@ -4285,8 +4514,9 @@ RANK_WANT = {
     "ring_taps_bf16": ("tap_epilogue", "knn_argmin.wgmma"),
     "nccl_sharded_auto": ("tap_epilogue", "knn_int8_fold"),
     "nccl_sharded_auto_again": ("tap_epilogue", "knn_int8_fold"),
-}
+}.items()}
 TAPS = 5  # VGG16's LPIPS taps: K2 launches per featurised block
+VGG_CONVS = 13  # VGG16's convolutions: the pass's launches per forward
 
 
 def rank_attacks(paths: dict, runs: list, base: dict, device: str) -> dict:
@@ -5088,6 +5318,8 @@ def main() -> int:
     lap("int8_fold")
     k2_err = phase_epilogue(torch)
     lap("epilogue")
+    t_pass = phase_tower_epilogue(torch)
+    lap("tower_epilogue")
     with tempfile.TemporaryDirectory() as tmp:
         data = attack_data(tmp)
         launches, single = phase_attack(torch, data)
@@ -5177,6 +5409,11 @@ def main() -> int:
          "none (the JAX package leaves the int8 dot to XLA)",
          north["launches"]["auto"]["knn_int8_fold"],
          t_int8["max_abs_err"], t_int8),
+        # phase 4b holds it bit for bit; timed on a 1,024-image block's
+        # 13 VGG16 convolution outputs
+        ("bias_relu_pool", "ganleaks_tpu_torch/csrc/bias_relu_pool.cu",
+         "none (XLA fuses the JAX tower's bias and ReLU)",
+         north["launches"]["auto"]["bias_relu_pool"], 0.0, t_pass),
     ]
     print(smi, flush=True)
     emit({"kernels": [{

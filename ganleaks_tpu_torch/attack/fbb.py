@@ -56,6 +56,7 @@ from ganleaks_tpu_torch.ops.knn import (FOLD_COUNTERS, PARTS_ENGINES,
                                         knn_argmin_two_pass,
                                         stream_need_bytes,
                                         truncate_to_batches)
+from ganleaks_tpu_torch.ops.lpips.bias_relu import TOWER_COUNTERS
 from ganleaks_tpu_torch.ops.stream_plan import (GIB, device_capacity,
                                                 sets_fit)
 from ganleaks_tpu_torch.parallel import multihost
@@ -293,7 +294,11 @@ def attack_arrays(cfg: AttackConfig, syn, pos, neg,
     copied there: 0 where a held cache covers them),
     ``int8_fold_kernel_blocks`` and ``int8_fold_parts_blocks`` (the int8
     argmin searches' blocks folded by the int8 fold kernel and by the
-    per-part chain, ``ops/knn.FOLD_COUNTERS``, summed like the query rows)
+    per-part chain, ``ops/knn.FOLD_COUNTERS``, summed like the query rows),
+    ``tower_epilogue_kernel_convs`` and ``tower_epilogue_plain_convs`` (the
+    LPIPS tower's ReLU-following convolution outputs the searches'
+    featurisation ran through the tower's kernel pass and through the
+    PyTorch ops, ``ops/lpips/bias_relu.TOWER_COUNTERS``, summed likewise)
     and, with ``two_pass``, ``rerank_candidates`` (the size of the
     re-rank's candidate union). The logged record carries the same.
 
@@ -414,7 +419,7 @@ def _attack_arrays(cfg: AttackConfig, syn, pos, neg, device, logger,
                 if k in info] or [info]
     counters = {k: sum(r.get(k, 0) for r in searches)
                 for k in ("query_rows_featurised", "query_rows_reused",
-                          *FOLD_COUNTERS)}
+                          *FOLD_COUNTERS, *TOWER_COUNTERS)}
     counters["query_rows_staged"] = staged
     if "rerank" in info:
         counters["rerank_candidates"] = info["rerank"]["candidates"]

@@ -22,7 +22,8 @@ CSRC_DIR = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 
 # every kernel source of the port; build_all() compiles them in parallel
-SOURCES = ("knn_argmin", "knn_topk", "tap_epilogue", "knn_int8_fold")
+SOURCES = ("knn_argmin", "knn_topk", "tap_epilogue", "knn_int8_fold",
+           "bias_relu_pool")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

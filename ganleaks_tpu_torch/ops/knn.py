@@ -55,6 +55,8 @@ from ganleaks_tpu_torch.ops.knn_fused import (knn_argmin_fused,
 from ganleaks_tpu_torch.ops.knn_int8 import (_fold_block_parts_q,
                                              _int8_cross, argmin_fold,
                                              kernel_route)
+from ganleaks_tpu_torch.ops.lpips.bias_relu import (TOWER_COUNTERS,
+                                                   tower_counts)
 from ganleaks_tpu_torch.ops.stream_plan import (FOLD_BYTES_PER_PAIR,
                                                 activation_bytes_per_row,
                                                 plan_bytes, plan_stream)
@@ -491,7 +493,10 @@ def _stream_search(spec: SearchSpec, queries, syn, *, q_block: int,
     ``query_reused``, the query rows it featurised into its cache and
     those a held cache served (``query_rows_featurised``,
     ``query_rows_reused``), the blocks folded per int8 route
-    (:data:`FOLD_COUNTERS`) and the planner's budget (``capacity_bytes``:
+    (:data:`FOLD_COUNTERS`), the LPIPS tower's convolution outputs its
+    featurisation ran through the tower's kernel pass and through the
+    PyTorch ops (``ops/lpips/bias_relu.TOWER_COUNTERS``) and the planner's
+    budget (``capacity_bytes``:
     what the card reported plus a held cache of these queries; None
     without the planner).
 
@@ -508,6 +513,7 @@ def _stream_search(spec: SearchSpec, queries, syn, *, q_block: int,
     info = {} if info is None else info
     info.update(oom_resumes=0, halvings=[], query_rows_featurised=0,
                 query_rows_reused=0, **dict.fromkeys(FOLD_COUNTERS, 0))
+    tower0 = dict(tower_counts)
     row_bytes = spec.row_bytes
     with span("knn.plan"):
         fp = (_fingerprint(queries, (spec.signature, str(cdtype), k_dim))
@@ -739,7 +745,8 @@ def _stream_search(spec: SearchSpec, queries, syn, *, q_block: int,
             qs0 = end
     info.update(q_block=q_block, s_block=s_block,
                 cache_bytes=cache_rows * row_bytes, sweeps=sweeps,
-                query_reused=info["query_rows_reused"] > 0, **spec.counters)
+                query_reused=info["query_rows_reused"] > 0, **spec.counters,
+                **{k: tower_counts[k] - tower0[k] for k in TOWER_COUNTERS})
     return tuple(torch.cat(cols) for cols in zip(*outs))
 
 

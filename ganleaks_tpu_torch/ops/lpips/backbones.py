@@ -21,6 +21,18 @@ holds its convolutions flat in the JAX package's traversal order
 BasicBlock's conv1, conv2, downsample), so one weights file fits both
 packages. The tower runs NCHW on cuDNN; its public input and taps are
 NHWC, the JAX package's layout.
+
+On the card, where autograd records nothing (the attack's searches run
+under ``torch.inference_mode``), every ReLU-following convolution runs
+with no bias and hands its output to ``bias_relu.bias_relu_pool``, the
+hand-written pass that adds the bias and applies the ReLU in place, and
+also pools where the element list reads conv, tap, then a 2x2 stride-2
+floor pool (all four of VGG16's pools; the 3x3 and padded pools keep
+``F.max_pool2d``). The tap stays the full-resolution post-ReLU tensor.
+Everywhere else (the CPU, or a backward through the tower: ``train2afc``
+with ``tune_backbone``) the bias goes into ``F.conv2d``, then ``F.relu``
+and ``F.max_pool2d`` follow. The two routes give the same bits on the
+card; ``bias_relu.tower_counts`` counts the convolutions each took.
 """
 
 from __future__ import annotations
@@ -28,6 +40,10 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from ganleaks_tpu_torch.ops.lpips.bias_relu import (TOWER_COUNTERS,
+                                                   bias_relu_pool,
+                                                   tower_counts)
 
 # Elements:
 #   ("conv", out, k, s, p)      conv + bias + relu
@@ -181,6 +197,33 @@ def _conv(h: torch.Tensor, conv: nn.Conv2d) -> torch.Tensor:
                     stride=conv.stride, padding=conv.padding)
 
 
+def _records_grad(h: torch.Tensor, conv: nn.Conv2d) -> bool:
+    """Whether autograd records ``conv`` applied to ``h``."""
+    return torch.is_grad_enabled() and (
+        h.requires_grad or conv.weight.requires_grad
+        or conv.bias.requires_grad)
+
+
+def _on_kernel(h: torch.Tensor, conv: nn.Conv2d) -> bool:
+    """Whether ``conv``'s bias and ReLU run in ``bias_relu_pool``'s kernel:
+    on the card, where autograd records nothing."""
+    return h.device.type == "cuda" and not _records_grad(h, conv)
+
+
+def _conv_relu(h: torch.Tensor, conv: nn.Conv2d, pool: bool = False
+               ) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """``relu(conv(h))`` and, with ``pool`` on the kernel's route, its 2x2
+    stride-2 max pool (else None: the caller pools)."""
+    if not _on_kernel(h, conv):
+        tower_counts[TOWER_COUNTERS[1]] += 1
+        return F.relu(_conv(h, conv)), None
+    y = F.conv2d(h, conv.weight.to(h.dtype), None, stride=conv.stride,
+                 padding=conv.padding)
+    tower_counts[TOWER_COUNTERS[0]] += 1
+    return bias_relu_pool(y.contiguous(memory_format=torch.channels_last),
+                          conv.bias.to(h.dtype), pool)
+
+
 class Tower(nn.Module):
     """One LPIPS feature tower (``net`` in vgg / alex / squeeze / resnet,
     with the 'vgg16' and 'resnet18' aliases); ``forward`` returns its
@@ -192,29 +235,39 @@ class Tower(nn.Module):
         self.convs = nn.ModuleList(
             nn.Conv2d(c, out, k, stride=s, padding=p)
             for c, out, k, s, p in _conv_specs(net, in_ch))
+        # conv elements whose pool the kernel's pass takes: conv, tap, then
+        # a 2x2 stride-2 floor pool
+        self.pool_after = frozenset(
+            i for i, el in enumerate(self.elems) if el[0] == "conv"
+            and self.elems[i + 1:i + 3] == [("tap",),
+                                            ("maxpool", 2, 2, "floor")])
 
     def forward(self, x: torch.Tensor) -> list[torch.Tensor]:
         """x: (N, H, W, C), already shift/scale-normalised -> NHWC taps."""
         h = x.permute(0, 3, 1, 2)
         convs = iter(self.convs)
         taps = []
-        for el in self.elems:
+        pooled = None  # the kernel's pool of the last conv, if it took it
+        for i, el in enumerate(self.elems):
             kind = el[0]
             if kind == "tap":
                 taps.append(h.permute(0, 2, 3, 1))
             elif kind == "maxpool":
-                k, s, mode = el[1:]
-                h = F.max_pool2d(h, k, s, padding=int(mode == "pad1"),
-                                 ceil_mode=mode == "ceil")
+                if pooled is not None:
+                    h, pooled = pooled, None
+                else:
+                    k, s, mode = el[1:]
+                    h = F.max_pool2d(h, k, s, padding=int(mode == "pad1"),
+                                     ceil_mode=mode == "ceil")
             elif kind == "conv":
-                h = F.relu(_conv(h, next(convs)))
+                h, pooled = _conv_relu(h, next(convs), i in self.pool_after)
             elif kind == "fire":
-                sq = F.relu(_conv(h, next(convs)))
-                e1 = F.relu(_conv(sq, next(convs)))
-                e3 = F.relu(_conv(sq, next(convs)))
+                sq, _ = _conv_relu(h, next(convs))
+                e1, _ = _conv_relu(sq, next(convs))
+                e3, _ = _conv_relu(sq, next(convs))
                 h = torch.cat([e1, e3], dim=1)
             elif kind == "resblock":
-                y = F.relu(_conv(h, next(convs)))
+                y, _ = _conv_relu(h, next(convs))
                 y = _conv(y, next(convs))
                 if el[3]:
                     h = _conv(h, next(convs))

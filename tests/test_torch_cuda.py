@@ -1,6 +1,7 @@
 """Tests of the port that need a CUDA device: the fused distance+argmin
-and distance+top-k kernels and the tap epilogue kernel against their
-plain PyTorch versions on the card, and the searches and engines that
+and distance+top-k kernels, the tap epilogue kernel and the LPIPS tower's
+pass after each convolution against their plain PyTorch versions on the
+card, and the searches and engines that
 launch them; the distance+argmin kernel on the tabular path's binary rows
 (K = 1,071) against float64; the InceptionV3 tower and the spectral-norm
 layer on the card against the CPU. They skip without a GPU.
@@ -331,3 +332,41 @@ def test_spectral_norm_layer_cuda_matches_cpu(cuda_device):
         got = layer(x.to(cuda_device)).cpu()
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
     assert torch.equal(layer.u.cpu(), u) and torch.equal(layer.v.cpu(), v)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,c,h,w", [(4, 64, 64, 64), (3, 192, 7, 9),
+                                     (2, 512, 1, 1), (5, 16, 33, 2)])
+@pytest.mark.parametrize("pool", [False, True])
+def test_bias_relu_pool_kernel_matches_plain(cuda_device, dtype, n, c, h, w,
+                                             pool):
+    """The tower's pass after a convolution against its plain version
+    (PyTorch's ops on the card) bit for bit, NaN and signed zeros
+    included; one launch, in place."""
+    from ganleaks_tpu_torch.ops.lpips.bias_relu import (
+        bias_relu_pool, bias_relu_pool_plain)
+
+    g = torch.Generator(device=cuda_device).manual_seed(c + h)
+    b = torch.randn(c, generator=g, device=cuda_device).to(dtype)
+    b[::5] = -0.0
+    x = torch.randn((n, h, w, c), generator=g, device=cuda_device).to(dtype)
+    x[:, ::3, ::2] = -b
+    flat = x.view(-1)
+    flat[::97] = float("nan")
+    flat[1::89] = -0.0
+    x = x.permute(0, 3, 1, 2)
+    if pool and min(h, w) < 2:  # F.max_pool2d refuses it too
+        with pytest.raises(ValueError, match="two rows and two columns"):
+            bias_relu_pool(x, b, pool)
+        return
+    want_y, want_p = bias_relu_pool_plain(x, b, pool)
+    before = bias_relu_pool.launches
+    y, p = bias_relu_pool(x, b, pool)
+    assert bias_relu_pool.launches == before + 1
+    assert y.data_ptr() == x.data_ptr()
+    ints = torch.int16 if dtype == torch.bfloat16 else torch.int32
+    for got, want in ((y, want_y), (p, want_p)) if pool else ((y, want_y),):
+        assert got.shape == want.shape
+        assert torch.equal(got.permute(0, 2, 3, 1).contiguous().view(ints),
+                           want.permute(0, 2, 3, 1).contiguous().view(ints))

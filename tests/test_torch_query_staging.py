@@ -55,6 +55,15 @@ def _folds(cfg) -> dict:
             "int8_fold_parts_blocks": 0}
 
 
+def _tower(cfg, blocks: int) -> dict:
+    """The tower counters of a call that featurised ``blocks`` blocks:
+    VGG16's 13 convolutions a block through the PyTorch ops on the CPU
+    (the kernel's pass runs on the card only), none without LPIPS."""
+    lpips = cfg.distance == "l2-lpips"
+    return {"tower_epilogue_kernel_convs": 0,
+            "tower_epilogue_plain_convs": 13 * blocks if lpips else 0}
+
+
 def _eq(out, ref):
     for key in ("pos_loss", "neg_loss", "pos_nn_idx", "neg_nn_idx"):
         np.testing.assert_array_equal(out[key], ref[key])
@@ -95,7 +104,8 @@ def test_held_queries_are_not_staged(staged, case):
     assert first["counters"]["query_rows_staged"] == n_q
     assert second["counters"] == {"query_rows_featurised": 0,
                                   "query_rows_reused": n_q,
-                                  "query_rows_staged": 0, **_folds(cfg)}
+                                  "query_rows_staged": 0, **_folds(cfg),
+                                  **_tower(cfg, 5)}
 
 
 def test_changed_middle_row_is_featurised_and_staged(staged):
@@ -115,7 +125,8 @@ def test_changed_middle_row_is_featurised_and_staged(staged):
     assert staged == [np.ndarray]
     assert out["counters"] == {"query_rows_featurised": n_q,
                                "query_rows_reused": 0,
-                               "query_rows_staged": n_q, **_folds(cfg)}
+                               "query_rows_staged": n_q, **_folds(cfg),
+                               **_tower(cfg, 3 + 5)}
     _eq(out, fbb.attack_arrays(cfg, syn, changed, neg, device="cpu"))
 
 

@@ -213,7 +213,10 @@ def test_query_row_counters(engine):
     # every call folds the 40 synthetic rows in 5 blocks; 'taps-int8'
     # folds them in the int8 fold kernel's route (192-byte pixel rows)
     folds = {"int8_fold_kernel_blocks": 5 if engine == "taps-int8" else 0,
-             "int8_fold_parts_blocks": 0}
+             "int8_fold_parts_blocks": 0,
+             # distance 'l2' runs no LPIPS tower
+             "tower_epilogue_kernel_convs": 0,
+             "tower_epilogue_plain_convs": 0}
     assert first["counters"] == {"query_rows_featurised": n_q,
                                  "query_rows_reused": 0,
                                  "query_rows_staged": n_q, **folds}
