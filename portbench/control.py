@@ -1,13 +1,14 @@
-"""The control of a cell's comparison: the plain reference put in the
-program's place one precision step below the configuration's fold (int8
-parts become int4: 7 steps of the same static bounds), read by the same
-numbers as a run's ``check``. The limits must fail it.
+"""The control of a cell's comparison: the configuration module's plain
+reference put in the program's place one precision step below the
+configuration's (the default module's int8 parts become int4: 7 steps of
+the same static bounds), read by the same numbers as a run's ``check``.
+The limits must fail it.
 
     python3 -m portbench.control --workload vgg16-64.grid --seeds 1 2 3
 
-For each seed: the cell's weights, query sets and the synthetic sets of
-as many calls as a run compares, drawn as a run draws them; one JSON line
-per seed with the control's numbers beside the cell's limits, and
+For each seed: the module's set-up and the inputs of as many calls as a
+run compares, made as a run makes them (``Bench.control``); one JSON
+line per seed with the control's numbers beside the cell's limits, and
 whether the comparison fails it. No benchmark run runs this.
 """
 
@@ -17,30 +18,26 @@ import argparse
 import json
 import os
 import sys
+import tempfile
 
 import numpy as np
 
-from portbench import check, run, traffic, weights
-
-INT4_LEVELS = 7
+from portbench import check, run
 
 
-def control(workload: dict, config: dict, seed: int, device) -> dict:
+def control(workload: dict, config: dict, seed: int, device,
+            root: str | None = None) -> dict:
     """The control's largest numbers over the calls a run compares."""
-    spec, cspec = workload["traffic"], workload["check"]
-    res = config["resolution"]
-    w = weights.make(config, seed, device)
-    pos, neg = traffic.queries(spec, res, seed, device)
-    queries = np.concatenate([pos, neg])
-    calls, qs = check.sample(seed, cspec["calls"], len(queries), cspec)
+    cspec = workload["check"]
+    module = run.config_module(config, root or os.path.dirname(run.HERE))
     worst: dict = {}
-    for c in calls:
-        got = check.compare_call(
-            config=config, traffic_spec=spec, weights=w, seed=seed, call=c,
-            members=pos, q_images=queries[qs], device=device,
-            block=cspec["block"], control_levels=INT4_LEVELS)["control"]
-        for k, v in got.items():
-            worst[k] = max(worst.get(k, -np.inf), v)
+    with tempfile.TemporaryDirectory(prefix="portbench-") as tmp:
+        bench = module.Bench(config, workload, seed, device, tmp)
+        calls, qs = check.sample(seed, cspec["calls"], bench.n_queries,
+                                 cspec)
+        for c in calls:
+            for k, v in bench.control(c, qs).items():
+                worst[k] = max(worst.get(k, -np.inf), v)
     return worst
 
 
@@ -61,7 +58,7 @@ def main(argv=None, device=None, root: str | None = None) -> int:
     device = torch.device(device)
     limits = workload["check"]["limits"]
     for seed in args.seeds:
-        got = control(workload, config, seed, device)
+        got = control(workload, config, seed, device, root)
         fails, table = check.verdict(got, limits)
         print(json.dumps({"workload": args.workload, "seed": seed,
                           "fails": not fails,

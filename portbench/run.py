@@ -4,25 +4,26 @@
         --seconds 30 --trace 0
 
 The cell is ``workloads/<name>.json`` (its configuration, traffic, warm-up
-and comparison), its configuration ``configs/<config>.json``, and its
-metrics the entries of the checkout's ``BENCHMARK.json`` that apply to it,
-each read by ``metrics/<metric>.py``. A run:
+and comparison), its configuration ``configs/<config>.json``, the
+configuration's module ``modules/<module>.py`` (``modules/lpips.py``
+where the configuration names none), and its metrics the entries of the
+checkout's ``BENCHMARK.json`` that apply to it, each read by
+``metrics/<metric>.py``. A run:
 
-1. set-up: the tower's weights and the query sets from the seed on the
-   card (the weights handed to the program as an npz under ``TMPDIR``),
-   then warm-up calls at the cell's shape, which also fill the program's
-   query cache (the ``sweep_cache`` a grid study passes every victim);
-2. the window: a closed loop of one caller, each call
-   ``ganleaks_tpu_torch.attack.fbb.attack_arrays`` on a synthetic set no
-   earlier call saw, drawn on the card from (seed, call) and on the host
+1. set-up: the module's ``Bench`` (weights and inputs from the seed, the
+   files the program reads under ``TMPDIR``), then warm-up calls at the
+   cell's shape (the default module's also fill the program's query
+   cache, the ``sweep_cache`` a grid study passes every victim);
+2. the window: a closed loop of one caller, each call the module's
+   ``timed_call`` on an input no earlier call saw, made from (seed, call)
    before the call's clock starts; it closes once the calls' seconds
    reach ``--seconds``;
 3. ``--trace 1``: the window runs under ``torch.profiler`` and the
    result carries the per-layer metrics, the device's busy seconds and a
    breakdown; ``--trace 0`` takes no profiler and reports the end-to-end
    metrics;
-4. the comparison with the plain reference (``check.py``) once the
-   program's state is freed.
+4. the comparison with the module's plain reference (``check.py``) once
+   the program's state is freed.
 
 The last line of standard output is the result, as one JSON object; the
 numbers compared, each beside its limit, are the last lines of standard
@@ -59,6 +60,7 @@ import numpy as np  # noqa: E402
 HERE = os.path.dirname(os.path.abspath(__file__))
 FORBIDDEN = ("jax", "jaxlib", "flax", "ganleaks_tpu")
 MAX_FAILED = 3  # calls that may raise before the window closes early
+DEFAULT_MODULE = "lpips"
 
 
 def parse(argv):
@@ -91,14 +93,26 @@ def cell_metrics(bench: dict, cell: str, kind: str) -> list[tuple[str, str]]:
             if cell in m.get("workloads", [cell])]
 
 
-def reader(name: str, root: str):
-    """The ``read(records)`` function of ``metrics/<name>.py``."""
-    path = os.path.join(root, "portbench", "metrics", f"{name}.py")
+def _load(root: str, folder: str, name: str):
+    """``portbench/<folder>/<name>.py``, loaded by its path."""
+    path = os.path.join(root, "portbench", folder, f"{name}.py")
     spec = importlib.util.spec_from_file_location(
-        "portbench_metric_" + name.replace(".", "_").replace("-", "_"), path)
+        f"portbench_{folder}_" + name.replace(".", "_").replace("-", "_"),
+        path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
-    return mod.read
+    return mod
+
+
+def reader(name: str, root: str):
+    """The ``read(records)`` function of ``metrics/<name>.py``."""
+    return _load(root, "metrics", name).read
+
+
+def config_module(config: dict, root: str):
+    """The configuration's module: ``modules/<config["module"]>.py``, or
+    ``modules/lpips.py`` where the configuration names none."""
+    return _load(root, "modules", config.get("module", DEFAULT_MODULE))
 
 
 def loaded_forbidden() -> list[str]:
@@ -148,16 +162,12 @@ def card_power(device) -> str | None:
     return out.stdout.strip().splitlines()[0]
 
 
-def run_cell(args, workload: dict, config: dict, device) -> dict:
+def run_cell(args, workload: dict, config: dict, module, device) -> dict:
     """Set-up, the window and the comparison; returns what the metrics
     and the result line read."""
     import torch
 
-    from ganleaks_tpu_torch.attack import fbb
-    from ganleaks_tpu_torch.config import AttackConfig
-    from ganleaks_tpu_torch.ops.lpips.epilogue import tap_epilogue
-
-    from portbench import check, trace, traffic, weights
+    from portbench import check, trace, traffic
 
     cuda = device.type == "cuda"
 
@@ -165,29 +175,14 @@ def run_cell(args, workload: dict, config: dict, device) -> dict:
         if cuda:
             torch.cuda.synchronize(device)
 
-    seed, res, spec = args.seed, config["resolution"], workload["traffic"]
-    w = weights.make(config, seed, device)
     tmp = tempfile.TemporaryDirectory(prefix="portbench-")
-    npz = os.path.join(tmp.name, "lpips.npz")
-    weights.save_npz(w, config["net"], npz)
-    cfg = AttackConfig(**config["attack"], lpips_weights=npz)
-    pos, neg = traffic.queries(spec, res, seed, device)
-    sweep: dict = {}
+    bench = module.Bench(config, workload, args.seed, device, tmp.name)
     log = _Records()
 
-    def host_set(call: int, stream: int = traffic.WINDOW
-                 ) -> tuple[np.ndarray, int]:
-        syn = traffic.synthetic(spec, res, seed, call, pos, device, stream)
-        total = traffic.checksum(syn)
-        host = syn.cpu().numpy()
-        del syn
-        return host, total
-
     for i in range(workload["warmup_calls"]):
-        syn, _ = host_set(i, traffic.WARMUP)
-        fbb.attack_arrays(cfg, syn, pos, neg, device=device,
-                          sweep_cache=sweep, logger=log)
-        del syn
+        inp, _ = bench.call_input(i, traffic.WARMUP)
+        bench.timed_call(inp, log)
+        del inp
     sync()
 
     calls, results, sums = [], [], []
@@ -197,20 +192,18 @@ def run_cell(args, workload: dict, config: dict, device) -> dict:
         window = 0.0
         t_window = time.perf_counter()
         while window < args.seconds:
-            syn, total = host_set(len(calls))
+            inp, total = bench.call_input(len(calls), traffic.WINDOW)
             sums.append(total)
             if cuda:
                 sync()
                 torch.cuda.reset_peak_memory_stats(device)
             log.records.clear()
-            k2 = tap_epilogue.launches
             if setup_s is None:
                 setup_s = time.perf_counter() - T_START
             t0 = time.perf_counter()
             try:
                 with trace.call_range(prof):
-                    out = fbb.attack_arrays(cfg, syn, pos, neg, device=device,
-                                            sweep_cache=sweep, logger=log)
+                    out = bench.timed_call(inp, log)
             except Exception:  # a failed call is counted, not fatal
                 traceback.print_exc()
                 out = None
@@ -219,27 +212,12 @@ def run_cell(args, workload: dict, config: dict, device) -> dict:
             if cuda:
                 peak = max(peak, torch.cuda.max_memory_allocated(device))
             rec = {"seconds": dt, "ok": out is not None,
-                   "n_q": len(pos) + len(neg), "n_s": len(syn),
-                   "k2_launches": tap_epilogue.launches - k2}
-            for r in log.records:
-                if "engine_resolved" in r:
-                    rec["engine"], rec["embed_dtype"] = (r["engine_resolved"],
-                                                         r["dtype"])
-            if out is not None:
-                rec.update({k: out[k] for k in (
-                    "featurize_s", "fold_s", "lpips_init_s", "host_copy_s",
-                    "oom_resumes", "sets_on_device")})
-                rec["query_reused"] = bool(out["plan"]["query_reused"])
-                rec["plan"] = out["plan"]
-                results.append({
-                    "loss": np.concatenate([out["pos_loss"],
-                                            out["neg_loss"]]),
-                    "idx": np.concatenate([out["pos_nn_idx"],
-                                           out["neg_nn_idx"]])})
-            else:
-                results.append(None)
+                   **bench.record(inp, out, log.records)}
+            if out is not None and "counters" in out:
+                rec["counters"] = dict(out["counters"])
+            results.append(None if out is None else bench.answers(out))
             calls.append(rec)
-            del syn, out
+            del inp, out
             if sum(not c["ok"] for c in calls) >= MAX_FAILED:
                 break
             if time.perf_counter() - t_window > 3 * args.seconds + 60:
@@ -249,7 +227,7 @@ def run_cell(args, workload: dict, config: dict, device) -> dict:
 
     t_closed = time.perf_counter()
     # the program's state goes before the reference runs
-    sweep.clear()
+    bench.release()
     gc.collect()
     if cuda:
         torch.cuda.empty_cache()
@@ -258,31 +236,10 @@ def run_cell(args, workload: dict, config: dict, device) -> dict:
     t_traced = time.perf_counter()
 
     # the comparison, on calls and queries drawn from the seed
-    done = [i for i, r in enumerate(results) if r is not None]
     cspec = workload["check"]
-    queries = np.concatenate([pos, neg])
-    numbers = {"failed_calls": sum(not c["ok"] for c in calls),
-               "engine_departures": sum(
-                   c.get("engine") != config["engine_resolved"]
-                   or c.get("embed_dtype") != config["embed_dtype"]
-                   for c in calls if c["ok"]),
-               "bad_indices": 0, "set_mismatch": 0}
-    if done:
-        picks, qs = check.sample(seed, len(done), len(queries), cspec)
-        for j in picks:
-            c = done[j]
-            got = check.compare_call(
-                config=config, traffic_spec=spec, weights=w, seed=seed,
-                call=c, members=pos, q_images=queries[qs], device=device,
-                block=cspec["block"], picks=results[c]["idx"][qs],
-                losses=results[c]["loss"][qs], checksum=sums[c])
-            for k in ("bad_indices", "set_mismatch"):
-                numbers[k] += got.pop(k)
-            for k, v in got.items():
-                numbers[k] = max(numbers.get(k, -np.inf), v)
-    else:
-        numbers.update(loss_gap=np.inf, nn_gap=np.inf)
+    numbers = check.judge(bench, args.seed, calls, results, sums, cspec)
     correct, table = check.verdict(numbers, cspec["limits"])
+    del bench
     tmp.cleanup()
     print(f"window_wall_s {t_closed - t_window!r} trace_reduce_s "
           f"{t_traced - t_closed!r} check_s "
@@ -314,13 +271,14 @@ def main(argv=None, device=None, root: str | None = None) -> int:
     device = torch.device(device)
     kind = "per_layer" if args.trace else "end_to_end"
     wanted = cell_metrics(bench, args.workload, kind)
-    got = run_cell(args, workload, config, device)
+    module = config_module(config, root)
+    got = run_cell(args, workload, config, module, device)
     if refused(got["bad_modules"]):
         return 3
     dev = device_line(torch, device, chips, got["memory_peak_bytes"])
-    records = {"cell": workload, "config": config, "calls": got["calls"],
-               "setup_s": got["setup_s"], "trace": got["trace"],
-               "device_kind": dev["kind"]}
+    records = {"cell": workload, "config": config, "module": module,
+               "calls": got["calls"], "setup_s": got["setup_s"],
+               "trace": got["trace"], "device_kind": dev["kind"]}
     metrics = {}
     for name, unit in wanted:
         value = reader(name, root)(records)

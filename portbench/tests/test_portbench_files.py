@@ -42,6 +42,8 @@ def test_config_file(entry):
     assert config["name"] == entry["name"]
     assert config["reduced"] == entry["reduced"]
     assert any(w["config"] == entry["name"] for w in BENCH["workloads"])
+    module = run.config_module(config, REPO)
+    assert callable(module.Bench) and callable(module.least_seconds)
 
 
 @pytest.mark.parametrize("entry", BENCH["workloads"], ids=lambda e: e["name"])
@@ -91,6 +93,13 @@ def test_every_workload_file_loads(name):
 @pytest.mark.parametrize("name", _names("metrics"))
 def test_every_metric_file_loads(name):
     assert callable(run.reader(name, REPO))
+
+
+@pytest.mark.parametrize("name", _names("modules"))
+def test_every_module_file_loads(name):
+    module = run.config_module({"module": name}, REPO)
+    assert callable(module.Bench) and callable(module.least_seconds)
+    assert module.Bench.COUNTS
 
 
 def test_files_are_named_from_name_characters():
